@@ -1,0 +1,31 @@
+"""deepvcp_tpu_torch — the PyTorch + CUDA port of deepvcp_tpu for NVIDIA
+Hopper (H100).
+
+The JAX package deepvcp_tpu stays the reference; this package mirrors its
+layout (ops/, models/, loss/, registration.py, pretrained.py) and shares its
+config. It imports torch and numpy, never jax. Every Pallas kernel on the
+ported path is a hand-written CUDA kernel under csrc/, built with nvcc on
+first use (ops/kernels/_build.py), beside a plain PyTorch version that CPU
+tensors run.
+
+Layout:
+    ops/          geometry ops; ops/kernels/ the CUDA kernel wrappers
+    models/       banded set abstraction, FE, heads, DeepVCP forward
+    loss/         the trimmed Kabsch pose solve
+    registration  Registrar, the inference contract
+    pretrained    registry checkpoints exported to weights/*.npz
+    convert       flax variables -> state dict
+    data/         JAX-free synthetic held-out pairs and pose metrics
+"""
+
+import torch
+
+from deepvcp_tpu.config import DeepVCPConfig  # noqa: F401
+
+# float32 must mean float32 on the card, as in the JAX reference: matmuls
+# are full f32 by default, but cuDNN runs f32 convolutions (the CPG Conv3d)
+# in TF32 unless told not to.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"

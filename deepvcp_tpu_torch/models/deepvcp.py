@@ -1,0 +1,155 @@
+"""DeepVCP forward (port of deepvcp_tpu/models/deepvcp.py), default branches:
+top-K keypoints, source neighbourhoods from the full source cloud (D13),
+flat candidate KNN, derotated target neighbourhoods (D14) and the fused
+[N, 3+F] gather.
+
+The forward is split at the warm start. `encode` is everything that does not
+depend on the pose (both FE passes, saliency, keypoints and the source
+descriptors); `correspond` is everything after it. `forward` is
+`correspond(encode(...))`. The JAX Registrar re-emits the whole forward per
+refinement iteration and relies on XLA to dedupe the pose-free prefix;
+eager PyTorch would run it again, so the port's Registrar encodes once.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Tuple
+
+import torch
+from torch import nn
+
+from deepvcp_tpu.config import DeepVCPConfig
+from deepvcp_tpu_torch.models.layers import CPG, FeatEmbedding, FeatureExtraction, WeightingLayer
+from deepvcp_tpu_torch.ops import apply_rigid, approx_knn, index_points, knn, voxelize
+
+_EPS = 1e-8
+
+
+class Encoding(NamedTuple):
+    """The pose-independent half of a forward pass."""
+
+    keypoints: torch.Tensor          # [B, K, 3]
+    keypoint_idx: torch.Tensor       # [B, K] int64
+    keypoint_saliency: torch.Tensor  # [B, K]
+    saliency: torch.Tensor           # [B, N]
+    src_descriptors: torch.Tensor    # [B, K, F]
+    tgt_xyz: torch.Tensor            # [B, N, 3]
+    tgt_table: torch.Tensor          # [B, N, 3+F]: xyz and features, one gather
+
+
+def _unsupported(cfg: DeepVCPConfig) -> str:
+    """The first non-default branch cfg selects that the port lacks, with
+    the ROADMAP item that brings it ('' when all are ported)."""
+    if cfg.keypoint_selection != "topk":
+        return "keypoint_selection='salient_fps' (needs FPS kernel K3, ROADMAP M8)"
+    if cfg.dfe_src_neighbors != "cloud":
+        return "dfe_src_neighbors='keypoints' (ROADMAP M10)"
+    if cfg.use_two_level_tgt_knn:
+        return "tgt_knn two-level grouping (needs kernels K4/K5, ROADMAP M10)"
+    if not cfg.use_pallas_band_max:
+        return "use_pallas_band_max=False static-band pooling (ROADMAP M10)"
+    if cfg.compute_dtype != "float32":
+        return f"compute_dtype={cfg.compute_dtype!r} (ROADMAP M10)"
+    return ""
+
+
+class DeepVCP(nn.Module):
+    """forward(src, tgt, R_init, t_init) -> (keypoints [B,K,3], vcp [B,K,3], aux).
+
+    src/tgt [B, N, 3] or [B, N, 6] (xyz + normals), channels last; R_init
+    [B, 3, 3], t_init [B, 3] warm-start pose. Inference only."""
+
+    def __init__(self, cfg: DeepVCPConfig):
+        super().__init__()
+        cfg = cfg.resolve()
+        missing = _unsupported(cfg)
+        if missing:
+            raise NotImplementedError(f"not ported yet: {missing}")
+        self.cfg = cfg
+        self.fe = FeatureExtraction(cfg)
+        self.wl = WeightingLayer(cfg.wl_mlp, cfg.feat_dim)
+        self.dfe = FeatEmbedding(cfg.dfe_mlp, 3 + cfg.feat_dim, activation=cfg.dfe_activation)
+        self.cpg = CPG(cfg.cpg_channels, cfg.grid_size, cfg.dfe_mlp[-1])
+
+    def _knn(self, ref: torch.Tensor, query: torch.Tensor, chunked: bool):
+        cfg = self.cfg
+        if cfg.use_approx_knn:
+            return approx_knn(ref, query, cfg.num_neighbors,
+                              chunk=cfg.knn_query_chunk if chunked else None,
+                              select_dtype=cfg.knn_select_dtype_effective)
+        return knn(ref, query, cfg.num_neighbors,
+                   chunk=cfg.query_chunk if chunked else None)
+
+    def features(self, pts: torch.Tensor) -> torch.Tensor:
+        """FE of one cloud [B, N, 3(+3)] -> [B, N, F]."""
+        nrm = pts[..., 3:6] if self.cfg.use_normal else None
+        return self.fe(pts[..., :3], nrm)
+
+    def encode(self, src: torch.Tensor, tgt: torch.Tensor) -> Encoding:
+        cfg = self.cfg
+        src_xyz = src[..., :3]
+        src_feat = self.features(src)
+        saliency = self.wl(src_feat)
+        kp_saliency, kp_idx = torch.topk(saliency, cfg.num_keypoints, dim=-1)
+        kp_xyz = index_points(src_xyz, kp_idx)
+        # D13: source neighbourhoods from the keypoint's ns-NN in the full
+        # source cloud, the same construction as the target branch
+        _, nb_idx = self._knn(src_xyz, kp_xyz, chunked=False)
+        snb = index_points(torch.cat([src_xyz, src_feat], dim=-1), nb_idx)
+        local_xyz = snb[..., :3] - kp_xyz[:, :, None, :]
+        d_src = torch.linalg.norm(local_xyz, dim=-1)
+        w_src = d_src / (torch.sum(d_src, dim=-1, keepdim=True) + _EPS)
+        src_cat = torch.cat([local_xyz, snb[..., 3:] * w_src[..., None]], dim=-1)
+        tgt_xyz = tgt[..., :3]
+        tgt_feat = self.features(tgt)
+        return Encoding(
+            keypoints=kp_xyz, keypoint_idx=kp_idx, keypoint_saliency=kp_saliency,
+            saliency=saliency, src_descriptors=self.dfe(src_cat),
+            tgt_xyz=tgt_xyz, tgt_table=torch.cat([tgt_xyz, tgt_feat], dim=-1))
+
+    def candidates(self, enc: Encoding, R_init: torch.Tensor,
+                   t_init: torch.Tensor) -> torch.Tensor:
+        """Warm-start the keypoints and lay the voxel grid: [B, K, C, 3]."""
+        cfg = self.cfg
+        kp_warm = apply_rigid(enc.keypoints, R_init, t_init)
+        return voxelize(kp_warm, cfg.search_radius, cfg.voxel_len, centered=cfg.centered_grid)
+
+    def candidate_neighbors(self, enc: Encoding, candidates: torch.Tensor) -> torch.Tensor:
+        """Each candidate's ns-NN in the target cloud: [B, K*C, ns] indices."""
+        B, K, C, _ = candidates.shape
+        _, idx = self._knn(enc.tgt_xyz, candidates.reshape(B, K * C, 3), chunked=True)
+        return idx
+
+    def match(self, enc: Encoding, candidates: torch.Tensor, tnb_idx: torch.Tensor,
+              R_init: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Gather, derotate and weight the candidates' neighbourhoods, embed
+        them and run the CPG: (vcp [B, K, 3], candidate weights [B, K, C])."""
+        B, K, C, _ = candidates.shape
+        tnb = index_points(enc.tgt_table, tnb_idx)                   # [B,KC,ns,3+F]
+        local_t = tnb[..., :3] - candidates.reshape(B, K * C, 1, 3)
+        if self.cfg.derotate_tgt_neighborhoods:
+            # D14: row-vector form of R_init^T v, into the source frame
+            local_t = local_t @ R_init[:, None]
+        nb_dist = torch.linalg.norm(local_t, dim=-1)
+        w_tgt = nb_dist / (torch.sum(nb_dist, dim=-1, keepdim=True) + _EPS)
+        tgt_cat = torch.cat([local_t, tnb[..., 3:] * w_tgt[..., None]], dim=-1)
+        tgt_desc = self.dfe(tgt_cat.reshape(B, K, C, tnb_idx.shape[-1], -1))
+        return self.cpg(enc.src_descriptors, tgt_desc, candidates)
+
+    def correspond(self, enc: Encoding, R_init: torch.Tensor,
+                   t_init: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
+        candidates = self.candidates(enc, R_init, t_init)
+        tnb_idx = self.candidate_neighbors(enc, candidates)
+        vcp, cand_weights = self.match(enc, candidates, tnb_idx, R_init)
+        aux = {
+            "saliency": enc.saliency,
+            "keypoint_idx": enc.keypoint_idx,
+            "keypoint_saliency": enc.keypoint_saliency,
+            "candidate_weights": cand_weights,
+            "src_descriptors": enc.src_descriptors,
+        }
+        return enc.keypoints, vcp, aux
+
+    def forward(self, src: torch.Tensor, tgt: torch.Tensor, R_init: torch.Tensor,
+                t_init: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
+        return self.correspond(self.encode(src, tgt), R_init, t_init)

@@ -1,0 +1,100 @@
+"""Build the port's CUDA sources with nvcc and load them with ctypes.
+
+Every `csrc/*.cu` file is compiled into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), for Hopper's
+`sm_90a`. The library lands in `deepvcp_tpu_torch/_build/` under a name keyed
+by a hash of the sources and flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is. Nothing here runs at import time: the first
+call to `library()` builds, and it is made only by a wrapper that was handed
+a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError(
+        "nvcc not found on PATH or under $CUDA_HOME/bin: the port's CUDA "
+        "kernels are built from source on first use")
+
+
+def _sources() -> list:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def _digest(sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources:
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    return h.hexdigest()[:16]
+
+
+def build() -> str:
+    """Compile csrc/*.cu into BUILD_DIR (if not already built); return the
+    library's path. Raises RuntimeError with nvcc's stderr on failure."""
+    sources = _sources()
+    if not sources:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    target = os.path.join(BUILD_DIR, f"libdeepvcp_kernels_{_digest(sources)}.so")
+    if os.path.exists(target):
+        return target
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stderr}")
+        os.replace(tmp, target)  # atomic: a reader never sees a partial file
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return target
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use, with every entry
+    point's argtypes and restype declared."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.band_max_f32.argtypes = [p, p, p, i, i, i, f, f, p]
+            lib.band_max_f32.restype = i
+            lib.band_max_error_string.argtypes = [i]
+            lib.band_max_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib

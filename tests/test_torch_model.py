@@ -1,0 +1,212 @@
+"""The port's modules (deepvcp_tpu_torch/models) against the flax modules,
+with the same weights (flax init, perturbed, converted by
+convert.flax_to_torch) and the same numpy inputs.
+
+At DeepVCPConfig.tiny() (N=128) the JAX CPU path's static band covers every
+point (window_for(...) == N), so its SA pooling equals the exact in-radius
+slab that the port computes; candidate selection runs in f32
+(knn_select_dtype=None) so that no bf16 near-tie can flip a neighbour.
+"""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepvcp_tpu import DeepVCPConfig
+from deepvcp_tpu.models import DeepVCP as JDeepVCP
+from deepvcp_tpu.models import fused_sa as jfused_sa
+from deepvcp_tpu.models import layers as jlayers
+from deepvcp_tpu_torch import ops
+from deepvcp_tpu_torch.convert import flax_to_torch
+from deepvcp_tpu_torch.models import DeepVCP
+from deepvcp_tpu_torch.models import fused_sa, layers
+
+torch.set_num_threads(2)
+
+FEAT_ATOL = 1e-4   # features, descriptors, VCPs: f32 through several MLP layers
+WEIGHT_ATOL = 1e-5  # softmax candidate weights
+
+
+def _cfg(use_normal):
+    return dataclasses.replace(DeepVCPConfig.tiny(use_normal=use_normal),
+                               knn_select_dtype=None).resolve()
+
+
+def _perturb(variables, seed):
+    """Random BN statistics and nonzero biases, so every converted tensor
+    matters (flax init leaves biases 0 and statistics 0 / 1)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for col, tree in jax.device_get(variables).items():
+        def leaf(path, a, col=col):
+            a = np.asarray(a)
+            name = path[-1].key
+            if col == "batch_stats" and name == "var":
+                return rng.uniform(0.5, 1.5, a.shape).astype(np.float32)
+            return (a + 0.1 * rng.standard_normal(a.shape)).astype(np.float32)
+        out[col] = jax.tree_util.tree_map_with_path(leaf, tree)
+    return out
+
+
+def _torch_module(module, variables):
+    module.load_state_dict(flax_to_torch(variables), strict=True)
+    return module.eval()
+
+
+def _cloud(rng, B, N, C):
+    return rng.uniform(-1.5, 1.5, (B, N, C)).astype(np.float32)
+
+
+def test_tiny_band_covers_the_slab():
+    """The condition under which the JAX CPU path and the port agree."""
+    cfg = _cfg(True)
+    for layer in cfg.sa_layers:
+        assert ops.window_for(cfg.num_points, layer.radius, cfg.spatial_extent,
+                              cfg.window_safety) >= cfg.num_points
+
+
+@pytest.mark.parametrize("with_features", [False, True])
+@pytest.mark.parametrize("stage", [0, 2])
+def test_banded_set_abstraction(stage, with_features):
+    cfg = _cfg(True)
+    layer = cfg.sa_layers[stage]
+    rng = np.random.default_rng(stage)
+    xyz = np.asarray(ops.sort_cloud(torch.from_numpy(_cloud(rng, 2, 128, 3))).xyz)
+    feats = rng.standard_normal((2, 128, 8)).astype(np.float32) if with_features else None
+    jm = jfused_sa.BandedSetAbstraction(layer, window=128, tile=cfg.band_tile, use_pallas=True)
+    v = _perturb(jm.init(jax.random.key(0), xyz, feats), stage)
+    want = np.asarray(jm.apply(v, xyz, feats))
+    tm = _torch_module(fused_sa.BandedSetAbstraction(layer, 8 if with_features else None), v)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(xyz), None if feats is None else torch.from_numpy(feats))
+    np.testing.assert_allclose(got.numpy(), want, atol=FEAT_ATOL)
+
+
+@pytest.mark.parametrize("use_normal", [True, False])
+def test_feature_extraction(use_normal):
+    cfg = _cfg(use_normal)
+    rng = np.random.default_rng(3)
+    pts = _cloud(rng, 2, cfg.num_points, 6)
+    nrm = pts[..., 3:] if use_normal else None
+    jm = jlayers.FeatureExtraction(cfg)
+    v = _perturb(jm.init(jax.random.key(1), pts[..., :3], nrm), 3)
+    want = np.asarray(jm.apply(v, pts[..., :3], nrm))
+    tm = _torch_module(layers.FeatureExtraction(cfg), v)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(pts[..., :3].copy()),
+                 None if nrm is None else torch.from_numpy(nrm.copy()))
+    np.testing.assert_allclose(got.numpy(), want, atol=FEAT_ATOL)
+
+
+def test_weighting_layer():
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 50, 32)).astype(np.float32)
+    jm = jlayers.WeightingLayer((16, 8, 1))
+    v = _perturb(jm.init(jax.random.key(2), x), 4)
+    tm = _torch_module(layers.WeightingLayer((16, 8, 1), 32), v)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jm.apply(v, x)), atol=FEAT_ATOL)
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 8, 35), (1, 3, 27, 8, 35)])
+def test_feat_embedding(shape):
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal(shape).astype(np.float32)
+    jm = jlayers.FeatEmbedding((32, 32, 32))
+    v = _perturb(jm.init(jax.random.key(3), x), 5)
+    tm = _torch_module(layers.FeatEmbedding((32, 32, 32), 35), v)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jm.apply(v, x)), atol=FEAT_ATOL)
+
+
+def test_cpg():
+    rng = np.random.default_rng(6)
+    B, K, gs, F = 2, 3, 6, 32
+    src = rng.standard_normal((B, K, F)).astype(np.float32)
+    tgt = rng.standard_normal((B, K, gs ** 3, F)).astype(np.float32)
+    cand = rng.uniform(-1, 1, (B, K, gs ** 3, 3)).astype(np.float32)
+    jm = jlayers.CPG((16, 4, 1), grid_size=gs)
+    v = _perturb(jm.init(jax.random.key(4), src, tgt, cand), 6)
+    vcp_j, w_j = jm.apply(v, src, tgt, cand)
+    tm = _torch_module(layers.CPG((16, 4, 1), gs, F), v)
+    with torch.no_grad():
+        vcp_t, w_t = tm(*map(torch.from_numpy, (src, tgt, cand)))
+    np.testing.assert_allclose(w_t.numpy(), np.asarray(w_j), atol=WEIGHT_ATOL)
+    np.testing.assert_allclose(vcp_t.numpy(), np.asarray(vcp_j), atol=FEAT_ATOL)
+
+
+def _pair(cfg, seed):
+    rng = np.random.default_rng(seed)
+    C = 6 if cfg.use_normal else 3
+    src = _cloud(rng, 2, cfg.num_points, C)
+    tgt = (src + rng.normal(0, 0.02, src.shape)).astype(np.float32)
+    a = np.radians(3.0)
+    R = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]], np.float32)
+    R = np.stack([R, R.T])
+    t = rng.uniform(-0.1, 0.1, (2, 3)).astype(np.float32)
+    return src, tgt, R, t
+
+
+@functools.lru_cache(maxsize=None)
+def _models(use_normal):
+    """(flax model, its perturbed variables, the converted port model, inputs)."""
+    cfg = _cfg(use_normal)
+    seed = 10 + use_normal
+    src, tgt, R, t = _pair(cfg, seed)
+    jm = JDeepVCP(cfg=cfg)
+    v = _perturb(jm.init(jax.random.key(seed), src, tgt, R, t), seed)
+    return jm, v, _torch_module(DeepVCP(cfg), v), (src, tgt, R, t)
+
+
+@pytest.mark.parametrize("use_normal", [True, False])
+def test_deepvcp_forward(use_normal):
+    jm, v, tm, inputs = _models(use_normal)
+    kp_j, vcp_j, aux_j = jm.apply(v, *map(jnp.asarray, inputs))
+    with torch.no_grad():
+        kp_t, vcp_t, aux_t = tm(*map(torch.from_numpy, inputs))
+    np.testing.assert_array_equal(aux_t["keypoint_idx"].numpy(), np.asarray(aux_j["keypoint_idx"]))
+    np.testing.assert_array_equal(kp_t.numpy(), np.asarray(kp_j))
+    for name in ("saliency", "keypoint_saliency", "src_descriptors"):
+        np.testing.assert_allclose(aux_t[name].numpy(), np.asarray(aux_j[name]),
+                                   atol=FEAT_ATOL, err_msg=name)
+    np.testing.assert_allclose(aux_t["candidate_weights"].numpy(),
+                               np.asarray(aux_j["candidate_weights"]), atol=WEIGHT_ATOL)
+    np.testing.assert_allclose(vcp_t.numpy(), np.asarray(vcp_j), atol=FEAT_ATOL)
+
+
+def test_encode_correspond_equals_forward():
+    _, _, tm, inputs = _models(False)
+    src, tgt, R, t = map(torch.from_numpy, inputs)
+    with torch.no_grad():
+        kp, vcp, aux = tm(src, tgt, R, t)
+        kp2, vcp2, aux2 = tm.correspond(tm.encode(src, tgt), R, t)
+    assert torch.equal(kp, kp2) and torch.equal(vcp, vcp2)
+    assert torch.equal(aux["candidate_weights"], aux2["candidate_weights"])
+
+
+def test_forward_needs_no_grad():
+    """The kernel has no backward yet (K2): a forward that tracks gradients
+    must fail loudly, not silently detach."""
+    _, _, tm, inputs = _models(False)
+    with pytest.raises(NotImplementedError, match="K2"):
+        tm(*map(torch.from_numpy, inputs))
+
+
+@pytest.mark.parametrize("change", [
+    {"keypoint_selection": "salient_fps"},
+    {"tgt_knn": "two_level"},
+    {"neighbor_method": "windowed"},
+    {"dfe_src_neighbors": "keypoints"},
+    {"use_pallas_band_max": False},
+])
+def test_unported_branches_raise(change):
+    cfg = dataclasses.replace(DeepVCPConfig.tiny(), **change)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DeepVCP(cfg)

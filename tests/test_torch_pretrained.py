@@ -1,0 +1,123 @@
+"""The port's weights, configs and data against the JAX package's, and the
+port's promise not to import jax."""
+
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from deepvcp_tpu import data as jdata
+from deepvcp_tpu import pretrained as jpretrained
+from deepvcp_tpu.utils import rotations as jrot
+from deepvcp_tpu_torch import pretrained
+from deepvcp_tpu_torch.data import synthetic
+from deepvcp_tpu_torch.models import DeepVCP
+
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _flatten(tree, prefix=""):
+    for key, val in tree.items():
+        path = f"{prefix}/{key}" if prefix else key
+        if isinstance(val, dict):
+            yield from _flatten(val, path)
+        else:
+            yield path, np.asarray(val)
+
+
+def test_exported_weights_equal_checkpoint():
+    """weights/kitti25-rot.npz holds the orbax checkpoint, array for array."""
+    cfg_j, want = jpretrained.load("kitti25-rot")
+    cfg_t, got = pretrained.load("kitti25-rot")
+    assert cfg_t == cfg_j
+    want, got = dict(_flatten(jax.device_get(want))), dict(_flatten(got))
+    assert sorted(got) == sorted(want)
+    for key in want:
+        assert got[key].dtype == want[key].dtype, key
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    assert sum(a.size for a in got.values()) == 35506
+
+
+@pytest.mark.parametrize("name", sorted(jpretrained.REGISTRY))
+@pytest.mark.parametrize("num_points,use_normal", [(10000, False), (2048, True)])
+def test_config_matches_jax(monkeypatch, name, num_points, use_normal):
+    """The port builds every registry entry's config as the JAX loader does
+    (entry cfg + .arch.json provenance). The JAX loader's weight restore is
+    stubbed out: only its config is compared."""
+    monkeypatch.setattr(jpretrained, "load_variables", lambda path: None)
+    cfg_j, _ = jpretrained.load(name, num_points=num_points, use_normal=use_normal)
+    assert pretrained.config(name, num_points, use_normal) == cfg_j
+
+
+def test_strict_load_and_registrar_defaults():
+    cfg, variables = pretrained.load("kitti25-rot", num_points=256)
+    assert cfg.spatial_extent == 55.0 and cfg.knn_select_dtype_effective is None
+    reg = pretrained.registrar("kitti25-rot", device="cpu", num_points=256)
+    assert (reg.refine_iters, reg.use_saliency_weights, reg.guard) == (3, True, True)
+    model = DeepVCP(cfg)
+    missing = model.load_state_dict(reg.model.state_dict(), strict=True)
+    assert not missing.missing_keys and not missing.unexpected_keys
+    n = sum(p.numel() for p in model.parameters()) + sum(
+        b.numel() for name, b in model.named_buffers() if "running" in name)
+    assert n == 35506
+
+
+def test_unexported_checkpoint_is_reported():
+    with pytest.raises(FileNotFoundError, match="export_torch_weights"):
+        pretrained.load("kitti25")
+    with pytest.raises(KeyError):
+        pretrained.config("no-such-model")
+
+
+@pytest.mark.parametrize("seed,max_rotation_deg", [(110, 5.0), (7, None)])
+def test_synthetic_pairs_bit_identical(seed, max_rotation_deg):
+    """The numpy copy of the generator gives the JAX package's arrays, bit
+    for bit: clouds, and pairs through batch_iterator (bounded and full
+    SO(3) rotations, shuffled and not)."""
+    kw = dict(num_clouds=3, num_points=500, max_range=25.0, seed=seed,
+              max_rotation_deg=max_rotation_deg, max_translation=0.5)
+    ours, theirs = synthetic.LidarLikeDataset(**kw), jdata.LidarLikeDataset(**kw)
+    for a, b in zip(ours.clouds, theirs.clouds):
+        np.testing.assert_array_equal(a, b)
+    for shuffle in (False, True):
+        got = list(synthetic.batch_iterator(ours, 1, epoch=0, seed=0, shuffle=shuffle))
+        want = list(jdata.batch_iterator(theirs, 1, epoch=0, seed=0, shuffle=shuffle))
+        assert len(got) == len(want) == 3
+        for g, w in zip(got, want):
+            for x, y in zip(g, w):
+                assert x.dtype == y.dtype
+                np.testing.assert_array_equal(x, y)
+
+
+def test_pose_metrics():
+    rng = np.random.default_rng(0)
+    Ra = np.stack([synthetic.random_bounded_rotation(rng, 30.0) for _ in range(4)])
+    Rb = np.stack([synthetic.random_rotation(rng) for _ in range(4)])
+    ta, tb = rng.normal(size=(4, 3)), rng.normal(size=(4, 3))
+    np.testing.assert_allclose(
+        synthetic.rotation_geodesic_deg(torch.from_numpy(Ra), torch.from_numpy(Rb)).numpy(),
+        np.asarray(jrot.rotation_geodesic_deg(Ra, Rb)), atol=1e-6)
+    np.testing.assert_allclose(
+        synthetic.translation_error(torch.from_numpy(ta), torch.from_numpy(tb)).numpy(),
+        np.asarray(jrot.translation_error(ta, tb)), atol=1e-6)
+    # small angles stay resolved in float32, where arccos of the trace gives 0
+    small = torch.from_numpy(jrot.axis_angle_to_matrix([1.0, 2.0, 3.0], np.radians(0.01)))
+    got = synthetic.rotation_geodesic_deg(small.float() @ torch.from_numpy(Rb).float(),
+                                          torch.from_numpy(Rb).float())
+    np.testing.assert_allclose(got.numpy(), 0.01, atol=2e-4)
+
+
+def test_port_never_imports_jax():
+    code = ("import sys\n"
+            "import deepvcp_tpu_torch, deepvcp_tpu_torch.pretrained, deepvcp_tpu_torch.registration\n"
+            "import deepvcp_tpu_torch.data, deepvcp_tpu_torch.ops.kernels\n"
+            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
