@@ -1,21 +1,37 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (deepvcp_tpu_torch) on one CUDA card.
 
-Drives the port's serving path, `pretrained.registrar("kitti25-rot")` at full
-width (N = 10 000 points, 64 keypoints, 216 candidates, 32 neighbours), on 16
-held-out synthetic lidar pairs, and checks on the way:
+Drives the port's two paths at full width (N = 10 000 points, 64 keypoints,
+216 candidates, 32 neighbours): serving, `pretrained.registrar("kitti25-rot")`
+on 16 held-out synthetic lidar pairs, and training, 12 fine-tuning steps of
+`kitti25-rot` through `train.Trainer` under the recipe that trained it. It
+checks on the way:
 
   1. device      a CUDA card is present; prints nvidia-smi's name and power limit
-  2. build       builds every CUDA kernel of the path from csrc/ with nvcc
-  3. kernels     each kernel against its plain PyTorch version at the path's
-                 shapes: max abs difference (must be 0.0) and median times
+  2. build       builds every CUDA kernel of the paths from csrc/ with nvcc
+  3. kernels     each kernel against its plain PyTorch version at the paths'
+                 shapes: K1 max abs difference 0.0; K2 0.0 with integer
+                 cotangents and <= 1e-5 with Gaussian ones; median times
   4. registrar   16 pairs, GT-free RRE / RTE against the identity-init errors;
                  mean RRE <= 1.0 deg and mean RTE <= 0.05 m
   5. paths       kernel path against plain path on pair 0: same keypoints,
                  |dR| <= 1e-4, |dt| <= 1e-4 m, |dscores| <= 1e-5
-  6. launches    the kernel ran 6 times per Registrar call in step 4
+  6. launches    K1 ran 6 times per Registrar call in step 4
   7. timing      per-call latency and a CUDA-event stage split (printed only)
-  8. no jax      jax was never imported
+  8. training    12 steps from kitti25-rot: finite loss and grad norm, step 0
+                 (warmup lr 0) leaves the parameters as they were and later
+                 steps change them, 6 K1 and 6 K2 launches per step
+  9. train paths one step from kitti25-rot through the kernels against the
+                 same step through the plain versions, under deterministic
+                 algorithms: loss
+                 within 1e-5 relative, every gradient tensor within 1e-4 of
+                 its max (a cancelling sum, max below 1e-3 of the global
+                 norm: of the norm), running statistics within 1e-6; the
+                 kernel path run twice agrees with itself exactly
+ 10. train time  step time, forward / loss+backward+clip / Adam / metrics
+                 split, profiler busy time, peak memory, and the fine-tuned
+                 model's GT-free RRE / RTE on the 16 held pairs (printed only)
+ 11. no jax      jax was never imported
 
 Any failure exits non-zero. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it lists the kernels as JSON.
@@ -24,17 +40,24 @@ Run from the root of a checkout, with no arguments:  python3 chip_smoke.py
 
 from __future__ import annotations
 
+import itertools
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 N_POINTS = 10000
 N_PAIRS = 16
 SA_SHAPES = ((16, 0.1), (32, 0.2), (64, 0.4))   # (C, radius) of the 3 SA stages
 LAUNCHES_PER_CALL = 2 * len(SA_SHAPES)           # 3 SA stages x 2 clouds
 RRE_LIMIT_DEG, RTE_LIMIT_M = 1.0, 0.05
+TRAIN_STEPS = 12
+K2_GAUSS_LIMIT = 1e-5      # K2 vs plain with Gaussian cotangents (order of summation)
+LOSS_RTOL, GRAD_RTOL, STAT_ATOL = 1e-5, 1e-4, 1e-6   # kernel vs plain train step
+CANCEL_FRAC = 1e-3         # a gradient tensor below this share of |g| is a cancelling sum
 
 
 def fail(msg: str) -> None:
@@ -79,10 +102,16 @@ def host_median_ms(torch, fn, reps: int) -> float:
 
 
 def device_time_per_call(torch, fn, calls: int):
-    """Kernel time per call of fn() from torch.profiler (summed over every
-    CUDA kernel), and the 8 kernels that take most of it."""
+    """Device busy time per call of fn() from torch.profiler: the union of
+    the intervals of every kernel, copy and fill on the card. User-annotation
+    ranges (such as the optimizer's step) enclose kernels that are counted
+    already and are left out. Also returns the 8 kernels that take most of
+    the time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    def on_device(e):
+        return e.device_type == DeviceType.CUDA and not e.is_user_annotation
 
     fn()
     torch.cuda.synchronize()
@@ -90,9 +119,15 @@ def device_time_per_call(torch, fn, calls: int):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+    busy_us, reached = 0.0, float("-inf")
+    for start, end in sorted((e.time_range.start, e.time_range.end)
+                             for e in prof.events() if on_device(e)):
+        if end > reached:
+            busy_us += end - max(start, reached)
+            reached = end
     rows = [(e.key[:60], e.self_device_time_total / 1e3 / calls)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    return sum(ms for _, ms in rows), sorted(rows, key=lambda r: -r[1])[:8]
+            for e in prof.key_averages() if on_device(e)]
+    return busy_us / 1e3 / calls, sorted(rows, key=lambda r: -r[1])[:8]
 
 
 def stage_split(torch, reg, src, tgt) -> dict:
@@ -150,7 +185,230 @@ def stage_split(torch, reg, src, tgt) -> dict:
     return stages
 
 
+def kitti25_recipe():
+    """The recipe that trained kitti25-rot (scripts/campaign_r5g.py with
+    campaign_r4_common.residual_tcfg): B=1, Adam at 1e-3, clip 10, cosine
+    with warmup 100 over 21 760 steps, VCP and rotation (3.0) terms,
+    saliency-weighted solves, jittered warm starts of 6 deg / 0.5 m."""
+    from deepvcp_tpu_torch.train import TrainConfig
+
+    return TrainConfig(batch_size=1, learning_rate=1e-3, grad_clip_norm=10.0,
+                       lr_schedule="cosine", warmup_steps=100, total_steps=21760,
+                       vcp_loss_weight=1.0, rot_loss_weight=3.0, use_saliency_weights=True,
+                       init_translation="gt", init_rot_jitter_deg=6.0, init_trans_jitter=0.5,
+                       log_every=1)
+
+
+def train_step_split(torch, step_fn, state, model, batch):
+    """Device time of the phases of one call of the train step, between CUDA
+    events that hooks record: the model's forward; the loss, backward and
+    clip (up to Adam's step); Adam; the metrics. Returns the new state and
+    the split."""
+    ev = []
+
+    def mark(*_):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        ev.append(e)
+
+    opt = state.optimizer
+    hooks = [model.register_forward_hook(mark), opt.register_step_pre_hook(mark),
+             opt.register_step_post_hook(mark)]
+    try:
+        mark()
+        state, _ = step_fn(state, *batch)
+        mark()
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    phases = ("forward", "loss_backward_clip", "adam", "metrics")
+    if len(ev) != len(phases) + 1:
+        fail(f"the train step split recorded {len(ev)} marks, expected {len(phases) + 1}")
+    return state, {k: ev[i].elapsed_time(ev[i + 1]) for i, k in enumerate(phases)}
+
+
+def train_phase(torch, dev, pairs) -> dict:
+    """Phases 8-10: fine-tune kitti25-rot for TRAIN_STEPS steps through the
+    Trainer, hold one step's kernel path against its plain path, and time
+    the step. Returns the K1 and K2 launch counts of the 12 gated steps."""
+    import copy
+
+    import numpy as np
+
+    from deepvcp_tpu_torch import convert, pretrained
+    from deepvcp_tpu_torch.data import (
+        LidarLikeDataset, batch_iterator, rotation_geodesic_deg, translation_error)
+    from deepvcp_tpu_torch.ops.kernels import band_max
+    from deepvcp_tpu_torch.train import MetricsLogger, Trainer, build_train_step
+    from deepvcp_tpu_torch.train.optim import learning_rate_schedule
+
+    records = []
+
+    class Records(MetricsLogger):
+        def log(self, record):
+            records.append(record)
+
+    cfg, variables = pretrained.load("kitti25-rot", num_points=N_POINTS)
+    tcfg = kitti25_recipe()
+    trainer = Trainer(cfg, tcfg, device=dev, metrics=Records(None, echo=False))
+    trainer.setup()
+    trainer.model.load_state_dict(convert.flax_to_torch(variables), strict=True)
+    # the first TRAIN_STEPS clouds of the campaign's 256 (same rng stream)
+    data = LidarLikeDataset(num_clouds=TRAIN_STEPS, num_points=N_POINTS, max_range=25.0,
+                            seed=10)
+    batches = list(batch_iterator(data, 1, epoch=0, seed=0))
+    params0 = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+    # phase 9 starts from here, not from where the 12 steps (which are not
+    # reproducible bit for bit: gather's atomics) end
+    saved = (copy.deepcopy(trainer.model.state_dict()),
+             copy.deepcopy(trainer.state.optimizer.state_dict()), trainer.state.step)
+
+    # 8. the main path: TRAIN_STEPS steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    band_max.banded_masked_max.launches = 0
+    band_max.banded_masked_max_grad.launches = 0
+    trainer.train_epoch(iter(batches[:1]), epoch=0)
+    torch.cuda.synchronize()
+    moved0 = [n for n, p in trainer.model.named_parameters() if not torch.equal(p, params0[n])]
+    trainer.train_epoch(iter(batches[1:]), epoch=0)
+    torch.cuda.synchronize()
+    k1, k2 = band_max.banded_masked_max.launches, band_max.banded_masked_max_grad.launches
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    steps = [r for r in records if r["kind"] == "train"]
+    for i, r in enumerate(steps):
+        print(f"train step {i:2d}: loss {r['loss']:.5f}, l1 {r['l1']:.5f}, vcp_l1 "
+              f"{r['vcp_l1']:.5f}, rre {r['rre_deg']:.4f} deg, rte {r['rte']:.5f} m, "
+              f"grad_norm {r['grad_norm']:.4f}")
+    if len(steps) != TRAIN_STEPS:
+        fail(f"expected {TRAIN_STEPS} logged train steps, got {len(steps)}")
+    if not all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in steps):
+        fail("a train step's loss or grad_norm is not finite")
+    moved = sum(not torch.equal(p, params0[n]) for n, p in trainer.model.named_parameters())
+    print(f"parameters changed by step 0 (warmup lr 0): {len(moved0)}; after "
+          f"{TRAIN_STEPS} steps: {moved} of {len(params0)}")
+    if moved0 or moved == 0:
+        fail("step 0 changed the parameters, or the later steps changed none")
+    print(f"launches over the {TRAIN_STEPS} train steps: K1 {k1}, K2 {k2} "
+          f"({k1 / TRAIN_STEPS:g} and {k2 / TRAIN_STEPS:g} per step); {wall:.2f} s in all, "
+          f"the first step's cold start included; peak device memory {peak:.1f} MiB")
+    if k1 != LAUNCHES_PER_CALL * TRAIN_STEPS or k2 != LAUNCHES_PER_CALL * TRAIN_STEPS:
+        fail(f"expected {LAUNCHES_PER_CALL} K1 and K2 launches per train step")
+
+    # the fine-tuned model through the Registrar on the held pairs (not gated)
+    reg = pretrained.registrar("kitti25-rot", device=dev)
+    reg.model.load_state_dict(trainer.model.state_dict(), strict=True)
+    rre, rte = [], []
+    for src, tgt, R_gt, t_gt in pairs:
+        out = reg(src, tgt)
+        rre.append(rotation_geodesic_deg(out.R, R_gt).item())
+        rte.append(translation_error(out.t, t_gt).item())
+    print(f"after {TRAIN_STEPS} fine-tuning steps, GT-free over {len(pairs)} held pairs: "
+          f"mean RRE {statistics.mean(rre):.4f} deg, mean RTE {statistics.mean(rte):.5f} m")
+
+    # 9. one step through the kernels against the same step through the
+    # plain versions, from kitti25-rot as loaded, with a fresh Adam
+    step_fn = build_train_step(trainer.model, learning_rate_schedule(tcfg), tcfg)
+    src, tgt, R, t = (torch.from_numpy(a).to(dev) for a in batches[0])
+    R_init, t_init = R, t + 0.2
+
+    def one_step():
+        trainer.model.load_state_dict(saved[0])
+        trainer.state.optimizer.load_state_dict(saved[1])
+        trainer.state.step = saved[2]
+        trainer.state, m = step_fn(trainer.state, src, tgt, R, t, R_init, t_init)
+        torch.cuda.synchronize()
+        return (float(m["loss"]), float(m["grad_norm"]),
+                {n: p.grad.clone() for n, p in trainer.model.named_parameters()},
+                {n: b.clone() for n, b in trainer.model.named_buffers() if "running" in n})
+
+    # Deterministic algorithms (gather's backward without atomics; cuBLAS
+    # under CUBLAS_WORKSPACE_CONFIG, set in main), so that two runs of one
+    # path agree bit for bit and what differs between the paths is the
+    # kernels'. An op with no deterministic version warns and is named.
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            loss_k, norm_k, grads_k, stats_k = one_step()
+            _, _, grads_k2, _ = one_step()
+            with band_max.reference_path():
+                loss_p, norm_p, grads_p, stats_p = one_step()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message).split(" does not have a deterministic")[0]
+                     for w in caught if "deterministic" in str(w.message)})
+    print(f"ops without a deterministic version in the train step: {nondet or 'none'}")
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+
+    def err(a, b):
+        return {n: (a[n] - b[n]).abs().max().item() for n in b}
+
+    # Each gradient tensor within GRAD_RTOL of its own max |g|. A tensor
+    # whose max is below CANCEL_FRAC of the global norm is a sum that
+    # (nearly) cancels: a bias ahead of a training-mode BatchNorm, exactly
+    # 0 but for rounding, or sa1's bias0 and BatchNorm terms, summed over
+    # every point behind a BatchNorm's mean. K2's order of summation alone
+    # moves such a tensor by 3e-4 of its max up to more than its max, so it
+    # is held to GRAD_RTOL of the global norm instead.
+    own = {n: g.abs().max().item() for n, g in grads_p.items()}
+    err_kp, err_kk = err(grads_k, grads_p), err(grads_k, grads_k2)
+    scale = {n: own[n] if own[n] >= CANCEL_FRAC * norm_p else norm_p for n in own}
+    rel_kp = {n: e / scale[n] for n, e in err_kp.items()}
+    cancelling = sorted(n for n in own if scale[n] == norm_p)
+    worst = sorted(rel_kp, key=rel_kp.get)[-4:]
+    for n in (sorted(rel_kp) if max(rel_kp.values()) > GRAD_RTOL else worst):
+        print(f"  grad {n}: max|g| {own[n]:.3e}, max|dg| kernel vs plain {err_kp[n]:.3e} "
+              f"= {rel_kp[n]:.2e} of {'|g|' if n in cancelling else 'its max'}, kernel vs "
+              f"kernel {err_kk[n]:.3e}")
+    grad_rel = max(rel_kp.values())
+    kk_err = max(err_kk.values())
+    stat_err = max((stats_k[n] - stats_p[n]).abs().max().item() for n in stats_p)
+    print(f"train step, kernel vs plain path: loss {loss_k:.7f} vs {loss_p:.7f} (rel "
+          f"{loss_rel:.2e}), every gradient within {grad_rel:.2e} of its max ({len(cancelling)} "
+          f"cancelling sums of |g|: {', '.join(cancelling)}), kernel vs kernel max |dg| "
+          f"{kk_err:.3e}, |g| {norm_k:.6f} vs {norm_p:.6f}, max running-stat err {stat_err:.2e}")
+    if loss_rel > LOSS_RTOL or grad_rel > GRAD_RTOL or stat_err > STAT_ATOL or kk_err != 0.0:
+        fail("the train step's kernel path and plain path disagree, or the kernel path "
+             "disagrees with itself")
+
+    # 10. timing (not gated)
+    cycle = [tuple(torch.from_numpy(a).to(dev) for a in b) for b in batches]
+    feed = itertools.cycle(cycle)
+
+    def timed_step():
+        trainer.state, _ = step_fn(trainer.state, *next(feed))
+
+    step_ms = host_median_ms(torch, timed_step, reps=10)
+    with band_max.reference_path():
+        step_plain_ms = host_median_ms(torch, timed_step, reps=3)
+    print(f"train step, B=1, N={N_POINTS}: kernel path {step_ms:.3f} ms, plain path "
+          f"{step_plain_ms:.3f} ms (median of synced steps)")
+    splits = []
+    for _ in range(6):
+        trainer.state, split = train_step_split(torch, step_fn, trainer.state, trainer.model,
+                                                next(feed))
+        splits.append(split)
+    split = {k: statistics.median(s[k] for s in splits[1:]) for k in splits[0]}
+    print("train step split (CUDA events, ms, median of 5 steps): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in split.items()) + f" | sum {sum(split.values()):.3f}")
+    busy, top = device_time_per_call(torch, timed_step, calls=3)
+    if busy > 0:
+        print(f"device busy per train step (torch.profiler, union of kernel intervals): "
+              f"{busy:.3f} ms of {step_ms:.3f} ms, idle share {1 - busy / step_ms:.3f}")
+        print("top kernels (ms per step): " + "; ".join(f"{k} {v:.3f}" for k, v in top))
+    else:
+        print("device busy per train step: not measured (the profiler saw no device time)")
+    return {"k1": k1, "k2": k2}
+
+
 def main() -> None:
+    # cuBLAS reads this when it starts; the train-path comparison (phase 9)
+    # runs under deterministic algorithms, which need it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     # 1. device
@@ -167,7 +425,8 @@ def main() -> None:
         rotation_geodesic_deg, translation_error)
     from deepvcp_tpu_torch.ops.kernels import _build, band_max
     from deepvcp_tpu_torch.ops.kernels.band_max import (
-        banded_masked_max, banded_masked_max_reference)
+        banded_masked_max, banded_masked_max_grad, banded_masked_max_grad_reference,
+        banded_masked_max_reference)
 
     card = card_line()
     print(f"card: {card}")
@@ -201,6 +460,30 @@ def main() -> None:
         k1_err = max(k1_err, err)
         k1_ms += ms
         k1_plain_ms += plain
+
+    # 3b. K2 vs plain at the same shapes, cotangents of the forward's output
+    k2_err, k2_ms, k2_plain_ms = 0.0, 0.0, 0.0
+    for C, r in SA_SHAPES:
+        u = torch.randn(1, N_POINTS, C, device=dev, generator=gen)
+        out = banded_masked_max(x, u, r)
+        g_int = torch.randint(-8, 9, u.shape, device=dev, generator=gen).float()
+        g = torch.randn(u.shape, device=dev, generator=gen)
+        err_int = (banded_masked_max_grad(x, u, out, g_int, r)
+                   - banded_masked_max_grad_reference(x, u, out, g_int, r)).abs().max().item()
+        got = banded_masked_max_grad(x, u, out, g, r)
+        err = (got - banded_masked_max_grad_reference(x, u, out, g, r)).abs().max().item()
+        if not torch.isfinite(got).all() or err_int != 0.0 or err > K2_GAUSS_LIMIT:
+            fail(f"K2 disagrees with its plain version at C={C}, r={r}: max abs {err_int} "
+                 f"(integer cotangents, must be 0) and {err} (Gaussian, <= {K2_GAUSS_LIMIT})")
+        ms = cuda_median_ms(torch, lambda: banded_masked_max_grad(x, u, out, g, r), reps=50)
+        plain = cuda_median_ms(
+            torch, lambda: banded_masked_max_grad_reference(x, u, out, g, r), reps=20)
+        print(f"K2 banded_masked_max_grad N={N_POINTS} C={C} r={r}: max_abs_err {err_int} "
+              f"(integer g), {err:.3e} (Gaussian g) | kernel {ms:.4f} ms, plain {plain:.4f} ms "
+              f"(median, CUDA events)")
+        k2_err = max(k2_err, err)
+        k2_ms += ms
+        k2_plain_ms += plain
 
     # 4. the main path: Registrar on kitti25-rot, 16 held-out pairs
     reg = pretrained.registrar("kitti25-rot", device=dev)
@@ -276,28 +559,42 @@ def main() -> None:
         f"{k} {v:.3f}" for k, v in split.items()) + f" | sum {sum(split.values()):.3f}")
     busy, top = device_time_per_call(torch, lambda: reg(src, tgt), calls=5)
     if busy > 0:
-        print(f"device busy per call (torch.profiler kernel time): {busy:.3f} ms of "
-              f"{lat:.3f} ms latency, idle share {1 - busy / lat:.3f}")
+        print(f"device busy per call (torch.profiler, union of kernel intervals): "
+              f"{busy:.3f} ms of {lat:.3f} ms latency, idle share {1 - busy / lat:.3f}")
         print("top kernels (ms per call): " + "; ".join(f"{k} {v:.3f}" for k, v in top))
     else:
         print("device busy per call: not measured (the profiler saw no device time)")
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
-    # 8. no jax
+    # 8-10. the training path
+    train = train_phase(torch, dev, pairs)
+
+    # 11. no jax
     if "jax" in sys.modules:
         fail("jax was imported")
     print("jax imported: no")
 
     print(card)
+    # ms / plain_ms: sums of the medians at the 3 SA shapes (one FE pass, or
+    # one FE backward); K1's launches: the serving run's plus the training run's
     print(json.dumps({"kernels": [{
         "name": "banded_masked_max",
         "route": "cuda",
         "source": "deepvcp_tpu_torch/csrc/band_max.cu",
         "replaces": "deepvcp_tpu/ops/pallas/band_max_kernel.py:148",
-        "launches": launches,
+        "launches": launches + train["k1"],
         "max_abs_err": k1_err,
-        "ms": k1_ms,         # sum of the medians at the 3 SA shapes: one FE pass
+        "ms": k1_ms,
         "plain_ms": k1_plain_ms,
+    }, {
+        "name": "banded_masked_max_grad",
+        "route": "cuda",
+        "source": "deepvcp_tpu_torch/csrc/band_max_grad.cu",
+        "replaces": "deepvcp_tpu/ops/pallas/band_max_kernel.py:267",
+        "launches": train["k2"],
+        "max_abs_err": k2_err,
+        "ms": k2_ms,
+        "plain_ms": k2_plain_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -11,11 +11,13 @@ tensors run.
 Layout:
     ops/          geometry ops; ops/kernels/ the CUDA kernel wrappers
     models/       banded set abstraction, FE, heads, DeepVCP forward
-    loss/         the trimmed Kabsch pose solve
+    loss/         the trimmed Kabsch pose solve and the training loss
     registration  Registrar, the inference contract
     pretrained    registry checkpoints exported to weights/*.npz
-    convert       flax variables -> state dict
-    data/         JAX-free synthetic held-out pairs and pose metrics
+    convert       flax variables (and optax Adam state) -> torch
+    data/         JAX-free synthetic datasets and pose metrics
+    train/        train and eval steps, Trainer, CLI (python -m deepvcp_tpu_torch.train)
+    utils/        warm-start jitter
 """
 
 import torch

@@ -21,16 +21,15 @@
 // costs KPT compare-and-max per thread. The loop is bound by shared-memory
 // reads and max throughput on slab pairs, not by HBM bytes.
 //
-// Exactness. d2 = ((dx*dx) + (dy*dy)) + (dz*dz) uses round-to-nearest
-// intrinsics, so nvcc cannot contract it into an FMA; the plain PyTorch
-// version evaluates the same f32 expression, so both accept the same pairs
-// and the max, which never rounds, is bit-identical. The slab bounds are
-// widened by 2^-16 of the coordinate magnitude so that f32 rounding in the
-// bound can never drop a point the mask accepts: the mask alone decides
-// membership, and the widening changes no result.
+// Exactness. The slab search and the pair test are band_slab.cuh's, shared
+// with K2: d2 = ((dx*dx) + (dy*dy)) + (dz*dz) in round-to-nearest
+// intrinsics, the f32 expression the plain PyTorch version evaluates, so
+// both accept the same pairs and the max, which never rounds, is
+// bit-identical.
 
 #include <cuda_runtime.h>
-#include <math_constants.h>
+
+#include "band_slab.cuh"
 
 namespace {
 
@@ -38,20 +37,6 @@ constexpr int TILE = 64;    // queries per block
 constexpr int CHUNK = 128;  // slab points staged in shared memory per step
 constexpr int KPT = 16;     // channels per thread; C / KPT threads share a query
 constexpr float NEG = -1e30f;
-
-// First i in [0, n) with xyz[3 i] >= v, or n.
-__device__ int lower_bound_key(const float* xyz, int n, float v) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (xyz[3 * mid] < v) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
 
 template <int C>
 __global__ void __launch_bounds__(TILE * (C / KPT))
@@ -70,14 +55,7 @@ band_max_kernel(const float* __restrict__ xyz, const float* __restrict__ u,
   const float* bu = u + static_cast<size_t>(b) * N * C;
 
   if (threadIdx.x == 0) {
-    const int last = min(tile0 + TILE, N) - 1;
-    const float x_first = bx[3 * tile0];
-    const float x_last = bx[3 * last];
-    const float reach_lo = radius + (fabsf(x_first) + radius) * 0x1p-16f;
-    const float reach_hi = radius + (fabsf(x_last) + radius) * 0x1p-16f;
-    bounds[0] = lower_bound_key(bx, N, x_first - reach_lo);
-    // first key > x_last + reach: lower bound of the next float up
-    bounds[1] = lower_bound_key(bx, N, nextafterf(x_last + reach_hi, CUDART_INF_F));
+    band_slab::slab(bx, N, tile0, TILE, radius, &bounds[0], &bounds[1]);
   }
   __syncthreads();
   const int lo = bounds[0];
@@ -105,12 +83,7 @@ band_max_kernel(const float* __restrict__ xyz, const float* __restrict__ u,
     }
     __syncthreads();
     for (int j = 0; j < n; ++j) {
-      const float dx = __fsub_rn(sx[3 * j], qx);
-      const float dy = __fsub_rn(sx[3 * j + 1], qy);
-      const float dz = __fsub_rn(sx[3 * j + 2], qz);
-      const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                 __fmul_rn(dz, dz));
-      if (d2 <= r2) {
+      if (band_slab::in_radius(sx[3 * j], sx[3 * j + 1], sx[3 * j + 2], qx, qy, qz, r2)) {
         const float4* row = reinterpret_cast<const float4*>(su + j * C + group * KPT);
 #pragma unroll
         for (int k = 0; k < KPT / 4; ++k) {

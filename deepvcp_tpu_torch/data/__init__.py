@@ -2,6 +2,7 @@
 
 from deepvcp_tpu_torch.data.synthetic import (  # noqa: F401
     LidarLikeDataset,
+    SyntheticDataset,
     batch_iterator,
     lidar_like_cloud,
     rotation_geodesic_deg,

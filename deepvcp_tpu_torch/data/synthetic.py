@@ -1,5 +1,5 @@
-"""Held-out pairs without JAX: a numpy copy of the synthetic lidar-like
-generator and its pose sampling (deepvcp_tpu/data/datasets.py
+"""Synthetic pairs without JAX: a numpy copy of the synthetic datasets and
+their pose sampling (deepvcp_tpu/data/datasets.py SyntheticDataset,
 lidar_like_cloud, LidarLikeDataset, batch_iterator; data/transforms.py
 random_pose, make_pair; utils/rotations.py random_rotation,
 random_bounded_rotation), giving the same arrays bit for bit from the same
@@ -57,12 +57,20 @@ def random_pose(rng: np.random.Generator, max_translation: float = 1.0,
     return R, t
 
 
-def make_pair(points: np.ndarray, rng: np.random.Generator, max_translation: float = 1.0,
-              max_rotation_deg: Optional[float] = None):
-    """(src, tgt = src @ R.T + t, R, t), all float32."""
+def make_pair(points: np.ndarray, rng: np.random.Generator,
+              normals: Optional[np.ndarray] = None, max_translation: float = 1.0,
+              max_rotation_deg: Optional[float] = None, noise_std: float = 0.0):
+    """(src, tgt = src @ R.T + t (+ noise), R, t), all float32; with normals,
+    src and tgt are [N, 6] (the target's normals rotate, untranslated)."""
     R, t = random_pose(rng, max_translation, max_rotation_deg)
     tgt = points @ R.T + t
-    return (points.astype(np.float32), tgt.astype(np.float32),
+    if noise_std > 0.0:
+        tgt = tgt + rng.normal(0.0, noise_std, tgt.shape)
+    src = points
+    if normals is not None:
+        src = np.concatenate([points, normals], axis=-1)
+        tgt = np.concatenate([tgt, normals @ R.T], axis=-1)
+    return (src.astype(np.float32), tgt.astype(np.float32),
             R.astype(np.float32), t.astype(np.float32))
 
 
@@ -92,25 +100,50 @@ def lidar_like_cloud(rng: np.random.Generator, num_points: int, max_range: float
     return np.concatenate([ground, centers[which] + spread], axis=0)
 
 
-class LidarLikeDataset:
-    """Synthetic velodyne-like clouds; sample(i, rng) makes a pair from
-    cloud i with a random pose."""
+class SyntheticDataset:
+    """Uniform random clouds in [-extent, extent]^3 (with unit normals when
+    use_normal); sample(i, rng) makes a pair from cloud i with a random
+    pose."""
 
     def __init__(self, num_clouds: int = 64, num_points: int = 10000,
-                 max_range: float = 10.0, max_translation: float = 1.0,
-                 max_rotation_deg: Optional[float] = None, seed: int = 0):
+                 use_normal: bool = False, extent: float = 10.0,
+                 max_translation: float = 1.0, max_rotation_deg: Optional[float] = None,
+                 noise_std: float = 0.0, seed: int = 0):
         rng = np.random.default_rng(seed)
-        self.clouds = [lidar_like_cloud(rng, num_points, max_range=max_range)
+        self.clouds = [rng.uniform(-extent, extent, size=(num_points, 3))
                        for _ in range(num_clouds)]
+        self.normals = None
+        if use_normal:
+            n = rng.standard_normal((num_clouds, num_points, 3))
+            self.normals = n / np.linalg.norm(n, axis=-1, keepdims=True)
         self.max_translation = max_translation
         self.max_rotation_deg = max_rotation_deg
+        self.noise_std = noise_std
 
     def __len__(self) -> int:
         return len(self.clouds)
 
     def sample(self, index: int, rng: np.random.Generator):
-        return make_pair(self.clouds[index], rng, max_translation=self.max_translation,
-                         max_rotation_deg=self.max_rotation_deg)
+        return make_pair(self.clouds[index], rng,
+                         normals=None if self.normals is None else self.normals[index],
+                         max_translation=self.max_translation,
+                         max_rotation_deg=self.max_rotation_deg, noise_std=self.noise_std)
+
+
+class LidarLikeDataset(SyntheticDataset):
+    """Synthetic velodyne-like clouds (radial density gradient)."""
+
+    def __init__(self, num_clouds: int = 64, num_points: int = 10000,
+                 max_range: float = 10.0, max_translation: float = 1.0,
+                 max_rotation_deg: Optional[float] = None, noise_std: float = 0.0,
+                 seed: int = 0):
+        rng = np.random.default_rng(seed)
+        self.clouds = [lidar_like_cloud(rng, num_points, max_range=max_range)
+                       for _ in range(num_clouds)]
+        self.normals = None
+        self.max_translation = max_translation
+        self.max_rotation_deg = max_rotation_deg
+        self.noise_std = noise_std
 
 
 def batch_iterator(dataset, batch_size: int, epoch: int = 0, seed: int = 0,

@@ -1,3 +1,8 @@
-"""Pose solves of the port."""
+"""Pose solves and the training loss of the port."""
 
-from deepvcp_tpu_torch.loss.registration import RefineResult, svd_refine  # noqa: F401
+from deepvcp_tpu_torch.loss.registration import (  # noqa: F401
+    RefineResult,
+    RegistrationResult,
+    deepvcp_loss,
+    svd_refine,
+)

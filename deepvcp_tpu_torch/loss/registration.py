@@ -1,6 +1,6 @@
-"""Two-pass trimmed Kabsch pose solve (port of
-deepvcp_tpu/loss/registration.py::svd_refine). The training loss,
-deepvcp_loss, comes with training (ROADMAP M7)."""
+"""Two-pass trimmed Kabsch pose solve and the training loss (port of
+deepvcp_tpu/loss/registration.py::svd_refine, deepvcp_loss). Gradients
+flow through both Kabsch solves and the inlier gathers, as in JAX."""
 
 from __future__ import annotations
 
@@ -9,6 +9,16 @@ from typing import NamedTuple, Optional
 import torch
 
 from deepvcp_tpu_torch.ops import apply_rigid, kabsch
+
+
+class RegistrationResult(NamedTuple):
+    loss: torch.Tensor           # scalar
+    R: torch.Tensor              # [B, 3, 3] refined rotation
+    t: torch.Tensor              # [B, 3] refined translation
+    l1: torch.Tensor             # scalar: alpha term
+    mean_residual: torch.Tensor  # scalar: (1 - alpha) term
+    vcp_l1: torch.Tensor         # scalar: direct per-keypoint VCP error term
+    rot_fro: torch.Tensor        # scalar: rotation Frobenius error term
 
 
 class RefineResult(NamedTuple):
@@ -34,3 +44,27 @@ def svd_refine(x: torch.Tensor, y_pred: torch.Tensor, inlier_ratio: float = 0.8,
     w_in = torch.gather(weights, -1, in_idx) if weights is not None else None
     R2, t2 = kabsch(x_in, y_in, w_in)
     return RefineResult(R=R2, t=t2, x_in=x_in, y_in=y_in, inlier_idx=in_idx)
+
+
+def deepvcp_loss(x: torch.Tensor, y_pred: torch.Tensor, R_true: torch.Tensor,
+                 t_true: torch.Tensor, alpha: float = 0.5, inlier_ratio: float = 0.8,
+                 weights: Optional[torch.Tensor] = None, vcp_weight: float = 0.0,
+                 rot_weight: float = 0.0) -> RegistrationResult:
+    """alpha * L1(y_true_in, y2) + (1 - alpha) * |mean(y2 - y_true_in)| on the
+    trimmed inliers, with y2 their second-pass fit; plus vcp_weight * the
+    mean per-keypoint L1 of the VCPs and rot_weight * the mean
+    sqrt(||R2 - R_true||_F^2 + 1e-12). x, y_pred [B, N, 3] keypoints and
+    VCPs; R_true [B, 3, 3], t_true [B, 3]; weights [B, N] or None."""
+    ref = svd_refine(x, y_pred, inlier_ratio, weights)
+    y2 = apply_rigid(ref.x_in, ref.R, ref.t)
+    y_true_in = apply_rigid(ref.x_in, R_true, t_true)
+    l1 = torch.mean(torch.abs(y_true_in - y2))
+    mean_res = torch.abs(torch.mean(y2 - y_true_in))
+    vcp_l1 = torch.mean(torch.abs(apply_rigid(x, R_true, t_true) - y_pred))
+    # the +1e-12 keeps the gradient bounded at zero rotation error
+    rot_fro = torch.mean(torch.sqrt(
+        torch.sum(torch.square(ref.R - R_true), dim=(-2, -1)) + 1e-12))
+    loss = (alpha * l1 + (1.0 - alpha) * mean_res
+            + vcp_weight * vcp_l1 + rot_weight * rot_fro)
+    return RegistrationResult(loss=loss, R=ref.R, t=ref.t, l1=l1, mean_residual=mean_res,
+                              vcp_l1=vcp_l1, rot_fro=rot_fro)

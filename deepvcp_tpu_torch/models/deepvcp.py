@@ -57,7 +57,11 @@ class DeepVCP(nn.Module):
     """forward(src, tgt, R_init, t_init) -> (keypoints [B,K,3], vcp [B,K,3], aux).
 
     src/tgt [B, N, 3] or [B, N, 6] (xyz + normals), channels last; R_init
-    [B, 3, 3], t_init [B, 3] warm-start pose. Inference only."""
+    [B, 3, 3], t_init [B, 3] warm-start pose. Under `eval()` it computes the
+    JAX `apply(..., train=False)`; under `train()` the JAX `apply(...,
+    train=True, mutable=["batch_stats"])`: BatchNorm on batch statistics,
+    with the shared FE's running statistics updated once per cloud, source
+    first, as the two FE calls of the JAX forward do."""
 
     def __init__(self, cfg: DeepVCPConfig):
         super().__init__()

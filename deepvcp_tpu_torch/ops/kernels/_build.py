@@ -1,10 +1,12 @@
 """Build the port's CUDA sources with nvcc and load them with ctypes.
 
-Every `csrc/*.cu` file is compiled into one shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds), for Hopper's
-`sm_90a`. The library lands in `deepvcp_tpu_torch/_build/` under a name keyed
-by a hash of the sources and flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. Nothing here runs at import time: the first
+Every `csrc/*.cu` file is compiled, one nvcc process each and all at once
+(a build takes the slowest source's time, not the sum, as kernels are
+added), then linked into one shared library with a plain C interface (no PyTorch
+headers, so a build takes seconds), for Hopper's `sm_90a`. The library lands
+in `deepvcp_tpu_torch/_build/` under a name keyed by a hash of the sources,
+the headers beside them and the flags, so an edited source is rebuilt and
+an unchanged one is loaded as it is. Nothing here runs at import time: the first
 call to `library()` builds, and it is made only by a wrapper that was handed
 a CUDA tensor.
 """
@@ -25,7 +27,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -49,6 +51,10 @@ def _sources() -> list:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
+def _headers() -> list:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
 def _digest(sources) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sources:
@@ -64,23 +70,26 @@ def build() -> str:
     sources = _sources()
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
-    target = os.path.join(BUILD_DIR, f"libdeepvcp_kernels_{_digest(sources)}.so")
+    target = os.path.join(BUILD_DIR, f"libdeepvcp_kernels_{_digest(sources + _headers())}.so")
     if os.path.exists(target):
         return target
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, os.path.basename(src) + ".o") for src in sources]
+        jobs = [([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]) for src, obj in zip(sources, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for cmd in jobs]
+        results = [proc.communicate() for proc in procs]
+        for cmd, proc, (_, err) in zip(jobs, procs, results):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+        tmp = os.path.join(tmpdir, "lib.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stderr}")
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
         os.replace(tmp, target)  # atomic: a reader never sees a partial file
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
     return target
 
 
@@ -94,6 +103,8 @@ def library() -> ctypes.CDLL:
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.band_max_f32.argtypes = [p, p, p, i, i, i, f, f, p]
             lib.band_max_f32.restype = i
+            lib.band_max_grad_f32.argtypes = [p, p, p, p, p, i, i, i, f, f, p]
+            lib.band_max_grad_f32.restype = i
             lib.band_max_error_string.argtypes = [i]
             lib.band_max_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -1,0 +1,26 @@
+"""Training of the port (counterpart of deepvcp_tpu/train): the train and
+eval steps, Trainer and the CLI (`python -m deepvcp_tpu_torch.train`). TrainConfig is the shared config
+of deepvcp_tpu, re-exported so a caller needs no import of that package."""
+
+from deepvcp_tpu.config import TrainConfig
+from deepvcp_tpu_torch.train.metrics import MetricsLogger, load_metrics
+from deepvcp_tpu_torch.train.trainer import (
+    Trainer,
+    TrainState,
+    build_train_step,
+    create_train_state,
+    make_eval_step,
+    make_train_step,
+)
+
+__all__ = [
+    "TrainConfig",
+    "Trainer",
+    "TrainState",
+    "build_train_step",
+    "create_train_state",
+    "make_train_step",
+    "make_eval_step",
+    "MetricsLogger",
+    "load_metrics",
+]

@@ -1,0 +1,139 @@
+"""Training CLI of the port (the flags of deepvcp_tpu/train/cli.py, plus a
+required --device).
+
+    python -m deepvcp_tpu_torch.train --device cuda -d synthetic --recipe residual
+    python -m deepvcp_tpu_torch.train --device cpu --tiny -d synthetic --num-points 128 --epochs 1
+
+Only the synthetic dataset is ported: the ModelNet40 and KITTI file loaders
+and --save-vis raise NotImplementedError (ROADMAP M13).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+from deepvcp_tpu.config import DeepVCPConfig, TrainConfig
+
+_FILE_LOADERS = "the ModelNet40 / KITTI file loaders are not ported yet: ROADMAP M13"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Train DeepVCP (PyTorch port)")
+    p.add_argument("--device", required=True,
+                   help="torch device to train on, e.g. cuda, cuda:1 or cpu")
+    p.add_argument("-d", "--dataset", default="modelnet",
+                   choices=["modelnet", "kitti", "synthetic"],
+                   help="dataset (only synthetic is ported)")
+    p.add_argument("-f", "--full_dataset", default="full",
+                   help="train on 'full' or 'partial' dataset")
+    p.add_argument("-r", "--retrain_path", type=str, default=None,
+                   help="port checkpoint to warm-start from")
+    p.add_argument("-m", "--model_path", type=str, default="final_model",
+                   help="tag for the final checkpoint")
+    p.add_argument("--root", type=str, default=None, help="dataset root dir")
+    p.add_argument("--checkpoint-dir", type=str, default="checkpoints")
+    p.add_argument("--metrics-path", type=str, default="metrics.jsonl")
+    p.add_argument("--epochs", type=int, default=10)
+    p.add_argument("--batch-size", type=int, default=1)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--alpha", type=float, default=0.5)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--num-points", type=int, default=10000)
+    p.add_argument("--num-keypoints", type=int, default=64)
+    p.add_argument("--tiny", action="store_true",
+                   help="use the tiny test topology (smoke runs)")
+    p.add_argument("--eval-only", action="store_true",
+                   help="load --retrain_path and evaluate the test split")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the latest checkpoint in --checkpoint-dir")
+    p.add_argument("--save-vis", type=str, default=None, metavar="DIR",
+                   help="with --eval-only: save cloud pairs to DIR (not ported)")
+    p.add_argument("--recipe", default="reference", choices=["reference", "residual"],
+                   help="'reference' = GT warm start, rigid-fit-only loss, constant "
+                        "lr; 'residual' = jittered warm starts, direct VCP L1 term, "
+                        "cosine lr, saliency-weighted solves")
+    p.add_argument("--init-rot-jitter-deg", type=float, default=None,
+                   help="override the warm-start rotation jitter (residual recipe: 12)")
+    p.add_argument("--init-trans-jitter", type=float, default=None,
+                   help="override the warm-start translation jitter (residual recipe: 0.5)")
+    p.add_argument("--keypoint-selection", default=None, choices=["topk", "salient_fps"],
+                   help="keypoint policy (salient_fps is not ported)")
+    return p
+
+
+def configs_from_args(args) -> tuple[DeepVCPConfig, TrainConfig]:
+    use_normal = args.dataset == "modelnet"
+    if args.tiny:
+        model_cfg = DeepVCPConfig.tiny(num_points=args.num_points, use_normal=use_normal)
+    else:
+        model_cfg = DeepVCPConfig(num_points=args.num_points, use_normal=use_normal,
+                                  num_keypoints=args.num_keypoints)
+    if args.keypoint_selection is not None:
+        model_cfg = dataclasses.replace(model_cfg, keypoint_selection=args.keypoint_selection)
+    extra = {}
+    if args.recipe == "residual":
+        # total_steps for the cosine schedule is filled in by main()
+        extra = dict(vcp_loss_weight=1.0, lr_schedule="cosine", warmup_steps=100,
+                     use_saliency_weights=True, init_translation="gt",
+                     init_rot_jitter_deg=12.0, init_trans_jitter=0.5)
+    if args.init_rot_jitter_deg is not None:
+        extra["init_rot_jitter_deg"] = args.init_rot_jitter_deg
+    if args.init_trans_jitter is not None:
+        extra["init_trans_jitter"] = args.init_trans_jitter
+    train_cfg = TrainConfig(num_epochs=args.epochs, batch_size=args.batch_size,
+                            learning_rate=args.lr, alpha=args.alpha, seed=args.seed,
+                            checkpoint_dir=args.checkpoint_dir,
+                            metrics_path=args.metrics_path, **extra)
+    return model_cfg, train_cfg
+
+
+def make_dataset(args, model_cfg: DeepVCPConfig, split: str):
+    from deepvcp_tpu_torch.data import SyntheticDataset
+
+    if args.dataset in ("modelnet", "kitti"):
+        raise NotImplementedError(f"--dataset {args.dataset}: {_FILE_LOADERS}")
+    return SyntheticDataset(num_clouds=16 if split == "train" else 4,
+                            num_points=model_cfg.num_points, use_normal=model_cfg.use_normal,
+                            seed=0 if split == "train" else 1)
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    if args.save_vis:
+        raise NotImplementedError("--save-vis needs utils/vis.py, not ported yet: ROADMAP M13")
+    model_cfg, train_cfg = configs_from_args(args)
+
+    from deepvcp_tpu_torch.data import batch_iterator
+    from deepvcp_tpu_torch.train.trainer import Trainer
+
+    train_data = make_dataset(args, model_cfg, "train")
+    test_data = make_dataset(args, model_cfg, "test")
+    print(f"Train dataset size: {len(train_data)}  Test dataset size: {len(test_data)}")
+
+    if train_cfg.lr_schedule == "cosine" and train_cfg.total_steps == 0:
+        steps_per_epoch = max(len(train_data) // train_cfg.batch_size, 1)
+        train_cfg = dataclasses.replace(train_cfg,
+                                        total_steps=train_cfg.num_epochs * steps_per_epoch)
+
+    trainer = Trainer(model_cfg, train_cfg, device=args.device)
+    trainer.setup(retrain_path=args.retrain_path)
+
+    def eval_batches(epoch):
+        return batch_iterator(test_data, train_cfg.batch_size, epoch=epoch,
+                              seed=train_cfg.seed + 1, shuffle=False)
+
+    if args.eval_only:
+        print("eval:", trainer.evaluate(eval_batches(0)))
+        return
+
+    def train_batches(epoch):
+        return batch_iterator(train_data, train_cfg.batch_size, epoch=epoch, seed=train_cfg.seed)
+
+    trainer.fit(train_batches, eval_batches, resume=args.resume)
+    path = trainer.save_checkpoint(args.model_path)
+    print(f"Finished Training; final checkpoint at {path}")
+
+
+if __name__ == "__main__":
+    main()

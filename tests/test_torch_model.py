@@ -191,12 +191,21 @@ def test_encode_correspond_equals_forward():
     assert torch.equal(aux["candidate_weights"], aux2["candidate_weights"])
 
 
-def test_forward_needs_no_grad():
-    """The kernel has no backward yet (K2): a forward that tracks gradients
-    must fail loudly, not silently detach."""
-    _, _, tm, inputs = _models(False)
-    with pytest.raises(NotImplementedError, match="K2"):
-        tm(*map(torch.from_numpy, inputs))
+def test_forward_tracks_gradients():
+    """A forward under autograd reaches every parameter (the SA stages
+    through the pool's K2 backward) with finite gradients, and in eval()
+    leaves the BatchNorm statistics as they were."""
+    _, v, _, inputs = _models(False)
+    tm = _torch_module(DeepVCP(_cfg(False)), v)
+    stats = {name: b.clone() for name, b in tm.named_buffers()}
+    _, vcp, aux = tm(*map(torch.from_numpy, inputs))
+    (vcp.square().sum() + aux["keypoint_saliency"].sum()).backward()
+    for name, p in tm.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+    for stage in ("sa1", "sa2", "sa3"):
+        assert getattr(tm.fe, stage).proj_xyz.weight.grad.abs().max() > 0, stage
+    for name, b in tm.named_buffers():
+        assert torch.equal(b, stats[name]), name
 
 
 @pytest.mark.parametrize("change", [

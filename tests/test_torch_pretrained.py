@@ -1,6 +1,7 @@
 """The port's weights, configs and data against the JAX package's, and the
 port's promise not to import jax."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -117,7 +118,22 @@ def test_port_never_imports_jax():
     code = ("import sys\n"
             "import deepvcp_tpu_torch, deepvcp_tpu_torch.pretrained, deepvcp_tpu_torch.registration\n"
             "import deepvcp_tpu_torch.data, deepvcp_tpu_torch.ops.kernels\n"
+            "import deepvcp_tpu_torch.train, deepvcp_tpu_torch.train.cli, deepvcp_tpu_torch.utils\n"
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_chip_smoke_imports_only_the_port():
+    """chip_smoke.py imports neither jax nor the JAX package: it reaches the
+    shared configs through deepvcp_tpu_torch."""
+    with open(os.path.join(ROOT, "chip_smoke.py")) as fh:
+        tree = ast.parse(fh.read())
+    modules = [alias.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+               for alias in node.names]
+    modules += [node.module for node in ast.walk(tree)
+                if isinstance(node, ast.ImportFrom) and node.module]
+    assert "deepvcp_tpu_torch.train" in modules
+    top = {m.split(".")[0] for m in modules}
+    assert not top & {"jax", "jaxlib", "flax", "optax", "deepvcp_tpu"}, sorted(top)
