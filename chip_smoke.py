@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (deepvcp_tpu_torch) on one CUDA card.
 
-Drives the port's two paths at full width (N = 10 000 points, 64 keypoints,
-216 candidates, 32 neighbours): serving, `pretrained.registrar("kitti25-rot")`
-on 16 held-out synthetic lidar pairs, and training, 12 fine-tuning steps of
-`kitti25-rot` through `train.Trainer` under the recipe that trained it. It
-checks on the way:
+Drives the port's three paths at full width (N = 10 000 points, 64
+keypoints, 216 candidates, 32 neighbours): serving,
+`pretrained.registrar("kitti25-rot")` on 16 held-out synthetic lidar pairs;
+training, 12 fine-tuning steps of `kitti25-rot` through `train.Trainer`
+under the recipe that trained it; and global registration of pairs with
+any rotation, `initializer.so3_global_init` then
+`pretrained.cascade("modelnet-cascade")`, on two held sets of 16 pairs
+(B = 2). It checks on the way:
 
   1. device      a CUDA card is present; prints nvidia-smi's name and power limit
   2. build       builds every CUDA kernel of the paths from csrc/ with nvcc
@@ -31,7 +34,24 @@ checks on the way:
  10. train time  step time, forward / loss+backward+clip / Adam / metrics
                  split, profiler busy time, peak memory, and the fine-tuned
                  model's GT-free RRE / RTE on the 16 held pairs (printed only)
- 11. no jax      jax was never imported
+ 12. K3          FPS kernel against its plain version at the global path's
+                 shapes ([2, 10 000, 3] at npoint 4096 and 128; [2, 256, 3] at
+                 64, the salient_fps shape) and on a lattice cloud with every
+                 point twice: indices identical; median times
+ 13. global      so3_global_init + modelnet-cascade on the 16 lidar-like and
+                 16 uniform-cube pairs: every lidar-like init RRE < 10 deg
+                 and refined median RRE < 2 deg; at least 13 of 16 cube
+                 inits < 10 deg; every stage's returned pose scores its
+                 block's minimum, at most its column 0 (the guard); 2 K3
+                 launches per init call, 12 K1 launches per cascade call
+ 14. global paths kernel path against plain path on the first batch of each
+                 set: FPS indices equal, init R and t within 1e-6, cascade
+                 pose within 1e-4
+ 15. global time  init and cascade latency, a CUDA-event split of the init
+                 (FPS / coarse ICP sweep / fine rescore / fine ICP), busy time,
+                 idle share, peak memory (printed only)
+ 11. no jax      neither jax nor the JAX package deepvcp_tpu was imported
+                 (checked last)
 
 Any failure exits non-zero. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it lists the kernels as JSON.
@@ -58,6 +78,16 @@ TRAIN_STEPS = 12
 K2_GAUSS_LIMIT = 1e-5      # K2 vs plain with Gaussian cotangents (order of summation)
 LOSS_RTOL, GRAD_RTOL, STAT_ATOL = 1e-5, 1e-4, 1e-6   # kernel vs plain train step
 CANCEL_FRAC = 1e-3         # a gradient tensor below this share of |g| is a cancelling sum
+# the global path: campaign_r5f W6, the JAX package's validation of it
+GLOBAL_BATCHES, GLOBAL_B = 8, 2                  # 16 pairs per held set
+FPS_SHAPES = ((2, N_POINTS, 4096), (2, N_POINTS, 128), (2, 256, 64))   # (B, N, npoint)
+K3_PER_INIT = 2                                  # one FPS per cloud
+K1_PER_CASCADE = 2 * LAUNCHES_PER_CALL           # two stages
+INIT_BASIN_DEG, REFINED_MEDIAN_DEG, CUBE_IN_BASIN = 10.0, 2.0, 13
+INIT_PATH_ATOL, CASCADE_PATH_ATOL = 1e-6, 1e-4   # kernel vs plain path
+# H100 SXM published peaks (NVIDIA datasheet): HBM bytes/s and
+# float32 (non-tensor-core) operations/s, for the kernels' bounds
+HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 
 
 def fail(msg: str) -> None:
@@ -128,6 +158,26 @@ def device_time_per_call(torch, fn, calls: int):
     rows = [(e.key[:60], e.self_device_time_total / 1e3 / calls)
             for e in prof.key_averages() if on_device(e)]
     return busy_us / 1e3 / calls, sorted(rows, key=lambda r: -r[1])[:8]
+
+
+def host_syncs(torch, fn) -> list:
+    """The lines of the port that make the card synchronise with the host
+    in one call of fn(), with their counts, from
+    torch.cuda.set_sync_debug_mode("warn") (which covers most, not all,
+    synchronising operations)."""
+    import collections
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    return where.most_common()
 
 
 def stage_split(torch, reg, src, tgt) -> dict:
@@ -239,7 +289,7 @@ def train_phase(torch, dev, pairs) -> dict:
     from deepvcp_tpu_torch import convert, pretrained
     from deepvcp_tpu_torch.data import (
         LidarLikeDataset, batch_iterator, rotation_geodesic_deg, translation_error)
-    from deepvcp_tpu_torch.ops.kernels import band_max
+    from deepvcp_tpu_torch.ops.kernels import band_max, reference_path
     from deepvcp_tpu_torch.train import MetricsLogger, Trainer, build_train_step
     from deepvcp_tpu_torch.train.optim import learning_rate_schedule
 
@@ -335,7 +385,7 @@ def train_phase(torch, dev, pairs) -> dict:
             warnings.simplefilter("always")
             loss_k, norm_k, grads_k, stats_k = one_step()
             _, _, grads_k2, _ = one_step()
-            with band_max.reference_path():
+            with reference_path():
                 loss_p, norm_p, grads_p, stats_p = one_step()
     finally:
         torch.use_deterministic_algorithms(False)
@@ -383,7 +433,7 @@ def train_phase(torch, dev, pairs) -> dict:
         trainer.state, _ = step_fn(trainer.state, *next(feed))
 
     step_ms = host_median_ms(torch, timed_step, reps=10)
-    with band_max.reference_path():
+    with reference_path():
         step_plain_ms = host_median_ms(torch, timed_step, reps=3)
     print(f"train step, B=1, N={N_POINTS}: kernel path {step_ms:.3f} ms, plain path "
           f"{step_plain_ms:.3f} ms (median of synced steps)")
@@ -405,6 +455,270 @@ def train_phase(torch, dev, pairs) -> dict:
     return {"k1": k1, "k2": k2}
 
 
+def bound_ms(bytes_moved: float, ops: float) -> tuple:
+    """(least time in ms, what bounds it) for work that moves `bytes_moved`
+    bytes and does `ops` float32 operations, at the card's published peaks."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def in_radius_pairs(torch, x, radius: float) -> int:
+    """Ordered pairs (q, n), q == n included, within `radius` in the cloud
+    x [B, N, 3], under the kernels' f32 test: the work K1 and K2 must do."""
+    from deepvcp_tpu_torch.ops.kernels.band_max import radius_squared
+
+    r2, count = radius_squared(radius), 0
+    for s in range(0, x.shape[1], 1024):
+        d = x[:, None, :, :] - x[:, s:s + 1024, None, :]
+        d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+        count += int((d2 <= r2).sum())
+    return count
+
+
+def k3_phase(torch, dev) -> dict:
+    """Phase 12: K3 against its plain version at the global path's shapes
+    and on a tie cloud; median CUDA-event times. Returns the numbers of the
+    two shapes one so3_global_init call runs ([2, N, 3] at 4096 and 128)."""
+    import numpy as np
+
+    from deepvcp_tpu_torch.data import lidar_like_cloud
+    from deepvcp_tpu_torch.ops.kernels.fps import (
+        farthest_point_sample, farthest_point_sample_reference)
+
+    rng = np.random.default_rng(1)
+    g = np.arange(17, dtype=np.float32) * 0.125
+    lattice = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    lattice = np.concatenate([lattice, lattice])[rng.permutation(2 * len(lattice))]
+    cases = [(f"[{B}, {N}, 3] npoint {k}",
+              np.stack([lidar_like_cloud(rng, N, max_range=1.0) for _ in range(B)]), k)
+             for B, N, k in FPS_SHAPES]
+    cases.append((f"tie cloud [1, {len(lattice)}, 3] (a 17^3 lattice, every point twice) "
+                  f"npoint 4096", lattice[None], 4096))
+    init = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0, "max_abs_err": 0}
+    for name, xyz, k in cases:
+        x = torch.from_numpy(np.ascontiguousarray(xyz, dtype=np.float32)).to(dev)
+        got = farthest_point_sample(x, k)
+        want = farthest_point_sample_reference(x, k)
+        err = int((got - want).abs().max())
+        if err != 0:
+            bad = int((got != want).nonzero()[0, 1])
+            fail(f"K3 disagrees with its plain version at {name}: first at pick {bad}")
+        ms = cuda_median_ms(torch, lambda: farthest_point_sample(x, k), reps=10, warmup=1)
+        plain = cuda_median_ms(torch, lambda: farthest_point_sample_reference(x, k), reps=3,
+                               warmup=1)
+        B, N, _ = x.shape
+        # bytes: the cloud read once, the indices written once; operations:
+        # each pick, 3 sub, 3 mul, 2 add, a min and a max-compare per point
+        nbytes, ops = B * N * 12 + B * k * 8, B * k * N * 10
+        bound, by = bound_ms(nbytes, ops)
+        print(f"K3 farthest_point_sample {name}: indices identical | kernel {ms:.4f} ms, "
+              f"plain {plain:.4f} ms (median, CUDA events), bound {bound:.4f} ms ({by})")
+        if B == GLOBAL_B and N == N_POINTS:
+            init["ms"] += ms
+            init["plain_ms"] += plain
+            init["bytes"] += nbytes
+            init["ops"] += ops
+            init["max_abs_err"] = max(init["max_abs_err"], err)
+    init["bound_ms"], init["bound_by"] = bound_ms(init["bytes"], init["ops"])
+    return init
+
+
+def init_split(torch, src, tgt) -> dict:
+    """Device time of the phases of one so3_global_init call at its
+    defaults, replaying it through the initializer's public pieces between
+    CUDA events: FPS and centring; the coarse ICP sweep; the fine rescore
+    of every hypothesis; top-p, fine ICP and the final pick."""
+    import inspect
+
+    from deepvcp_tpu_torch import initializer as gi
+
+    kw = {k: v.default for k, v in inspect.signature(gi.so3_global_init).parameters.items()
+          if v.default is not inspect.Parameter.empty}
+    ev = []
+
+    def mark():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        ev.append(e)
+
+    B = src.shape[0]
+    with torch.no_grad():
+        mark()
+        lv = gi.centred_levels(src, tgt, kw["n_src"], kw["n_tgt"], kw["n_coarse"],
+                               kw["inlier_ratio"])
+        mark()
+        chunks = gi.hypothesis_chunks(kw["n_rotations"], kw["sweep_chunk"], device=src.device)
+        cg = chunks.shape[1]
+        Rc, tc, sc = [], [], []
+        for g in chunks:
+            mark()
+            R, t = gi.icp(lv, g.expand(B, cg, 3, 3), torch.zeros(B, cg, 3, device=src.device),
+                          lv.coarse, kw["icp_coarse_iters"])
+            mark()
+            sc.append(gi.score(lv, R, t, lv.fine))
+            Rc.append(R)
+            tc.append(t)
+        mark()
+        Rc, tc, sc = torch.cat(Rc, 1), torch.cat(tc, 1), torch.cat(sc, 1)
+        best = torch.topk(sc[:, :kw["n_rotations"]], kw["top_p"], dim=-1, largest=False).indices
+        rows = torch.arange(B, device=src.device)[:, None]
+        Rf, tf = gi.icp(lv, Rc[rows, best], tc[rows, best], lv.fine, kw["icp_iters"])
+        torch.argmin(gi.score(lv, Rf, tf, lv.fine), dim=-1)
+        mark()
+    torch.cuda.synchronize()
+    n = len(chunks)
+    return {"fps_centre": ev[0].elapsed_time(ev[1]),
+            "coarse_icp_sweep": sum(ev[2 + 2 * i].elapsed_time(ev[3 + 2 * i]) for i in range(n)),
+            "fine_rescore": sum(ev[3 + 2 * i].elapsed_time(ev[4 + 2 * i]) for i in range(n)),
+            "fine_icp_pick": ev[-2].elapsed_time(ev[-1])}
+
+
+def global_phase(torch, dev) -> dict:
+    """Phases 13-15: so3_global_init + modelnet-cascade on the two held sets
+    of campaign_r5f W6, the kernel path against the plain path, and timing.
+    Returns the K1 and K3 launch counts of the gated run."""
+    import numpy as np
+
+    from deepvcp_tpu_torch import pretrained
+    from deepvcp_tpu_torch.data import (
+        LidarLikeDataset, SyntheticDataset, batch_iterator, rotation_geodesic_deg,
+        translation_error)
+    from deepvcp_tpu_torch.initializer import so3_global_init
+    from deepvcp_tpu_torch.ops import farthest_point_sample
+    from deepvcp_tpu_torch.ops.kernels import band_max, fps, reference_path
+
+    casc = pretrained.cascade("modelnet-cascade", device="cuda")   # the current card, dev
+    held = {
+        "lidar_like": LidarLikeDataset(num_clouds=GLOBAL_B * GLOBAL_BATCHES,
+                                       num_points=N_POINTS, max_range=1.0, seed=103,
+                                       noise_std=0.01),
+        "uniform_cube": SyntheticDataset(num_clouds=GLOBAL_B * GLOBAL_BATCHES,
+                                         num_points=N_POINTS, extent=1.0, seed=102,
+                                         noise_std=0.01),
+    }
+    batches = {name: [tuple(torch.from_numpy(a).to(dev) for a in b) for b in
+                      batch_iterator(ds, GLOBAL_B, epoch=0, seed=777, shuffle=False)]
+               for name, ds in held.items()}
+
+    # 13. the main path
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fps.farthest_point_sample.launches = 0
+    band_max.banded_masked_max.launches = 0
+    runs = {name: [] for name in batches}
+    for name, bs in batches.items():
+        for src, tgt, _, _ in bs:
+            init = so3_global_init(src, tgt)
+            runs[name].append((init, casc(src, tgt, init.R, init.t)))
+    torch.cuda.synchronize()
+    k3, k1 = fps.farthest_point_sample.launches, band_max.banded_masked_max.launches
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    n_calls = sum(len(v) for v in runs.values())
+    last = casc.stages[-1]
+    last_cols = last.refine_iters + 1
+    summary = {}
+    for name, bs in batches.items():
+        rre0, rre_init, rre_ref, rte_ref = [], [], [], []
+        for i, ((src, tgt, R_gt, t_gt), (init, out)) in enumerate(zip(bs, runs[name])):
+            for field, val, shape in (("init R", init.R, (GLOBAL_B, 3, 3)),
+                                      ("init t", init.t, (GLOBAL_B, 3)),
+                                      ("R", out.R, (GLOBAL_B, 3, 3)), ("t", out.t, (GLOBAL_B, 3)),
+                                      ("scores", out.scores, (GLOBAL_B, 3 + last_cols))):
+                if tuple(val.shape) != shape or not torch.isfinite(val).all():
+                    fail(f"{name} batch {i}: {field} has shape {tuple(val.shape)} "
+                         f"(want {shape}) or non-finite values")
+            # the guard: the returned pose scores the last block's minimum,
+            # which is at most the block's column 0 (the incoming pose)
+            final = last.score(out.keypoints, tgt[..., :3], out.R, out.t)
+            block = out.scores[:, -last_cols:]
+            if ((final - block.min(dim=-1).values).abs() > 1e-6).any() or \
+                    (block.min(dim=-1).values > block[:, 0]).any():
+                fail(f"{name} batch {i}: the returned pose scores {final.tolist()}, its block "
+                     f"{block.tolist()}: the guard did not hold")
+            eye = torch.eye(3, device=dev).expand(GLOBAL_B, 3, 3)
+            for b in range(GLOBAL_B):
+                rre0.append(rotation_geodesic_deg(eye[b:b + 1], R_gt[b:b + 1]).item())
+                rre_init.append(rotation_geodesic_deg(init.R[b:b + 1], R_gt[b:b + 1]).item())
+                rre_ref.append(rotation_geodesic_deg(out.R[b:b + 1], R_gt[b:b + 1]).item())
+                rte_ref.append(translation_error(out.t[b:b + 1], t_gt[b:b + 1]).item())
+                print(f"{name} pair {2 * i + b:2d}: RRE identity {rre0[-1]:8.3f} deg | init "
+                      f"{rre_init[-1]:8.3f} deg | refined {rre_ref[-1]:8.4f} deg, RTE "
+                      f"{rte_ref[-1]:.5f} | score col 0 {out.scores[b, 0].item():.5f}, final "
+                      f"{final[b].item():.5f}")
+        in_basin = sum(r < INIT_BASIN_DEG for r in rre_init)
+        med = statistics.median(rre_ref)
+        summary[name] = (in_basin, med)
+        print(f"{name}: inits under {INIT_BASIN_DEG:g} deg {in_basin}/{len(rre_init)}, init "
+              f"median {statistics.median(rre_init):.3f} deg; refined median {med:.4f} deg, "
+              f"under 2 deg {sum(r < 2 for r in rre_ref)}/{len(rre_ref)}, median RTE "
+              f"{statistics.median(rte_ref):.5f}; identity median "
+              f"{statistics.median(rre0):.2f} deg")
+    lid_basin, lid_med = summary["lidar_like"]
+    if lid_basin != GLOBAL_B * GLOBAL_BATCHES or lid_med >= REFINED_MEDIAN_DEG:
+        fail(f"lidar_like: {lid_basin} inits in the basin (want all), refined median "
+             f"{lid_med} deg (want < {REFINED_MEDIAN_DEG})")
+    if summary["uniform_cube"][0] < CUBE_IN_BASIN:
+        fail(f"uniform_cube: {summary['uniform_cube'][0]} inits in the basin "
+             f"(want >= {CUBE_IN_BASIN})")
+    print(f"launches in the global run: K3 {k3} over {n_calls} init calls ({k3 / n_calls:g} "
+          f"per call), K1 {k1} over {n_calls} cascade calls ({k1 / n_calls:g} per call); "
+          f"peak device memory {peak:.1f} MiB")
+    if k3 != K3_PER_INIT * n_calls or k1 != K1_PER_CASCADE * n_calls:
+        fail(f"expected {K3_PER_INIT} K3 launches per init and {K1_PER_CASCADE} K1 "
+             f"launches per cascade call")
+
+    # 14. kernel path vs plain path on the first batch of each set
+    n_src, n_tgt = 128, 4096   # so3_global_init's defaults
+    for name, bs in batches.items():
+        src, tgt = bs[0][0], bs[0][1]
+
+        def path():
+            idx = (farthest_point_sample(src, n_src), farthest_point_sample(tgt, n_tgt))
+            init = so3_global_init(src, tgt)
+            return idx, init, casc(src, tgt, init.R, init.t)
+
+        idx_k, init_k, out_k = path()
+        with reference_path():
+            idx_p, init_p, out_p = path()
+        if not all(torch.equal(a, b) for a, b in zip(idx_k, idx_p)):
+            fail(f"{name}: the kernel and plain paths' FPS indices differ")
+        dRi = (init_k.R - init_p.R).abs().max().item()
+        dti = (init_k.t - init_p.t).abs().max().item()
+        dR = (out_k.R - out_p.R).abs().max().item()
+        dt = (out_k.t - out_p.t).abs().max().item()
+        print(f"{name} batch 0, kernel vs plain path: FPS indices identical, init max|dR| "
+              f"{dRi:.3e} max|dt| {dti:.3e}, cascade max|dR| {dR:.3e} max|dt| {dt:.3e}")
+        if max(dRi, dti) > INIT_PATH_ATOL or max(dR, dt) > CASCADE_PATH_ATOL:
+            fail(f"{name}: the global path's kernel and plain paths disagree")
+
+    # 15. timing (not gated)
+    src, tgt = batches["lidar_like"][0][:2]
+    init = so3_global_init(src, tgt)
+    init_ms = host_median_ms(torch, lambda: so3_global_init(src, tgt), reps=5)
+    casc_ms = host_median_ms(torch, lambda: casc(src, tgt, init.R, init.t), reps=10)
+    print(f"global path, B={GLOBAL_B}, N={N_POINTS}: so3_global_init {init_ms:.3f} ms, "
+          f"modelnet-cascade {casc_ms:.3f} ms (median of synced calls)")
+    splits = [init_split(torch, src, tgt) for _ in range(4)][1:]
+    split = {k: statistics.median(s[k] for s in splits) for k in splits[0]}
+    print("so3_global_init split (CUDA events, ms, median of 3): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in split.items()) + f" | sum {sum(split.values()):.3f}")
+    for what, fn, calls, wall in (
+            ("so3_global_init", lambda: so3_global_init(src, tgt), 2, init_ms),
+            ("modelnet-cascade", lambda: casc(src, tgt, init.R, init.t), 5, casc_ms)):
+        syncs = host_syncs(torch, fn)
+        print(f"host syncs in one {what} call: {sum(n for _, n in syncs)} ("
+              + "; ".join(f"{where} x{n}" for where, n in syncs) + ")")
+        busy, top = device_time_per_call(torch, fn, calls=calls)
+        if busy > 0:
+            print(f"device busy per {what} call (torch.profiler, union of kernel intervals): "
+                  f"{busy:.3f} ms of {wall:.3f} ms, idle share {1 - busy / wall:.3f}")
+            print(f"top kernels of {what} (ms per call): "
+                  + "; ".join(f"{k} {v:.3f}" for k, v in top))
+        else:
+            print(f"device busy per {what} call: not measured (the profiler saw no device time)")
+    return {"k1": k1, "k3": k3}
+
+
 def main() -> None:
     # cuBLAS reads this when it starts; the train-path comparison (phase 9)
     # runs under deterministic algorithms, which need it
@@ -423,7 +737,7 @@ def main() -> None:
     from deepvcp_tpu_torch.data import (
         LidarLikeDataset, batch_iterator, lidar_like_cloud,
         rotation_geodesic_deg, translation_error)
-    from deepvcp_tpu_torch.ops.kernels import _build, band_max
+    from deepvcp_tpu_torch.ops.kernels import _build, band_max, reference_path
     from deepvcp_tpu_torch.ops.kernels.band_max import (
         banded_masked_max, banded_masked_max_grad, banded_masked_max_grad_reference,
         banded_masked_max_reference)
@@ -526,7 +840,7 @@ def main() -> None:
     with torch.no_grad():
         enc_k = reg.model.encode(src, tgt)
         out_k = reg(src, tgt)
-        with band_max.reference_path():
+        with reference_path():
             enc_p = reg.model.encode(src, tgt)
             out_p = reg(src, tgt)
     if not torch.equal(enc_k.keypoint_idx, enc_p.keypoint_idx):
@@ -549,7 +863,7 @@ def main() -> None:
 
     # 7. timing (not gated)
     lat = host_median_ms(torch, lambda: reg(src, tgt), reps=20)
-    with band_max.reference_path():
+    with reference_path():
         lat_plain = host_median_ms(torch, lambda: reg(src, tgt), reps=10)
     print(f"Registrar per-call latency, B=1, N={N_POINTS}: kernel path {lat:.3f} ms, "
           f"plain path {lat_plain:.3f} ms (median of synced calls)")
@@ -569,23 +883,49 @@ def main() -> None:
     # 8-10. the training path
     train = train_phase(torch, dev, pairs)
 
-    # 11. no jax
-    if "jax" in sys.modules:
-        fail("jax was imported")
-    print("jax imported: no")
+    # 12-15. FPS and the global path
+    k3 = k3_phase(torch, dev)
+    glob = global_phase(torch, dev)
+
+    # bounds of K1 and K2 at the three SA shapes, from this cloud's pairs
+    # bytes: each input read once, the output written once; operations: per
+    # in-radius pair, the f32 distance test (9) and C max (K1) or C compares
+    # and C adds (K2)
+    k1_work, k2_work = [0, 0], [0, 0]
+    for C, r in SA_SHAPES:
+        pairs_r = in_radius_pairs(torch, x, r)
+        k1_work[0] += 4 * N_POINTS * (3 + 2 * C)
+        k1_work[1] += pairs_r * (9 + C)
+        k2_work[0] += 4 * N_POINTS * (3 + 4 * C)
+        k2_work[1] += pairs_r * (9 + 2 * C)
+        print(f"SA shape C={C}, r={r}: {pairs_r} in-radius pairs in the phase-3 cloud")
+    (k1_bound, k1_by), (k2_bound, k2_by) = bound_ms(*k1_work), bound_ms(*k2_work)
+    print(f"bounds at the 3 SA shapes: K1 {k1_bound:.5f} ms ({k1_by}), K2 {k2_bound:.5f} ms "
+          f"({k2_by}); K3 at one init call's 2 shapes {k3['bound_ms']:.5f} ms "
+          f"({k3['bound_by']})")
+
+    # 11. no jax, nothing of the JAX package
+    imported = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "deepvcp_tpu"))
+    if imported:
+        fail(f"jax or the JAX package was imported: {imported[:8]}")
+    print("jax imported: no; deepvcp_tpu imported: no")
 
     print(card)
-    # ms / plain_ms: sums of the medians at the 3 SA shapes (one FE pass, or
-    # one FE backward); K1's launches: the serving run's plus the training run's
+    # ms / plain_ms / bound_ms: K1 and K2 sums at the 3 SA shapes (one FE
+    # pass, or one FE backward), K3 sums at the 2 shapes of one init call;
+    # launches: the main-path runs' (K1 serving + training + global)
     print(json.dumps({"kernels": [{
         "name": "banded_masked_max",
         "route": "cuda",
         "source": "deepvcp_tpu_torch/csrc/band_max.cu",
         "replaces": "deepvcp_tpu/ops/pallas/band_max_kernel.py:148",
-        "launches": launches + train["k1"],
+        "launches": launches + train["k1"] + glob["k1"],
         "max_abs_err": k1_err,
         "ms": k1_ms,
         "plain_ms": k1_plain_ms,
+        "bound_ms": k1_bound,
+        "bound_by": k1_by,
+        "library_ms": None,
     }, {
         "name": "banded_masked_max_grad",
         "route": "cuda",
@@ -595,6 +935,21 @@ def main() -> None:
         "max_abs_err": k2_err,
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,
+        "bound_ms": k2_bound,
+        "bound_by": k2_by,
+        "library_ms": None,
+    }, {
+        "name": "farthest_point_sample",
+        "route": "cuda",
+        "source": "deepvcp_tpu_torch/csrc/fps.cu",
+        "replaces": "deepvcp_tpu/ops/pallas/fps_kernel.py:81",
+        "launches": glob["k3"],
+        "max_abs_err": k3["max_abs_err"],
+        "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"],
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -2,8 +2,9 @@
 Hopper (H100).
 
 The JAX package deepvcp_tpu stays the reference; this package mirrors its
-layout (ops/, models/, loss/, registration.py, pretrained.py) and shares its
-config. It imports torch and numpy, never jax. Every Pallas kernel on the
+layout (ops/, models/, loss/, registration.py, pretrained.py, config.py,
+initializer.py) and keeps its own copy of the configs. It imports torch and
+numpy, never jax and nothing of deepvcp_tpu. Every Pallas kernel on the
 ported path is a hand-written CUDA kernel under csrc/, built with nvcc on
 first use (ops/kernels/_build.py), beside a plain PyTorch version that CPU
 tensors run.
@@ -12,7 +13,9 @@ Layout:
     ops/          geometry ops; ops/kernels/ the CUDA kernel wrappers
     models/       banded set abstraction, FE, heads, DeepVCP forward
     loss/         the trimmed Kabsch pose solve and the training loss
-    registration  Registrar, the inference contract
+    config        DeepVCPConfig, TrainConfig (copies of the JAX package's)
+    registration  Registrar and CascadeRegistrar, the inference contract
+    initializer   so3_global_init, the coarse pose for any rotation
     pretrained    registry checkpoints exported to weights/*.npz
     convert       flax variables (and optax Adam state) -> torch
     data/         JAX-free synthetic datasets and pose metrics
@@ -22,7 +25,7 @@ Layout:
 
 import torch
 
-from deepvcp_tpu.config import DeepVCPConfig  # noqa: F401
+from deepvcp_tpu_torch.config import DeepVCPConfig, SALayerConfig, TrainConfig  # noqa: F401
 
 # float32 must mean float32 on the card, as in the JAX reference: matmuls
 # are full f32 by default, but cuDNN runs f32 convolutions (the CPG Conv3d)

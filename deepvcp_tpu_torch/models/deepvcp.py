@@ -1,7 +1,7 @@
-"""DeepVCP forward (port of deepvcp_tpu/models/deepvcp.py), default branches:
-top-K keypoints, source neighbourhoods from the full source cloud (D13),
-flat candidate KNN, derotated target neighbourhoods (D14) and the fused
-[N, 3+F] gather.
+"""DeepVCP forward (port of deepvcp_tpu/models/deepvcp.py): top-K or
+salient-FPS keypoints, and the default branches of the rest: source
+neighbourhoods from the full source cloud (D13), flat candidate KNN,
+derotated target neighbourhoods (D14) and the fused [N, 3+F] gather.
 
 The forward is split at the warm start. `encode` is everything that does not
 depend on the pose (both FE passes, saliency, keypoints and the source
@@ -18,9 +18,10 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 from torch import nn
 
-from deepvcp_tpu.config import DeepVCPConfig
+from deepvcp_tpu_torch.config import DeepVCPConfig
 from deepvcp_tpu_torch.models.layers import CPG, FeatEmbedding, FeatureExtraction, WeightingLayer
-from deepvcp_tpu_torch.ops import apply_rigid, approx_knn, index_points, knn, voxelize
+from deepvcp_tpu_torch.ops import (
+    apply_rigid, approx_knn, farthest_point_sample, index_points, knn, voxelize)
 
 _EPS = 1e-8
 
@@ -40,8 +41,6 @@ class Encoding(NamedTuple):
 def _unsupported(cfg: DeepVCPConfig) -> str:
     """The first non-default branch cfg selects that the port lacks, with
     the ROADMAP item that brings it ('' when all are ported)."""
-    if cfg.keypoint_selection != "topk":
-        return "keypoint_selection='salient_fps' (needs FPS kernel K3, ROADMAP M8)"
     if cfg.dfe_src_neighbors != "cloud":
         return "dfe_src_neighbors='keypoints' (ROADMAP M10)"
     if cfg.use_two_level_tgt_knn:
@@ -94,7 +93,17 @@ class DeepVCP(nn.Module):
         src_xyz = src[..., :3]
         src_feat = self.features(src)
         saliency = self.wl(src_feat)
-        kp_saliency, kp_idx = torch.topk(saliency, cfg.num_keypoints, dim=-1)
+        K = cfg.num_keypoints
+        if cfg.keypoint_selection == "salient_fps":
+            # FPS of K over the top-(pool_mult*K) saliency pool: salient
+            # points, spread out (kernel K3 on the card)
+            P = min(cfg.keypoint_pool_mult * K, src_xyz.shape[1])
+            pool_sal, pool_idx = torch.topk(saliency, P, dim=-1)
+            sel = farthest_point_sample(index_points(src_xyz, pool_idx), K)
+            kp_idx = torch.gather(pool_idx, 1, sel)
+            kp_saliency = torch.gather(pool_sal, 1, sel)
+        else:
+            kp_saliency, kp_idx = torch.topk(saliency, K, dim=-1)
         kp_xyz = index_points(src_xyz, kp_idx)
         # D13: source neighbourhoods from the keypoint's ns-NN in the full
         # source cloud, the same construction as the target branch

@@ -18,7 +18,7 @@ from torch import nn
 from torch.autograd.function import once_differentiable
 from torch.nn import functional as F
 
-from deepvcp_tpu.config import SALayerConfig
+from deepvcp_tpu_torch.config import SALayerConfig
 from deepvcp_tpu_torch.ops.kernels.band_max import banded_masked_max, banded_masked_max_grad
 
 BN_EPS = 1e-5        # flax.linen.BatchNorm's defaults

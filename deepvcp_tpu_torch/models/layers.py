@@ -12,7 +12,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from deepvcp_tpu.config import DeepVCPConfig
+from deepvcp_tpu_torch.config import DeepVCPConfig
 from deepvcp_tpu_torch.models.fused_sa import BandedSetAbstraction
 from deepvcp_tpu_torch.ops.grouping import index_points
 from deepvcp_tpu_torch.ops.neighbors import sort_cloud

@@ -105,6 +105,8 @@ def library() -> ctypes.CDLL:
             lib.band_max_f32.restype = i
             lib.band_max_grad_f32.argtypes = [p, p, p, p, p, i, i, i, f, f, p]
             lib.band_max_grad_f32.restype = i
+            lib.fps_f32.argtypes = [p, p, i, i, i, i, p]
+            lib.fps_f32.restype = i
             lib.band_max_error_string.argtypes = [i]
             lib.band_max_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -31,11 +31,12 @@ interpret mode for its own semantics.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 
 import numpy as np
 import torch
+
+from deepvcp_tpu_torch.ops.kernels import _plain
 
 NEG = -1e30
 SUPPORTED_CHANNELS = (16, 32, 64)  # the SA stages' first widths
@@ -135,7 +136,7 @@ def banded_masked_max(
     tensor launches the Hopper kernel (C in SUPPORTED_CHANNELS, contiguous
     inputs) or raises. `banded_masked_max.launches` counts kernel launches."""
     _check(sorted_xyz, u)
-    if sorted_xyz.device.type == "cpu" or _reference_on_cuda:
+    if sorted_xyz.device.type == "cpu" or _plain.active():
         return banded_masked_max_reference(sorted_xyz, u, radius)
     _kernel_args(sorted_xyz, u)
     B, N, C = u.shape
@@ -170,7 +171,7 @@ def banded_masked_max_grad(
     contiguous inputs) or raises. `banded_masked_max_grad.launches` counts
     kernel launches."""
     _check(sorted_xyz, u, out, g)
-    if sorted_xyz.device.type == "cpu" or _reference_on_cuda:
+    if sorted_xyz.device.type == "cpu" or _plain.active():
         return banded_masked_max_grad_reference(sorted_xyz, u, out, g, radius)
     _kernel_args(sorted_xyz, u, out, g)
     B, N, C = u.shape
@@ -194,22 +195,3 @@ def banded_masked_max_grad(
 
 
 banded_masked_max_grad.launches = 0
-
-# Switch for holding the kernel path against the plain path end to end on
-# the card: while set, both wrappers run their plain versions on CUDA
-# tensors. Set only through `reference_path()`.
-_reference_on_cuda = False
-
-
-@contextlib.contextmanager
-def reference_path():
-    """Within this block, banded_masked_max and banded_masked_max_grad run
-    their plain PyTorch versions on CUDA tensors too (for comparing the two
-    paths on the card)."""
-    global _reference_on_cuda
-    prev = _reference_on_cuda
-    _reference_on_cuda = True
-    try:
-        yield
-    finally:
-        _reference_on_cuda = prev

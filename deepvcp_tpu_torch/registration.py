@@ -1,11 +1,13 @@
-"""The inference contract (port of deepvcp_tpu/registration.py::Registrar):
+"""The inference contract (port of deepvcp_tpu/registration.py: Registrar
+and CascadeRegistrar):
 
     register(src_cloud, tgt_cloud, init_pose) -> (R, t, keypoints, vcps, ...)
 
 Ground-truth-free: the pose comes from the two-pass trimmed Kabsch solve
 (loss/registration.py::svd_refine), refined `refine_iters` times from the
 best pose so far, with a guard that accepts an iteration's pose only where it
-lowers the trimmed keypoint-to-target 1-NN distance.
+lowers the trimmed keypoint-to-target 1-NN distance. A CascadeRegistrar
+chains Registrars, each warm-started from the previous stage's pose.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import Any, Mapping, NamedTuple, Optional
 
 import torch
 
-from deepvcp_tpu.config import DeepVCPConfig
+from deepvcp_tpu_torch.config import DeepVCPConfig
 from deepvcp_tpu_torch import convert
 from deepvcp_tpu_torch.loss.registration import svd_refine
 from deepvcp_tpu_torch.models import DeepVCP
@@ -56,6 +58,9 @@ class Registrar:
             raise ValueError(f"refine_iters must be >= 1, got {refine_iters}")
         self.cfg = cfg
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # "cuda" means the current card; tensors on it report its index
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.model = DeepVCP(cfg)
         self.model.load_state_dict(convert.flax_to_torch(variables), strict=True)
         self.model.to(self.device).eval().requires_grad_(False)
@@ -138,3 +143,45 @@ class Registrar:
                 f"{cfg.knn_select_f32_extent:g})",
                 stacklevel=3,
             )
+
+
+class CascadeRegistrar:
+    """Coarse-to-fine registration: a sequence of Registrar stages on one
+    device, each warm-started from the previous stage's pose. Each stage
+    keeps its own guard and scores the incoming pose as its column 0, so
+    the cascade never returns a pose worse than its init under any stage's
+    keypoint metric. `scores` concatenates the stages' blocks:
+    [B, sum_i (refine_iters_i + 1)]. Stages may differ in grid geometry and
+    weights but must share the input contract (num_points, use_normal)."""
+
+    def __init__(self, stages):
+        if not stages:
+            raise ValueError("CascadeRegistrar needs at least one stage")
+        for a, b in zip(stages[:-1], stages[1:]):
+            if (a.cfg.num_points, a.cfg.use_normal) != (b.cfg.num_points, b.cfg.use_normal):
+                raise ValueError(
+                    "cascade stages disagree on the input contract: "
+                    f"{(a.cfg.num_points, a.cfg.use_normal)} vs "
+                    f"{(b.cfg.num_points, b.cfg.use_normal)}")
+            if a.device != b.device:
+                raise ValueError(f"cascade stages on {a.device} and {b.device}")
+        self.stages = list(stages)
+
+    @property
+    def cfg(self) -> DeepVCPConfig:
+        """The last stage's config, under which the output pose was solved."""
+        return self.stages[-1].cfg
+
+    def __call__(
+        self,
+        src: torch.Tensor,
+        tgt: torch.Tensor,
+        R_init: Optional[torch.Tensor] = None,
+        t_init: Optional[torch.Tensor] = None,
+    ) -> RegistrationOutput:
+        blocks = []
+        for reg in self.stages:
+            out = reg(src, tgt, R_init, t_init)
+            R_init, t_init = out.R, out.t
+            blocks.append(out.scores)
+        return out._replace(scores=torch.cat(blocks, dim=-1))

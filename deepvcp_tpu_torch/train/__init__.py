@@ -1,8 +1,8 @@
 """Training of the port (counterpart of deepvcp_tpu/train): the train and
-eval steps, Trainer and the CLI (`python -m deepvcp_tpu_torch.train`). TrainConfig is the shared config
-of deepvcp_tpu, re-exported so a caller needs no import of that package."""
+eval steps, Trainer and the CLI (`python -m deepvcp_tpu_torch.train`).
+TrainConfig is the port's copy (deepvcp_tpu_torch/config.py), re-exported."""
 
-from deepvcp_tpu.config import TrainConfig
+from deepvcp_tpu_torch.config import TrainConfig
 from deepvcp_tpu_torch.train.metrics import MetricsLogger, load_metrics
 from deepvcp_tpu_torch.train.trainer import (
     Trainer,

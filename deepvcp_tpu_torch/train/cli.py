@@ -13,7 +13,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 
-from deepvcp_tpu.config import DeepVCPConfig, TrainConfig
+from deepvcp_tpu_torch.config import DeepVCPConfig, TrainConfig
 
 _FILE_LOADERS = "the ModelNet40 / KITTI file loaders are not ported yet: ROADMAP M13"
 

@@ -14,7 +14,7 @@ from typing import Callable, Dict, Iterable, List
 
 import torch
 
-from deepvcp_tpu.config import TrainConfig
+from deepvcp_tpu_torch.config import TrainConfig
 
 ADAM_BETAS = (0.9, 0.999)  # optax.adam's defaults
 ADAM_EPS = 1e-8

@@ -26,7 +26,7 @@ from typing import Callable, Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from deepvcp_tpu.config import DeepVCPConfig, TrainConfig
+from deepvcp_tpu_torch.config import DeepVCPConfig, TrainConfig
 from deepvcp_tpu_torch.data.synthetic import rotation_geodesic_deg, translation_error
 from deepvcp_tpu_torch.loss import deepvcp_loss, svd_refine
 from deepvcp_tpu_torch.models import DeepVCP

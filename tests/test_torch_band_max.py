@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from deepvcp_tpu_torch.data.synthetic import lidar_like_cloud
-from deepvcp_tpu_torch.ops.kernels import band_max
+from deepvcp_tpu_torch.ops.kernels import band_max, reference_path
 from deepvcp_tpu_torch.models.fused_sa import banded_max_pool
 from deepvcp_tpu_torch.ops.kernels.band_max import (
     banded_masked_max,
@@ -191,7 +191,7 @@ def test_kernel_matches_reference_on_card(cuda):
         assert banded_masked_max.launches == before + 1
         want = banded_masked_max_reference(x, u, r)
         assert torch.equal(got, want), (pts.shape, C, r, (got - want).abs().max().item())
-        with band_max.reference_path():
+        with reference_path():
             assert torch.equal(banded_masked_max(x, u, r), want)
         assert banded_masked_max.launches == before + 1
 
@@ -226,6 +226,6 @@ def test_grad_kernel_matches_reference_on_card(cuda):
             err = (banded_masked_max_grad(x, u, out, g_gauss, r)
                    - banded_masked_max_grad_reference(x, u, out, g_gauss, r)).abs().max().item()
             assert err <= 1e-5, (shape, r, err)
-            with band_max.reference_path():
+            with reference_path():
                 assert torch.equal(banded_masked_max_grad(x, u, out, g_int, r), want)
             assert banded_masked_max_grad.launches == before + 2

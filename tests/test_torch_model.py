@@ -155,9 +155,9 @@ def _pair(cfg, seed):
 
 
 @functools.lru_cache(maxsize=None)
-def _models(use_normal):
+def _models(use_normal, keypoint_selection="topk"):
     """(flax model, its perturbed variables, the converted port model, inputs)."""
-    cfg = _cfg(use_normal)
+    cfg = dataclasses.replace(_cfg(use_normal), keypoint_selection=keypoint_selection)
     seed = 10 + use_normal
     src, tgt, R, t = _pair(cfg, seed)
     jm = JDeepVCP(cfg=cfg)
@@ -165,9 +165,7 @@ def _models(use_normal):
     return jm, v, _torch_module(DeepVCP(cfg), v), (src, tgt, R, t)
 
 
-@pytest.mark.parametrize("use_normal", [True, False])
-def test_deepvcp_forward(use_normal):
-    jm, v, tm, inputs = _models(use_normal)
+def _forward_parity(jm, v, tm, inputs):
     kp_j, vcp_j, aux_j = jm.apply(v, *map(jnp.asarray, inputs))
     with torch.no_grad():
         kp_t, vcp_t, aux_t = tm(*map(torch.from_numpy, inputs))
@@ -179,6 +177,31 @@ def test_deepvcp_forward(use_normal):
     np.testing.assert_allclose(aux_t["candidate_weights"].numpy(),
                                np.asarray(aux_j["candidate_weights"]), atol=WEIGHT_ATOL)
     np.testing.assert_allclose(vcp_t.numpy(), np.asarray(vcp_j), atol=FEAT_ATOL)
+
+
+@pytest.mark.parametrize("use_normal", [True, False])
+def test_deepvcp_forward(use_normal):
+    _forward_parity(*_models(use_normal))
+
+
+def test_deepvcp_forward_salient_fps():
+    """keypoint_selection="salient_fps": FPS of 16 keypoints over the top-64
+    saliency pool of a 128-point cloud, through the port's FPS (the plain
+    version on the CPU) and the JAX jnp loop. The cloud is dense (uniform in
+    a 3 m cube at SA radii 0.4-1.2), so no two saliencies tie and both
+    top-K pick the same pool in the same order; keypoint indices must then
+    be equal."""
+    jm, v, tm, inputs = _models(False, "salient_fps")
+    _forward_parity(jm, v, tm, inputs)
+    with torch.no_grad():
+        sal = tm.encode(*map(torch.from_numpy, inputs[:2])).saliency
+    top = torch.topk(sal, 65, dim=-1).values
+    assert (top[:, :-1] > top[:, 1:]).all(), "tied saliencies in the pool"
+    # the selection is not the plain top-K
+    with torch.no_grad():
+        _, _, aux = tm(*map(torch.from_numpy, inputs))
+    assert not torch.equal(torch.sort(aux["keypoint_idx"]).values,
+                           torch.sort(torch.topk(sal, 16, dim=-1).indices).values)
 
 
 def test_encode_correspond_equals_forward():
@@ -209,7 +232,6 @@ def test_forward_tracks_gradients():
 
 
 @pytest.mark.parametrize("change", [
-    {"keypoint_selection": "salient_fps"},
     {"tgt_knn": "two_level"},
     {"neighbor_method": "windowed"},
     {"dfe_src_neighbors": "keypoints"},

@@ -2,6 +2,7 @@
 port's promise not to import jax."""
 
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -34,9 +35,19 @@ def _flatten(tree, prefix=""):
 
 def test_exported_weights_equal_checkpoint():
     """weights/kitti25-rot.npz holds the orbax checkpoint, array for array."""
-    cfg_j, want = jpretrained.load("kitti25-rot")
-    cfg_t, got = pretrained.load("kitti25-rot")
-    assert cfg_t == cfg_j
+    _assert_exported_equals_checkpoint("kitti25-rot")
+
+
+@pytest.mark.parametrize("name", ["modelnet-coarse", "modelnet-fine"])
+def test_exported_modelnet_weights_equal_checkpoint(name):
+    """The two stages of modelnet-cascade, likewise."""
+    _assert_exported_equals_checkpoint(name)
+
+
+def _assert_exported_equals_checkpoint(name):
+    cfg_j, want = jpretrained.load(name)
+    cfg_t, got = pretrained.load(name)
+    assert dataclasses.asdict(cfg_t) == dataclasses.asdict(cfg_j)
     want, got = dict(_flatten(jax.device_get(want))), dict(_flatten(got))
     assert sorted(got) == sorted(want)
     for key in want:
@@ -49,11 +60,13 @@ def test_exported_weights_equal_checkpoint():
 @pytest.mark.parametrize("num_points,use_normal", [(10000, False), (2048, True)])
 def test_config_matches_jax(monkeypatch, name, num_points, use_normal):
     """The port builds every registry entry's config as the JAX loader does
-    (entry cfg + .arch.json provenance). The JAX loader's weight restore is
-    stubbed out: only its config is compared."""
+    (entry cfg + .arch.json provenance), field for field: the port's
+    DeepVCPConfig is its own copy of the class. The JAX loader's weight
+    restore is stubbed out: only its config is compared."""
     monkeypatch.setattr(jpretrained, "load_variables", lambda path: None)
     cfg_j, _ = jpretrained.load(name, num_points=num_points, use_normal=use_normal)
-    assert pretrained.config(name, num_points, use_normal) == cfg_j
+    assert dataclasses.asdict(pretrained.config(name, num_points, use_normal)) == \
+        dataclasses.asdict(cfg_j)
 
 
 def test_strict_load_and_registrar_defaults():

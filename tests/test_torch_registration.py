@@ -115,3 +115,128 @@ def test_registrar_checks_device_and_warns_once_on_extent(tiny):
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         reg(big, big)
+
+
+CASCADE_N = 128   # where the JAX CPU static band covers the slab at SA radii 0.1-0.4
+
+
+@pytest.fixture(scope="module")
+def cascade_pair():
+    """A 128-point lidar-like pair in a 1 m range (ModelNet scale), rotated
+    up to 10 deg: inside the cascade's basin from the identity."""
+    ds = LidarLikeDataset(num_clouds=2, num_points=CASCADE_N, max_range=1.0, seed=103,
+                          noise_std=0.01, max_rotation_deg=10.0, max_translation=0.1)
+    return next(batch_iterator(ds, 2, epoch=0, seed=777, shuffle=False))
+
+
+def _cascades(select_dtype="bfloat16"):
+    """modelnet-cascade in both packages, built stage by stage as both
+    pretrained.cascade build it, with the given candidate-selection dtype."""
+    from deepvcp_tpu.registration import CascadeRegistrar as JCascadeRegistrar
+    from deepvcp_tpu_torch import pretrained
+    from deepvcp_tpu_torch.registration import CascadeRegistrar
+
+    jstages, tstages = [], []
+    for name, iters in jpretrained.CASCADES["modelnet-cascade"]["stages"]:
+        cfg_j, variables = jpretrained.load(name, num_points=CASCADE_N)
+        cfg_t = pretrained.config(name, num_points=CASCADE_N)
+        kw = dict(refine_iters=iters, use_saliency_weights=True)
+        jstages.append(JRegistrar(dataclasses.replace(cfg_j, knn_select_dtype=select_dtype),
+                                  variables, **kw))
+        tstages.append(Registrar(dataclasses.replace(cfg_t, knn_select_dtype=select_dtype),
+                                 variables, "cpu", **kw))
+    return JCascadeRegistrar(jstages), CascadeRegistrar(tstages)
+
+
+def test_cascade_f32_selection_matches_jax(cascade_pair):
+    """modelnet-cascade (coarse @2, fine @1) with f32 candidate selection:
+    every stage's pose, scores and inliers as in JAX. Keypoints are held as
+    sets: equal saliencies of the fine stage may come out of the two top-K
+    in another order, which changes neither the solve nor the score."""
+    src, tgt, _, _ = cascade_pair
+    jc, tc = _cascades(select_dtype=None)
+    out_j = jc(jnp.asarray(src), jnp.asarray(tgt))
+    out_t = tc(torch.from_numpy(src), torch.from_numpy(tgt))
+    assert out_t.scores.shape == (2, 3 + 2)
+    assert tc.cfg.search_radius == 0.6 and tc.cfg.voxel_len == 0.2   # the last stage's
+    np.testing.assert_allclose(out_t.R.numpy(), np.asarray(out_j.R), atol=POSE_ATOL)
+    np.testing.assert_allclose(out_t.t.numpy(), np.asarray(out_j.t), atol=POSE_ATOL)
+    np.testing.assert_allclose(out_t.scores.numpy(), np.asarray(out_j.scores), atol=SCORE_ATOL)
+    for b in range(2):
+        assert sorted(map(tuple, out_t.keypoints[b].tolist())) == \
+            sorted(map(tuple, np.asarray(out_j.keypoints[b]).tolist()))
+
+
+def test_cascade_bf16_selection_near_jax(cascade_pair):
+    """The registered modelnet-cascade, which selects candidates on the bf16
+    tile (spatial_extent 2.5), against JAX. The two frameworks' f32 tiles
+    differ in the last bit before the cast to bf16 (summation order) and
+    their top-k break ties differently, so neighbour sets differ, but only
+    at the k-th distance: measured on this pair, 17% of the 27 648 candidate
+    queries of the first refinement swap about one neighbour each (at most
+    4 of 32), and no neighbour clear of the k-th distance by two bf16 steps
+    differs (checked below). A swapped neighbour moves a VCP a little; the
+    pose is held to 1 deg and 0.01 (measured 0.3 deg and 0.004), and the
+    identity init's score (column 0, before any selection) to SCORE_ATOL."""
+    from deepvcp_tpu.ops.knn import approx_knn as japprox_knn
+    from deepvcp_tpu_torch import pretrained
+    from deepvcp_tpu_torch.data import rotation_geodesic_deg
+    from deepvcp_tpu_torch.ops import approx_knn
+
+    src, tgt, _, _ = cascade_pair
+    jc, _ = _cascades()
+    tc = pretrained.cascade("modelnet-cascade", device="cpu", num_points=CASCADE_N)
+    assert tc.stages[0].cfg.knn_select_dtype_effective == "bfloat16"
+    out_j = jc(jnp.asarray(src), jnp.asarray(tgt))
+    out_t = tc(torch.from_numpy(src), torch.from_numpy(tgt))
+    drot = rotation_geodesic_deg(out_t.R, torch.from_numpy(np.array(out_j.R)))
+    assert (drot < 1.0).all(), drot
+    np.testing.assert_allclose(out_t.t.numpy(), np.asarray(out_j.t), atol=0.01)
+    np.testing.assert_allclose(out_t.scores[:, 0].numpy(), np.asarray(out_j.scores[:, 0]),
+                               atol=SCORE_ATOL)
+    # the first refinement's candidate queries, through both selections
+    model = tc.stages[0].model
+    with torch.no_grad():
+        enc = model.encode(torch.from_numpy(src), torch.from_numpy(tgt))
+        eye = torch.eye(3).expand(2, 3, 3)
+        q = model.candidates(enc, eye, torch.zeros(2, 3)).reshape(2, -1, 3)
+    k = model.cfg.num_neighbors
+    dt, it = (a.numpy() for a in approx_knn(enc.tgt_xyz, q, k, select_dtype="bfloat16"))
+    dj, ij = (np.asarray(a) for a in japprox_knn(jnp.asarray(enc.tgt_xyz.numpy()),
+                                                 jnp.asarray(q.numpy()), k,
+                                                 select_dtype="bfloat16"))
+    step = 2.0 ** -8
+    differ = 0
+    for b in range(2):
+        for m in range(q.shape[1]):
+            if set(it[b, m]) == set(ij[b, m]):
+                continue
+            differ += 1
+            for (d1, i1), i2 in (((dj[b, m], ij[b, m]), it[b, m]),
+                                 ((dt[b, m], it[b, m]), ij[b, m])):
+                assert set(i1[d1 < d1[-1] * (1 - 2 * step)]) <= set(i2), (b, m)
+    assert differ < 0.3 * q.shape[0] * q.shape[1]
+
+
+def test_cascade_checks_its_stages(tiny):
+    from deepvcp_tpu_torch.registration import CascadeRegistrar
+
+    cfg, variables, _, _ = tiny
+    with pytest.raises(ValueError, match="at least one"):
+        CascadeRegistrar([])
+    a = Registrar(cfg, variables, "cpu")
+    b = Registrar(dataclasses.replace(cfg, num_points=2 * cfg.num_points), variables, "cpu")
+    with pytest.raises(ValueError, match="input contract"):
+        CascadeRegistrar([a, b])
+
+
+def test_pretrained_cascade_defaults():
+    from deepvcp_tpu_torch import pretrained
+
+    casc = pretrained.cascade("modelnet-cascade", device="cpu", num_points=256)
+    assert [r.refine_iters for r in casc.stages] == [2, 1]
+    assert all(r.use_saliency_weights and r.guard for r in casc.stages)
+    assert casc.cfg == casc.stages[-1].cfg
+    assert set(pretrained.available_cascades()) == {"kitti-cascade", "modelnet-cascade"}
+    with pytest.raises(KeyError):
+        pretrained.cascade("no-such-cascade", device="cpu")
