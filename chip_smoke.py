@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (deepvcp_tpu_torch) on one CUDA card.
 
-Drives the port's three paths at full width (N = 10 000 points, 64
+Drives the port's four paths at full width (N = 10 000 points, 64
 keypoints, 216 candidates, 32 neighbours): serving,
 `pretrained.registrar("kitti25-rot")` on 16 held-out synthetic lidar pairs;
 training, 12 fine-tuning steps of `kitti25-rot` through `train.Trainer`
-under the recipe that trained it; and global registration of pairs with
+under the recipe that trained it; global registration of pairs with
 any rotation, `initializer.so3_global_init` then
 `pretrained.cascade("modelnet-cascade")`, on two held sets of 16 pairs
-(B = 2). It checks on the way:
+(B = 2); and the two-level candidate grouping, serving and fine-tuning
+`kitti25` through kernels K4/K5. It checks on the way:
 
   1. device      a CUDA card is present; prints nvidia-smi's name and power limit
   2. build       builds every CUDA kernel of the paths from csrc/ with nvcc
@@ -50,6 +51,28 @@ any rotation, `initializer.so3_global_init` then
  15. global time  init and cascade latency, a CUDA-event split of the init
                  (FPS / coarse ICP sweep / fine rescore / fine ICP), busy time,
                  idle share, peak memory (printed only)
+ 16. K4/K5       one-hot gather and its scatter-add backward against their
+                 plain versions at the two-level path's table and indices
+                 (kitti25, pair 0), with every query into 8 rows, and at a Q
+                 that is not a multiple of K4's block: K4 identical to
+                 torch.gather; K5 0.0 with integer cotangents, <= 1e-5 with
+                 Gaussian ones, equal to itself run twice; median times of
+                 the kernels, the plain versions and torch.gather /
+                 torch.scatter_add
+ 17. two-level   campaign_r5b W3: kitti25 with tgt_knn="two_level", T=512, on
+                 phase 4's 16 pairs: mean RRE <= 1.0 deg and RTE <= 0.05 m, 2 K4
+                 and 6 K1 launches per call; flat kitti25 and T=1024 on the
+                 same pairs (printed only); recall against exact flat k-NN at
+                 W2's operating point (extent-20 uniform cloud) >= 0.95
+ 18. two-level paths  kernel path against plain path on pair 0, as phase 5;
+                 then latency beside flat kitti25's, the stage split (level 1,
+                 level 2, the K4 gather, DFE + CPG), busy time and idle share
+                 (printed only)
+ 19. two-level training  4 fine-tuning steps of kitti25 with the two-level
+                 grouping under kitti25-rot's recipe: finite loss and grad
+                 norm, 1 K4, 1 K5, 6 K1 and 6 K2 launches per step; one step
+                 kernel path against plain path with phase 9's check; step
+                 time and split (printed only)
  11. no jax      neither jax nor the JAX package deepvcp_tpu was imported
                  (checked last)
 
@@ -85,6 +108,13 @@ K3_PER_INIT = 2                                  # one FPS per cloud
 K1_PER_CASCADE = 2 * LAUNCHES_PER_CALL           # two stages
 INIT_BASIN_DEG, REFINED_MEDIAN_DEG, CUBE_IN_BASIN = 10.0, 2.0, 13
 INIT_PATH_ATOL, CASCADE_PATH_ATOL = 1e-6, 1e-4   # kernel vs plain path
+# the two-level path: campaign_r5b W3 (kitti25 at T=512 on phase 4's pairs)
+# and W2 (recall at the bench operating point)
+TWO_LEVEL = {"tgt_knn": "two_level", "tgt_knn_table": 512}
+K4_PER_CALL = 2            # kitti25's refine_iters
+TWO_LEVEL_STEPS = 4
+RECALL_LIMIT = 0.95
+K5_GAUSS_LIMIT = 1e-5      # K5 vs plain with Gaussian cotangents
 # H100 SXM published peaks (NVIDIA datasheet): HBM bytes/s and
 # float32 (non-tensor-core) operations/s, for the kernels' bounds
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
@@ -118,6 +148,17 @@ def cuda_median_ms(torch, fn, reps: int, warmup: int = 3) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def turns_median_ms(torch, fns: dict, reps: int, rounds: int = 4) -> dict:
+    """Median CUDA-event time of each of `fns` ({name: fn}), taken in turns
+    (a, b, b, a, ...) over `rounds` rounds of `reps` runs each: the median
+    of the rounds' medians."""
+    times = {name: [] for name in fns}
+    for r in range(rounds):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            times[name].append(cuda_median_ms(torch, fns[name], reps=reps))
+    return {name: statistics.median(t) for name, t in times.items()}
 
 
 def host_median_ms(torch, fn, reps: int) -> float:
@@ -182,39 +223,53 @@ def host_syncs(torch, fn) -> list:
 
 def stage_split(torch, reg, src, tgt) -> dict:
     """Device time of each stage of one Registrar call, replaying its steps
-    through the model's public pieces between CUDA events."""
+    through the model's public pieces between CUDA events. The candidates'
+    neighbourhoods are one stage on the flat path (KNN and gather), three on
+    the two-level path (level-1 tables, level-2 selection, the K4 gather)."""
     from deepvcp_tpu_torch.loss import svd_refine
+    from deepvcp_tpu_torch.ops.two_level import (
+        gather_table_rows, keypoint_tables, table_neighbors)
 
     m = reg.model
-    ev = []
+    cfg = m.cfg
+    marks = []
 
-    def mark():
+    def mark(stage=None):
+        """End the stage running since the last mark (None: not counted)."""
         e = torch.cuda.Event(enable_timing=True)
         e.record()
-        ev.append(e)
+        marks.append((stage, e))
 
-    stages = {"fe_x2": 0.0, "keypoints_src_dfe": 0.0, "candidate_knn": 0.0,
-              "gather_dfe_cpg": 0.0, "svd_solve_guard": 0.0}
     with torch.no_grad():
         mark()
         m.features(src)
         m.features(tgt)
-        mark()
+        mark("fe_x2")
         enc = m.encode(src, tgt)   # runs FE x2 again; the difference is the rest
-        mark()
+        mark("encode")
         B = src.shape[0]
         R = torch.eye(3, device=src.device).expand(B, 3, 3)
         t = torch.zeros(B, 3, device=src.device)
         best = reg.score(enc.keypoints, enc.tgt_xyz, R, t)
-        spans = []
         for _ in range(reg.refine_iters):
-            s0 = len(ev)
             mark()
-            cand = m.candidates(enc, R, t)
-            idx = m.candidate_neighbors(enc, cand)
-            mark()
-            vcp, _ = m.match(enc, cand, idx, R)
-            mark()
+            kp_warm, cand = m.candidates(enc, R, t)
+            if cfg.use_two_level_tgt_knn:
+                args = m.two_level_args()
+                table = keypoint_tables(enc.tgt_xyz, enc.tgt_table, kp_warm, args["table_size"],
+                                        args["center_select_dtype"])
+                mark("level1_tables")
+                l_idx = table_neighbors(table[..., :3], kp_warm, cand, cfg.num_neighbors,
+                                        args["select_dtype"])
+                mark("level2_select")
+                tnb = gather_table_rows(table, l_idx)
+                tnb = tnb.reshape(B, -1, cfg.num_neighbors, tnb.shape[-1])
+                mark("k4_gather")
+            else:
+                tnb = m.candidate_neighbors(enc, kp_warm, cand)
+                mark("candidate_knn_gather")
+            vcp, _ = m.match(enc, cand, tnb, R)
+            mark("dfe_cpg")
             w = enc.keypoint_saliency if reg.use_saliency_weights else None
             ref = svd_refine(enc.keypoints, vcp, reg.inlier_ratio, w)
             s = reg.score(enc.keypoints, enc.tgt_xyz, ref.R, ref.t)
@@ -222,16 +277,13 @@ def stage_split(torch, reg, src, tgt) -> dict:
             R = torch.where(better[:, None, None], ref.R, R)
             t = torch.where(better[:, None], ref.t, t)
             best = torch.minimum(s, best)
-            mark()
-            spans.append(s0)
+            mark("svd_solve_guard")
     torch.cuda.synchronize()
-    fe = ev[0].elapsed_time(ev[1])
-    stages["fe_x2"] = fe
-    stages["keypoints_src_dfe"] = ev[1].elapsed_time(ev[2]) - fe
-    for s0 in spans:
-        stages["candidate_knn"] += ev[s0].elapsed_time(ev[s0 + 1])
-        stages["gather_dfe_cpg"] += ev[s0 + 1].elapsed_time(ev[s0 + 2])
-        stages["svd_solve_guard"] += ev[s0 + 2].elapsed_time(ev[s0 + 3])
+    stages = {}
+    for (_, a), (stage, b) in zip(marks, marks[1:]):
+        if stage:
+            stages[stage] = stages.get(stage, 0.0) + a.elapsed_time(b)
+    stages["keypoints_src_dfe"] = stages.pop("encode") - stages["fe_x2"]
     return stages
 
 
@@ -282,37 +334,16 @@ def train_phase(torch, dev, pairs) -> dict:
     """Phases 8-10: fine-tune kitti25-rot for TRAIN_STEPS steps through the
     Trainer, hold one step's kernel path against its plain path, and time
     the step. Returns the K1 and K2 launch counts of the 12 gated steps."""
-    import copy
-
     import numpy as np
 
-    from deepvcp_tpu_torch import convert, pretrained
-    from deepvcp_tpu_torch.data import (
-        LidarLikeDataset, batch_iterator, rotation_geodesic_deg, translation_error)
-    from deepvcp_tpu_torch.ops.kernels import band_max, reference_path
-    from deepvcp_tpu_torch.train import MetricsLogger, Trainer, build_train_step
+    from deepvcp_tpu_torch import pretrained
+    from deepvcp_tpu_torch.data import rotation_geodesic_deg, translation_error
+    from deepvcp_tpu_torch.ops.kernels import band_max
+    from deepvcp_tpu_torch.train import build_train_step
     from deepvcp_tpu_torch.train.optim import learning_rate_schedule
 
-    records = []
-
-    class Records(MetricsLogger):
-        def log(self, record):
-            records.append(record)
-
-    cfg, variables = pretrained.load("kitti25-rot", num_points=N_POINTS)
-    tcfg = kitti25_recipe()
-    trainer = Trainer(cfg, tcfg, device=dev, metrics=Records(None, echo=False))
-    trainer.setup()
-    trainer.model.load_state_dict(convert.flax_to_torch(variables), strict=True)
-    # the first TRAIN_STEPS clouds of the campaign's 256 (same rng stream)
-    data = LidarLikeDataset(num_clouds=TRAIN_STEPS, num_points=N_POINTS, max_range=25.0,
-                            seed=10)
-    batches = list(batch_iterator(data, 1, epoch=0, seed=0))
+    trainer, tcfg, records, batches, saved = fine_tuning("kitti25-rot", {}, TRAIN_STEPS, dev)
     params0 = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
-    # phase 9 starts from here, not from where the 12 steps (which are not
-    # reproducible bit for bit: gather's atomics) end
-    saved = (copy.deepcopy(trainer.model.state_dict()),
-             copy.deepcopy(trainer.state.optimizer.state_dict()), trainer.state.step)
 
     # 8. the main path: TRAIN_STEPS steps
     torch.cuda.synchronize()
@@ -362,7 +393,60 @@ def train_phase(torch, dev, pairs) -> dict:
     # 9. one step through the kernels against the same step through the
     # plain versions, from kitti25-rot as loaded, with a fresh Adam
     step_fn = build_train_step(trainer.model, learning_rate_schedule(tcfg), tcfg)
-    src, tgt, R, t = (torch.from_numpy(a).to(dev) for a in batches[0])
+    train_paths_agree(torch, trainer, step_fn, saved,
+                      tuple(torch.from_numpy(a).to(dev) for a in batches[0]), "train step")
+
+    # 10. timing (not gated)
+    time_train_step(torch, trainer, step_fn, batches, dev, "train step", reps=10, plain_reps=3,
+                    profile=True)
+    return {"k1": k1, "k2": k2}
+
+
+def fine_tuning(name: str, cfg_changes: dict, steps: int, dev):
+    """A Trainer under kitti25_recipe() on the registry checkpoint `name`
+    (its config changed by `cfg_changes`), and the first `steps` clouds of
+    the campaign's 256 (same rng stream). Returns (trainer, recipe, the list
+    its logger appends to, the batches, the state the train-path check
+    starts from: model and optimizer state dicts and step count)."""
+    import copy
+    import dataclasses
+
+    from deepvcp_tpu_torch import convert, pretrained
+    from deepvcp_tpu_torch.data import LidarLikeDataset, batch_iterator
+    from deepvcp_tpu_torch.train import MetricsLogger, Trainer
+
+    records = []
+
+    class Records(MetricsLogger):
+        def log(self, record):
+            records.append(record)
+
+    cfg, variables = pretrained.load(name, num_points=N_POINTS)
+    tcfg = kitti25_recipe()
+    trainer = Trainer(dataclasses.replace(cfg, **cfg_changes), tcfg, device=dev,
+                      metrics=Records(None, echo=False))
+    trainer.setup()
+    trainer.model.load_state_dict(convert.flax_to_torch(variables), strict=True)
+    data = LidarLikeDataset(num_clouds=steps, num_points=N_POINTS, max_range=25.0, seed=10)
+    batches = list(batch_iterator(data, 1, epoch=0, seed=0))
+    # the train-path check starts from here, not from where the gated steps
+    # (not reproducible bit for bit: gather's atomics) end
+    saved = (copy.deepcopy(trainer.model.state_dict()),
+             copy.deepcopy(trainer.state.optimizer.state_dict()), trainer.state.step)
+    return trainer, tcfg, records, batches, saved
+
+
+def train_paths_agree(torch, trainer, step_fn, saved, batch, what: str) -> None:
+    """Phase 9's check: one train step from `saved` (model and optimizer
+    state dicts, step count) on `batch` with the warm start (R_gt, t_gt +
+    0.2), through the kernels twice and through the plain versions once,
+    under deterministic algorithms. Fails unless the loss agrees within
+    LOSS_RTOL, every gradient tensor within GRAD_RTOL of its max (a
+    cancelling sum: of |g|), the running statistics within STAT_ATOL, and
+    the kernel path with itself exactly."""
+    from deepvcp_tpu_torch.ops.kernels import reference_path
+
+    src, tgt, R, t = batch
     R_init, t_init = R, t + 0.2
 
     def one_step():
@@ -391,7 +475,7 @@ def train_phase(torch, dev, pairs) -> dict:
         torch.use_deterministic_algorithms(False)
     nondet = sorted({str(w.message).split(" does not have a deterministic")[0]
                      for w in caught if "deterministic" in str(w.message)})
-    print(f"ops without a deterministic version in the train step: {nondet or 'none'}")
+    print(f"ops without a deterministic version in the {what}: {nondet or 'none'}")
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
 
     def err(a, b):
@@ -417,25 +501,31 @@ def train_phase(torch, dev, pairs) -> dict:
     grad_rel = max(rel_kp.values())
     kk_err = max(err_kk.values())
     stat_err = max((stats_k[n] - stats_p[n]).abs().max().item() for n in stats_p)
-    print(f"train step, kernel vs plain path: loss {loss_k:.7f} vs {loss_p:.7f} (rel "
+    print(f"{what}, kernel vs plain path: loss {loss_k:.7f} vs {loss_p:.7f} (rel "
           f"{loss_rel:.2e}), every gradient within {grad_rel:.2e} of its max ({len(cancelling)} "
           f"cancelling sums of |g|: {', '.join(cancelling)}), kernel vs kernel max |dg| "
           f"{kk_err:.3e}, |g| {norm_k:.6f} vs {norm_p:.6f}, max running-stat err {stat_err:.2e}")
     if loss_rel > LOSS_RTOL or grad_rel > GRAD_RTOL or stat_err > STAT_ATOL or kk_err != 0.0:
-        fail("the train step's kernel path and plain path disagree, or the kernel path "
+        fail(f"the {what}'s kernel path and plain path disagree, or the kernel path "
              "disagrees with itself")
 
-    # 10. timing (not gated)
-    cycle = [tuple(torch.from_numpy(a).to(dev) for a in b) for b in batches]
-    feed = itertools.cycle(cycle)
+
+def time_train_step(torch, trainer, step_fn, batches, dev, what: str, reps: int,
+                    plain_reps: int, profile: bool) -> None:
+    """Print the median synced step time through the kernels and the plain
+    versions, the CUDA-event split of the step and, with `profile`, the
+    profiler's busy time and top kernels (not gated)."""
+    from deepvcp_tpu_torch.ops.kernels import reference_path
+
+    feed = itertools.cycle([tuple(torch.from_numpy(a).to(dev) for a in b) for b in batches])
 
     def timed_step():
         trainer.state, _ = step_fn(trainer.state, *next(feed))
 
-    step_ms = host_median_ms(torch, timed_step, reps=10)
+    step_ms = host_median_ms(torch, timed_step, reps=reps)
     with reference_path():
-        step_plain_ms = host_median_ms(torch, timed_step, reps=3)
-    print(f"train step, B=1, N={N_POINTS}: kernel path {step_ms:.3f} ms, plain path "
+        step_plain_ms = host_median_ms(torch, timed_step, reps=plain_reps)
+    print(f"{what}, B=1, N={N_POINTS}: kernel path {step_ms:.3f} ms, plain path "
           f"{step_plain_ms:.3f} ms (median of synced steps)")
     splits = []
     for _ in range(6):
@@ -443,16 +533,18 @@ def train_phase(torch, dev, pairs) -> dict:
                                                 next(feed))
         splits.append(split)
     split = {k: statistics.median(s[k] for s in splits[1:]) for k in splits[0]}
-    print("train step split (CUDA events, ms, median of 5 steps): " + ", ".join(
+    print(f"{what} split (CUDA events, ms, median of 5 steps): " + ", ".join(
         f"{k} {v:.3f}" for k, v in split.items()) + f" | sum {sum(split.values()):.3f}")
+    if not profile:
+        return
     busy, top = device_time_per_call(torch, timed_step, calls=3)
     if busy > 0:
-        print(f"device busy per train step (torch.profiler, union of kernel intervals): "
+        print(f"device busy per {what} (torch.profiler, union of kernel intervals): "
               f"{busy:.3f} ms of {step_ms:.3f} ms, idle share {1 - busy / step_ms:.3f}")
-        print("top kernels (ms per step): " + "; ".join(f"{k} {v:.3f}" for k, v in top))
+        print(f"top kernels of the {what} (ms per step): "
+              + "; ".join(f"{k} {v:.3f}" for k, v in top))
     else:
-        print("device busy per train step: not measured (the profiler saw no device time)")
-    return {"k1": k1, "k2": k2}
+        print(f"device busy per {what}: not measured (the profiler saw no device time)")
 
 
 def bound_ms(bytes_moved: float, ops: float) -> tuple:
@@ -719,6 +811,318 @@ def global_phase(torch, dev) -> dict:
     return {"k1": k1, "k3": k3}
 
 
+def pose_errors(torch, outs, pairs, refine_iters: int, what: str) -> tuple:
+    """Check the Registrar outputs `outs` of `pairs` (B = 1): every field's
+    shape, finite values, R a rotation. Returns the GT-free RRE (deg) and
+    RTE (m) lists."""
+    from deepvcp_tpu_torch.data import rotation_geodesic_deg, translation_error
+
+    rre, rte = [], []
+    eye = torch.eye(3, device=pairs[0][0].device)
+    for i, (out, (_, _, R_gt, t_gt)) in enumerate(zip(outs, pairs)):
+        shapes = {"R": (1, 3, 3), "t": (1, 3), "keypoints": (1, 64, 3), "vcps": (1, 64, 3),
+                  "saliency": (1, N_POINTS), "scores": (1, refine_iters + 1)}
+        for field, shape in shapes.items():
+            val = getattr(out, field)
+            if tuple(val.shape) != shape or not torch.isfinite(val).all():
+                fail(f"{what} pair {i}: {field} has shape {tuple(val.shape)} (want {shape}) "
+                     f"or non-finite values")
+        if (out.R[0] @ out.R[0].T - eye).abs().max() > 1e-4 or abs(torch.det(out.R[0]) - 1) > 1e-4:
+            fail(f"{what} pair {i}: R is not a rotation")
+        rre.append(rotation_geodesic_deg(out.R, R_gt).item())
+        rte.append(translation_error(out.t, t_gt).item())
+    return rre, rte
+
+
+def registrar_paths_agree(torch, reg, src, tgt, what: str) -> None:
+    """The Registrar through the kernels against the same call through the
+    plain versions: the same keypoints, |dR|, |dt| <= 1e-4, scores <= 1e-5."""
+    from deepvcp_tpu_torch.ops.kernels import reference_path
+
+    with torch.no_grad():
+        enc_k = reg.model.encode(src, tgt)
+        out_k = reg(src, tgt)
+        with reference_path():
+            enc_p = reg.model.encode(src, tgt)
+            out_p = reg(src, tgt)
+    if not torch.equal(enc_k.keypoint_idx, enc_p.keypoint_idx):
+        fail(f"{what}: kernel and plain paths chose different keypoints")
+    if not torch.equal(out_k.keypoints, out_p.keypoints):
+        fail(f"{what}: kernel and plain paths returned different keypoints")
+    dR = (out_k.R - out_p.R).abs().max().item()
+    dt = (out_k.t - out_p.t).abs().max().item()
+    ds = (out_k.scores - out_p.scores).abs().max().item()
+    print(f"{what} kernel vs plain path, pair 0: keypoint indices identical, max|dR| {dR:.3e}, "
+          f"max|dt| {dt:.3e} m, max|dscores| {ds:.3e}")
+    if dR > 1e-4 or dt > 1e-4 or ds > 1e-5:
+        fail(f"{what}: kernel path and plain path disagree")
+
+
+def registrar_timing(torch, reg, src, tgt, what: str, reps: int, plain_reps: int) -> float:
+    """Print a Registrar's median synced latency through the kernels and the
+    plain versions, its CUDA-event stage split, and the profiler's busy
+    time, idle share and top kernels (not gated). Returns the latency."""
+    from deepvcp_tpu_torch.ops.kernels import reference_path
+
+    lat = host_median_ms(torch, lambda: reg(src, tgt), reps=reps)
+    with reference_path():
+        lat_plain = host_median_ms(torch, lambda: reg(src, tgt), reps=plain_reps)
+    print(f"{what} Registrar per-call latency, B=1, N={N_POINTS}: kernel path {lat:.3f} ms, "
+          f"plain path {lat_plain:.3f} ms (median of synced calls)")
+    splits = [stage_split(torch, reg, src, tgt) for _ in range(6)][1:]
+    split = {k: statistics.median(s[k] for s in splits) for k in splits[0]}
+    print(f"{what} stage split (device ms, median of 5 replays): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in split.items()) + f" | sum {sum(split.values()):.3f}")
+    busy, top = device_time_per_call(torch, lambda: reg(src, tgt), calls=5)
+    if busy > 0:
+        print(f"{what} device busy per call (torch.profiler, union of kernel intervals): "
+              f"{busy:.3f} ms of {lat:.3f} ms latency, idle share {1 - busy / lat:.3f}")
+        print(f"{what} top kernels (ms per call): "
+              + "; ".join(f"{k} {v:.3f}" for k, v in top))
+    else:
+        print(f"{what} device busy per call: not measured (the profiler saw no device time)")
+    return lat
+
+
+def onehot_phase(torch, dev, reg, pair) -> tuple:
+    """Phase 16: K4 and K5 against their plain versions and the library
+    calls (torch.gather, torch.scatter_add): at the path's table and
+    indices (the two-level registrar's first refinement of `pair`, identity
+    warm start), with every query into 8 rows, and at a Q that is not a
+    multiple of K4's 256-query block. Median CUDA-event times at the path's
+    case. Returns K4's and K5's numbers there."""
+    from deepvcp_tpu_torch.ops.kernels import onehot_gather as og
+    from deepvcp_tpu_torch.ops.two_level import keypoint_tables, table_neighbors
+
+    m = reg.model
+    args = m.two_level_args()
+    with torch.no_grad():
+        enc = m.encode(pair[0], pair[1])
+        kp_warm, cand = m.candidates(enc, torch.eye(3, device=dev)[None],
+                                     torch.zeros(1, 3, device=dev))
+        table = keypoint_tables(enc.tgt_xyz, enc.tgt_table, kp_warm, args["table_size"],
+                                args["center_select_dtype"]).contiguous()
+        l_idx = table_neighbors(table[..., :3], kp_warm, cand, m.cfg.num_neighbors,
+                                args["select_dtype"])
+    B, K, C, k = l_idx.shape
+    idx = l_idx.reshape(B, K, C * k).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = [(f"the path's [{B}, {K}, {table.shape[2]}, {table.shape[3]}] table, Q = {C * k}",
+              table, idx),
+             ("the same, every query into 8 rows", table,
+              torch.randint(0, 8, idx.shape, device=dev, generator=gen)),
+             ("[2, 3, 136, 7], Q = 1000", torch.randn(2, 3, 136, 7, device=dev, generator=gen),
+              torch.randint(0, 136, (2, 3, 1000), device=dev, generator=gen))]
+    k4_err = k5_err = 0.0
+    for name, tb, ix in cases:
+        T, D = tb.shape[2:]
+        expand = ix[..., None].expand(-1, -1, -1, D)
+        got = og.onehot_gather(tb, ix)
+        want = og.onehot_gather_reference(tb, ix)
+        if not (torch.equal(got, want) and torch.equal(got, torch.gather(tb, 2, expand))):
+            fail(f"K4 differs from torch.gather at {name}")
+        k4_err = max(k4_err, (got - want).abs().max().item())
+        shape = (*ix.shape, D)
+        g_int = torch.randint(-8, 9, shape, device=dev, generator=gen).float()
+        g = torch.randn(shape, device=dev, generator=gen)
+        err_int = (og.onehot_scatter_add(g_int, ix, T)
+                   - og.onehot_scatter_add_reference(g_int, ix, T)).abs().max().item()
+        got = og.onehot_scatter_add(g, ix, T)
+        err = (got - og.onehot_scatter_add_reference(g, ix, T)).abs().max().item()
+        err_lib = (got - torch.scatter_add(torch.zeros_like(tb), 2, expand, g)).abs().max().item()
+        again = torch.equal(got, og.onehot_scatter_add(g, ix, T))
+        fullest = int(torch.zeros(ix.shape[:2] + (T,), dtype=torch.int64, device=dev)
+                      .scatter_add_(2, ix, torch.ones_like(ix)).max())
+        print(f"K4/K5 at {name} (fullest row {fullest} queries): K4 identical to torch.gather; "
+              f"K5 vs plain max_abs_err {err_int} (integer g), {err:.3e} (Gaussian g), vs "
+              f"scatter_add {err_lib:.3e}, run twice identical: {again}")
+        if err_int != 0.0 or err > K5_GAUSS_LIMIT or not again:
+            fail(f"K5 disagrees with its plain version or with itself at {name}")
+        k5_err = max(k5_err, err)
+
+    T, D = table.shape[2:]
+    expand = idx[..., None].expand(-1, -1, -1, D)
+    dout = torch.randn((*idx.shape, D), device=dev, generator=gen)
+    zeros = torch.zeros_like(table)
+    # kernel and library call in turns (a, b, b, a, ...) within this call
+    k4 = {"max_abs_err": k4_err, **turns_median_ms(torch, {
+        "ms": lambda: og.onehot_gather(table, idx),
+        "library_ms": lambda: torch.gather(table, 2, expand)}, reps=50)}
+    k4["plain_ms"] = cuda_median_ms(torch, lambda: og.onehot_gather_reference(table, idx),
+                                    reps=50)
+    k5 = {"max_abs_err": k5_err, **turns_median_ms(torch, {
+        "ms": lambda: og.onehot_scatter_add(dout, idx, T),
+        "library_ms": lambda: torch.scatter_add(zeros, 2, expand, dout)}, reps=50)}
+    k5["plain_ms"] = cuda_median_ms(
+        torch, lambda: og.onehot_scatter_add_reference(dout, idx, T), reps=5)
+    # bytes: each input read once (the table or dout, int64 indices), the
+    # output written once; operations: K5's one add per dout element
+    k4["bound_ms"], k4["bound_by"] = bound_ms(4 * table.numel() + 8 * idx.numel()
+                                              + 4 * dout.numel(), 0)
+    k5["bound_ms"], k5["bound_by"] = bound_ms(4 * dout.numel() + 8 * idx.numel()
+                                              + 4 * table.numel(), dout.numel())
+    for name, r in (("K4 onehot_gather", k4), ("K5 onehot_scatter_add", k5)):
+        print(f"{name} at the path's shapes: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+              f"ms, library {r['library_ms']:.4f} ms (median, CUDA events; kernel and "
+              f"library in 4 turns of 50), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return k4, k5
+
+
+def w2_recall(torch, dev) -> float:
+    """Recall of two_level_rows (T=512, bf16 level 2) against exact flat
+    k-NN at campaign_r5b W2's operating point: a uniform cloud of extent 20,
+    N=10 000, 64 keypoints within +-8, 216 candidates within the grid reach
+    of each, 32 neighbours. Every candidate is counted."""
+    import numpy as np
+
+    from deepvcp_tpu_torch.config import DeepVCPConfig
+    from deepvcp_tpu_torch.data import SyntheticDataset, batch_iterator
+    from deepvcp_tpu_torch.ops import knn
+    from deepvcp_tpu_torch.ops.two_level import two_level_rows
+
+    base = DeepVCPConfig(num_points=N_POINTS, use_normal=False)
+    ds = SyntheticDataset(num_clouds=1, num_points=N_POINTS, use_normal=False, extent=10.0)
+    tgt = torch.from_numpy(next(batch_iterator(ds, 1, epoch=0, seed=0))[1]).to(dev)
+    K, C, k = base.num_keypoints, base.num_candidates, base.num_neighbors
+    kp = np.random.default_rng(1).uniform(-8.0, 8.0, (1, K, 3)).astype(np.float32)
+    cand = kp[:, :, None, :] + np.random.default_rng(2).uniform(
+        -base.grid_reach, base.grid_reach, (1, K, C, 3)).astype(np.float32)
+    kp, cand = torch.from_numpy(kp).to(dev), torch.from_numpy(cand).to(dev)
+    ids = torch.arange(N_POINTS, device=dev, dtype=torch.float32)[None, :, None]
+    with torch.no_grad():
+        out = two_level_rows(tgt, torch.cat([tgt, ids], dim=-1), kp, cand, k,
+                             table_size=base.tgt_knn_table, select_dtype="bfloat16")
+        _, exact = knn(tgt, cand.reshape(1, K * C, 3), k, chunk=base.knn_query_chunk)
+    got = out[..., -1].long().reshape(1, K * C, k)
+    return (got[..., :, None] == exact[..., None, :]).any(-1).float().mean().item()
+
+
+def two_level_phase(torch, dev, pairs) -> dict:
+    """Phases 16-18: K4/K5 against their plain versions; the registrar of
+    campaign_r5b W3 (kitti25, tgt_knn="two_level", T=512) on phase 4's 16
+    pairs, with flat kitti25 and T=1024 beside it, and the recall at W2's
+    operating point; kernel path against plain path; timing. Returns the
+    K1 and K4 launch counts of the gated run and K4's and K5's numbers."""
+    import dataclasses
+
+    from deepvcp_tpu_torch import pretrained
+    from deepvcp_tpu_torch.ops.kernels import band_max
+    from deepvcp_tpu_torch.ops.kernels import onehot_gather as og
+    from deepvcp_tpu_torch.registration import Registrar
+
+    flat = pretrained.registrar("kitti25", device=dev)
+    variables = pretrained.load_variables("kitti25")
+
+    def variant(**changes):
+        return Registrar(dataclasses.replace(flat.cfg, **changes), variables, dev,
+                         use_saliency_weights=flat.use_saliency_weights,
+                         refine_iters=flat.refine_iters)
+
+    reg = variant(**TWO_LEVEL)
+    print(f"two-level kitti25: T={reg.cfg.tgt_knn_table}, level-1 selection "
+          f"{reg.cfg.knn_select_dtype_effective or 'float32'}, level-2 "
+          f"{reg.cfg.knn_select_dtype}, refine_iters={reg.refine_iters}")
+
+    # 16. K4 and K5
+    k4, k5 = onehot_phase(torch, dev, reg, pairs[0])
+
+    # 17. the main path: 16 pairs through the two-level registrar
+    torch.cuda.synchronize()
+    og.onehot_gather.launches = 0
+    band_max.banded_masked_max.launches = 0
+    outs = [reg(src, tgt) for src, tgt, _, _ in pairs]
+    torch.cuda.synchronize()
+    k4_runs, k1_runs = og.onehot_gather.launches, band_max.banded_masked_max.launches
+    rre, rte = pose_errors(torch, outs, pairs, reg.refine_iters, "two-level kitti25")
+    for i in range(len(pairs)):
+        print(f"two-level pair {i:2d}: RRE {rre[i]:.4f} deg, RTE {rte[i]:.5f} m")
+    mean_rre, mean_rte = statistics.mean(rre), statistics.mean(rte)
+    print(f"two-level kitti25 (T={reg.cfg.tgt_knn_table}) GT-free over {len(pairs)} pairs: "
+          f"mean RRE {mean_rre:.4f} deg, mean RTE {mean_rte:.5f} m")
+    for name, other in (("flat kitti25", flat),
+                        ("two-level kitti25 at T=1024", variant(tgt_knn="two_level",
+                                                                tgt_knn_table=1024))):
+        o_rre, o_rte = pose_errors(torch, [other(s, t) for s, t, _, _ in pairs], pairs,
+                                   other.refine_iters, name)
+        print(f"{name} GT-free over the same pairs (not gated): mean RRE "
+              f"{statistics.mean(o_rre):.4f} deg, mean RTE {statistics.mean(o_rte):.5f} m")
+    if not (mean_rre <= RRE_LIMIT_DEG and mean_rte <= RTE_LIMIT_M):
+        fail(f"two-level accuracy: mean RRE {mean_rre} > {RRE_LIMIT_DEG} or RTE {mean_rte} > "
+             f"{RTE_LIMIT_M}")
+    print(f"launches in the two-level run: K4 {k4_runs}, K1 {k1_runs} over {len(pairs)} "
+          f"Registrar calls ({k4_runs / len(pairs):g} and {k1_runs / len(pairs):g} per call)")
+    if k4_runs != K4_PER_CALL * len(pairs) or k1_runs != LAUNCHES_PER_CALL * len(pairs):
+        fail(f"expected {K4_PER_CALL} K4 and {LAUNCHES_PER_CALL} K1 launches per call")
+    recall = w2_recall(torch, dev)
+    print(f"two-level recall against exact flat k-NN at W2's operating point: {recall:.4f}")
+    if recall < RECALL_LIMIT:
+        fail(f"two-level recall {recall} < {RECALL_LIMIT}")
+
+    # 18. kernel path vs plain path
+    src, tgt = pairs[0][0], pairs[0][1]
+    registrar_paths_agree(torch, reg, src, tgt, "two-level kitti25")
+
+    # timing (not gated): flat kitti25 in turns with the two-level registrar
+    flat_ms = host_median_ms(torch, lambda: flat(src, tgt), reps=10)
+    registrar_timing(torch, reg, src, tgt, "two-level kitti25", reps=10, plain_reps=5)
+    flat_ms2 = host_median_ms(torch, lambda: flat(src, tgt), reps=10)
+    print(f"flat kitti25 Registrar per-call latency beside it: {flat_ms:.3f} ms before, "
+          f"{flat_ms2:.3f} ms after (median of synced calls)")
+    splits = [stage_split(torch, flat, src, tgt) for _ in range(4)][1:]
+    print("flat kitti25 stage split (device ms, median of 3 replays): " + ", ".join(
+        f"{k} {statistics.median(s[k] for s in splits):.3f}" for k in splits[0]))
+    return {"k1": k1_runs, "k4": k4_runs, "K4": k4, "K5": k5}
+
+
+def two_level_training(torch, dev) -> dict:
+    """Phase 19: fine-tune kitti25 with tgt_knn="two_level" (T=512) for
+    TWO_LEVEL_STEPS steps through the Trainer under kitti25_recipe(): finite
+    loss and grad norm, 1 K4 and 1 K5 launch per step (and 6 K1, 6 K2);
+    one step through the kernels against the plain versions (phase 9's
+    check); the step time and its split. Returns the launch counts."""
+    import numpy as np
+
+    from deepvcp_tpu_torch.ops.kernels import band_max
+    from deepvcp_tpu_torch.ops.kernels import onehot_gather as og
+    from deepvcp_tpu_torch.train import build_train_step
+    from deepvcp_tpu_torch.train.optim import learning_rate_schedule
+
+    trainer, tcfg, records, batches, saved = fine_tuning("kitti25", TWO_LEVEL, TWO_LEVEL_STEPS,
+                                                         dev)
+    wrappers = {"k1": band_max.banded_masked_max, "k2": band_max.banded_masked_max_grad,
+                "k4": og.onehot_gather, "k5": og.onehot_scatter_add}
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    trainer.train_epoch(iter(batches), epoch=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: w.launches for k, w in wrappers.items()}
+    steps = [r for r in records if r["kind"] == "train"]
+    for i, r in enumerate(steps):
+        print(f"two-level train step {i}: loss {r['loss']:.5f}, vcp_l1 {r['vcp_l1']:.5f}, "
+              f"rre {r['rre_deg']:.4f} deg, rte {r['rte']:.5f} m, grad_norm {r['grad_norm']:.4f}")
+    if len(steps) != TWO_LEVEL_STEPS:
+        fail(f"expected {TWO_LEVEL_STEPS} logged two-level train steps, got {len(steps)}")
+    if not all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in steps):
+        fail("a two-level train step's loss or grad_norm is not finite")
+    print(f"launches over the {TWO_LEVEL_STEPS} two-level train steps: " + ", ".join(
+        f"{k.upper()} {v}" for k, v in counts.items()) + f"; {wall:.2f} s in all, the first "
+          f"step's cold start included")
+    want = {"k1": LAUNCHES_PER_CALL, "k2": LAUNCHES_PER_CALL, "k4": 1, "k5": 1}
+    if any(counts[k] != n * TWO_LEVEL_STEPS for k, n in want.items()):
+        fail(f"expected {want} launches per two-level train step")
+    step_fn = build_train_step(trainer.model, learning_rate_schedule(tcfg), tcfg)
+    train_paths_agree(torch, trainer, step_fn, saved,
+                      tuple(torch.from_numpy(a).to(dev) for a in batches[0]),
+                      "two-level train step")
+    time_train_step(torch, trainer, step_fn, batches, dev, "two-level train step", reps=6,
+                    plain_reps=2, profile=False)
+    return counts
+
+
 def main() -> None:
     # cuBLAS reads this when it starts; the train-path comparison (phase 9)
     # runs under deterministic algorithms, which need it
@@ -737,7 +1141,7 @@ def main() -> None:
     from deepvcp_tpu_torch.data import (
         LidarLikeDataset, batch_iterator, lidar_like_cloud,
         rotation_geodesic_deg, translation_error)
-    from deepvcp_tpu_torch.ops.kernels import _build, band_max, reference_path
+    from deepvcp_tpu_torch.ops.kernels import _build
     from deepvcp_tpu_torch.ops.kernels.band_max import (
         banded_masked_max, banded_masked_max_grad, banded_masked_max_grad_reference,
         banded_masked_max_reference)
@@ -810,24 +1214,13 @@ def main() -> None:
     outs = [reg(src, tgt) for src, tgt, _, _ in pairs]
     torch.cuda.synchronize()
     launches = banded_masked_max.launches
-    rre, rte, rre0, rte0 = [], [], [], []
-    for i, (out, (src, tgt, R_gt, t_gt)) in enumerate(zip(outs, pairs)):
-        shapes = {"R": (1, 3, 3), "t": (1, 3), "keypoints": (1, 64, 3), "vcps": (1, 64, 3),
-                  "saliency": (1, N_POINTS), "scores": (1, reg.refine_iters + 1)}
-        for field, shape in shapes.items():
-            val = getattr(out, field)
-            if tuple(val.shape) != shape or not torch.isfinite(val).all():
-                fail(f"pair {i}: {field} has shape {tuple(val.shape)} (want {shape}) "
-                     f"or non-finite values")
-        eye = torch.eye(3, device=dev)
-        if (out.R[0] @ out.R[0].T - eye).abs().max() > 1e-4 or abs(torch.det(out.R[0]) - 1) > 1e-4:
-            fail(f"pair {i}: R is not a rotation")
-        rre.append(rotation_geodesic_deg(out.R, R_gt).item())
-        rte.append(translation_error(out.t, t_gt).item())
-        rre0.append(rotation_geodesic_deg(eye[None], R_gt).item())
-        rte0.append(translation_error(torch.zeros_like(t_gt), t_gt).item())
-        print(f"pair {i:2d}: RRE {rre[-1]:.4f} deg, RTE {rte[-1]:.5f} m | identity init "
-              f"{rre0[-1]:.4f} deg, {rte0[-1]:.5f} m | best score {out.scores.min().item():.5f}")
+    rre, rte = pose_errors(torch, outs, pairs, reg.refine_iters, "kitti25-rot")
+    eye = torch.eye(3, device=dev)[None]
+    rre0 = [rotation_geodesic_deg(eye, R_gt).item() for _, _, R_gt, _ in pairs]
+    rte0 = [translation_error(torch.zeros_like(t_gt), t_gt).item() for _, _, _, t_gt in pairs]
+    for i, out in enumerate(outs):
+        print(f"pair {i:2d}: RRE {rre[i]:.4f} deg, RTE {rte[i]:.5f} m | identity init "
+              f"{rre0[i]:.4f} deg, {rte0[i]:.5f} m | best score {out.scores.min().item():.5f}")
     mean_rre, mean_rte = statistics.mean(rre), statistics.mean(rte)
     print(f"kitti25-rot GT-free over {N_PAIRS} pairs (refine_iters={reg.refine_iters}, "
           f"exact selection): mean RRE {mean_rre:.4f} deg, mean RTE {mean_rte:.5f} m | "
@@ -837,23 +1230,7 @@ def main() -> None:
 
     # 5. kernel path vs plain path, pair 0
     src, tgt = pairs[0][0], pairs[0][1]
-    with torch.no_grad():
-        enc_k = reg.model.encode(src, tgt)
-        out_k = reg(src, tgt)
-        with reference_path():
-            enc_p = reg.model.encode(src, tgt)
-            out_p = reg(src, tgt)
-    if not torch.equal(enc_k.keypoint_idx, enc_p.keypoint_idx):
-        fail("kernel and plain paths chose different keypoints")
-    if not torch.equal(out_k.keypoints, out_p.keypoints):
-        fail("kernel and plain paths returned different keypoints")
-    dR = (out_k.R - out_p.R).abs().max().item()
-    dt = (out_k.t - out_p.t).abs().max().item()
-    ds = (out_k.scores - out_p.scores).abs().max().item()
-    print(f"kernel vs plain path, pair 0: keypoint indices identical, max|dR| {dR:.3e}, "
-          f"max|dt| {dt:.3e} m, max|dscores| {ds:.3e}")
-    if dR > 1e-4 or dt > 1e-4 or ds > 1e-5:
-        fail("kernel path and plain path disagree")
+    registrar_paths_agree(torch, reg, src, tgt, "kitti25-rot")
 
     # 6. launch count of the main-path run in step 4
     print(f"K1 launches in the main-path run: {launches} over {N_PAIRS} Registrar calls "
@@ -862,22 +1239,7 @@ def main() -> None:
         fail(f"expected {LAUNCHES_PER_CALL} K1 launches per call, got {launches / N_PAIRS:g}")
 
     # 7. timing (not gated)
-    lat = host_median_ms(torch, lambda: reg(src, tgt), reps=20)
-    with reference_path():
-        lat_plain = host_median_ms(torch, lambda: reg(src, tgt), reps=10)
-    print(f"Registrar per-call latency, B=1, N={N_POINTS}: kernel path {lat:.3f} ms, "
-          f"plain path {lat_plain:.3f} ms (median of synced calls)")
-    splits = [stage_split(torch, reg, src, tgt) for _ in range(6)][1:]
-    split = {k: statistics.median(s[k] for s in splits) for k in splits[0]}
-    print("stage split (device ms, median of 5 replays): " + ", ".join(
-        f"{k} {v:.3f}" for k, v in split.items()) + f" | sum {sum(split.values()):.3f}")
-    busy, top = device_time_per_call(torch, lambda: reg(src, tgt), calls=5)
-    if busy > 0:
-        print(f"device busy per call (torch.profiler, union of kernel intervals): "
-              f"{busy:.3f} ms of {lat:.3f} ms latency, idle share {1 - busy / lat:.3f}")
-        print("top kernels (ms per call): " + "; ".join(f"{k} {v:.3f}" for k, v in top))
-    else:
-        print("device busy per call: not measured (the profiler saw no device time)")
+    registrar_timing(torch, reg, src, tgt, "kitti25-rot", reps=20, plain_reps=10)
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
     # 8-10. the training path
@@ -886,6 +1248,10 @@ def main() -> None:
     # 12-15. FPS and the global path
     k3 = k3_phase(torch, dev)
     glob = global_phase(torch, dev)
+
+    # 16-19. the two-level path: K4/K5, serving, paths, training
+    two = two_level_phase(torch, dev, pairs)
+    two_train = two_level_training(torch, dev)
 
     # bounds of K1 and K2 at the three SA shapes, from this cloud's pairs
     # bytes: each input read once, the output written once; operations: per
@@ -912,14 +1278,16 @@ def main() -> None:
 
     print(card)
     # ms / plain_ms / bound_ms: K1 and K2 sums at the 3 SA shapes (one FE
-    # pass, or one FE backward), K3 sums at the 2 shapes of one init call;
-    # launches: the main-path runs' (K1 serving + training + global)
+    # pass, or one FE backward), K3 sums at the 2 shapes of one init call,
+    # K4 and K5 at the two-level path's shapes (library_ms: torch.gather,
+    # torch.scatter_add); launches: the main-path runs' (serving, training,
+    # global, two-level serving and training)
     print(json.dumps({"kernels": [{
         "name": "banded_masked_max",
         "route": "cuda",
         "source": "deepvcp_tpu_torch/csrc/band_max.cu",
         "replaces": "deepvcp_tpu/ops/pallas/band_max_kernel.py:148",
-        "launches": launches + train["k1"] + glob["k1"],
+        "launches": launches + train["k1"] + glob["k1"] + two["k1"] + two_train["k1"],
         "max_abs_err": k1_err,
         "ms": k1_ms,
         "plain_ms": k1_plain_ms,
@@ -931,7 +1299,7 @@ def main() -> None:
         "route": "cuda",
         "source": "deepvcp_tpu_torch/csrc/band_max_grad.cu",
         "replaces": "deepvcp_tpu/ops/pallas/band_max_kernel.py:267",
-        "launches": train["k2"],
+        "launches": train["k2"] + two_train["k2"],
         "max_abs_err": k2_err,
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,
@@ -950,7 +1318,17 @@ def main() -> None:
         "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"],
         "library_ms": None,
-    }]}))
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "deepvcp_tpu_torch/csrc/onehot_gather.cu",
+        "replaces": f"deepvcp_tpu/ops/pallas/onehot_gather.py:{line}",
+        "launches": launches_,
+        **{key: two[k][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms")},
+    } for name, k, line, launches_ in (
+        ("onehot_gather", "K4", 74, two["k4"] + two_train["k4"]),
+        ("onehot_scatter_add", "K5", 156, two_train["k5"]))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

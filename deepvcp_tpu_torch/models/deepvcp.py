@@ -1,7 +1,9 @@
 """DeepVCP forward (port of deepvcp_tpu/models/deepvcp.py): top-K or
-salient-FPS keypoints, and the default branches of the rest: source
-neighbourhoods from the full source cloud (D13), flat candidate KNN,
-derotated target neighbourhoods (D14) and the fused [N, 3+F] gather.
+salient-FPS keypoints, source neighbourhoods from the full source cloud
+(D13), the candidates' target neighbourhoods from the flat candidate KNN and
+the fused [N, 3+F] gather, or from the two-level grouping
+(`tgt_knn="two_level"`, ops/two_level.py, kernels K4/K5), and derotated
+target neighbourhoods (D14).
 
 The forward is split at the warm start. `encode` is everything that does not
 depend on the pose (both FE passes, saliency, keypoints and the source
@@ -22,6 +24,7 @@ from deepvcp_tpu_torch.config import DeepVCPConfig
 from deepvcp_tpu_torch.models.layers import CPG, FeatEmbedding, FeatureExtraction, WeightingLayer
 from deepvcp_tpu_torch.ops import (
     apply_rigid, approx_knn, farthest_point_sample, index_points, knn, voxelize)
+from deepvcp_tpu_torch.ops.two_level import two_level_rows
 
 _EPS = 1e-8
 
@@ -43,10 +46,10 @@ def _unsupported(cfg: DeepVCPConfig) -> str:
     the ROADMAP item that brings it ('' when all are ported)."""
     if cfg.dfe_src_neighbors != "cloud":
         return "dfe_src_neighbors='keypoints' (ROADMAP M10)"
-    if cfg.use_two_level_tgt_knn:
-        return "tgt_knn two-level grouping (needs kernels K4/K5, ROADMAP M10)"
     if not cfg.use_pallas_band_max:
         return "use_pallas_band_max=False static-band pooling (ROADMAP M10)"
+    if cfg.use_two_level_tgt_knn and not cfg.use_pallas_onehot_gather:
+        return "use_pallas_onehot_gather=False plain two-level gather (ROADMAP M10)"
     if cfg.compute_dtype != "float32":
         return f"compute_dtype={cfg.compute_dtype!r} (ROADMAP M10)"
     return ""
@@ -121,24 +124,42 @@ class DeepVCP(nn.Module):
             tgt_xyz=tgt_xyz, tgt_table=torch.cat([tgt_xyz, tgt_feat], dim=-1))
 
     def candidates(self, enc: Encoding, R_init: torch.Tensor,
-                   t_init: torch.Tensor) -> torch.Tensor:
-        """Warm-start the keypoints and lay the voxel grid: [B, K, C, 3]."""
+                   t_init: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Warm-start the keypoints and lay the voxel grid around them:
+        (warm keypoints [B, K, 3], candidates [B, K, C, 3])."""
         cfg = self.cfg
         kp_warm = apply_rigid(enc.keypoints, R_init, t_init)
-        return voxelize(kp_warm, cfg.search_radius, cfg.voxel_len, centered=cfg.centered_grid)
+        return kp_warm, voxelize(kp_warm, cfg.search_radius, cfg.voxel_len,
+                                 centered=cfg.centered_grid)
 
-    def candidate_neighbors(self, enc: Encoding, candidates: torch.Tensor) -> torch.Tensor:
-        """Each candidate's ns-NN in the target cloud: [B, K*C, ns] indices."""
+    def two_level_args(self) -> Dict:
+        """two_level_rows' table size and selection dtypes under this config.
+        Level 2 selects in knn_select_dtype, NOT the extent-gated effective
+        dtype: keypoint-local coordinates stay small (as JAX)."""
+        cfg = self.cfg
+        return dict(table_size=cfg.tgt_knn_table, select_dtype=cfg.knn_select_dtype,
+                    center_select_dtype=cfg.knn_select_dtype_effective)
+
+    def candidate_neighbors(self, enc: Encoding, kp_warm: torch.Tensor,
+                            candidates: torch.Tensor) -> torch.Tensor:
+        """Each candidate's ns nearest target rows (xyz ++ features):
+        [B, K*C, ns, 3+F], from the flat KNN over the whole target cloud or
+        from the two-level per-keypoint tables."""
+        cfg = self.cfg
         B, K, C, _ = candidates.shape
+        if cfg.use_two_level_tgt_knn:
+            rows = two_level_rows(enc.tgt_xyz, enc.tgt_table, kp_warm, candidates,
+                                  cfg.num_neighbors, **self.two_level_args())
+            return rows.reshape(B, K * C, cfg.num_neighbors, -1)
         _, idx = self._knn(enc.tgt_xyz, candidates.reshape(B, K * C, 3), chunked=True)
-        return idx
+        return index_points(enc.tgt_table, idx)
 
-    def match(self, enc: Encoding, candidates: torch.Tensor, tnb_idx: torch.Tensor,
+    def match(self, enc: Encoding, candidates: torch.Tensor, tnb: torch.Tensor,
               R_init: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Gather, derotate and weight the candidates' neighbourhoods, embed
-        them and run the CPG: (vcp [B, K, 3], candidate weights [B, K, C])."""
+        """Derotate and weight the candidates' neighbourhoods tnb
+        [B, K*C, ns, 3+F], embed them and run the CPG: (vcp [B, K, 3],
+        candidate weights [B, K, C])."""
         B, K, C, _ = candidates.shape
-        tnb = index_points(enc.tgt_table, tnb_idx)                   # [B,KC,ns,3+F]
         local_t = tnb[..., :3] - candidates.reshape(B, K * C, 1, 3)
         if self.cfg.derotate_tgt_neighborhoods:
             # D14: row-vector form of R_init^T v, into the source frame
@@ -146,14 +167,14 @@ class DeepVCP(nn.Module):
         nb_dist = torch.linalg.norm(local_t, dim=-1)
         w_tgt = nb_dist / (torch.sum(nb_dist, dim=-1, keepdim=True) + _EPS)
         tgt_cat = torch.cat([local_t, tnb[..., 3:] * w_tgt[..., None]], dim=-1)
-        tgt_desc = self.dfe(tgt_cat.reshape(B, K, C, tnb_idx.shape[-1], -1))
+        tgt_desc = self.dfe(tgt_cat.reshape(B, K, C, tnb.shape[-2], -1))
         return self.cpg(enc.src_descriptors, tgt_desc, candidates)
 
     def correspond(self, enc: Encoding, R_init: torch.Tensor,
                    t_init: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
-        candidates = self.candidates(enc, R_init, t_init)
-        tnb_idx = self.candidate_neighbors(enc, candidates)
-        vcp, cand_weights = self.match(enc, candidates, tnb_idx, R_init)
+        kp_warm, candidates = self.candidates(enc, R_init, t_init)
+        tnb = self.candidate_neighbors(enc, kp_warm, candidates)
+        vcp, cand_weights = self.match(enc, candidates, tnb, R_init)
         aux = {
             "saliency": enc.saliency,
             "keypoint_idx": enc.keypoint_idx,

@@ -13,3 +13,5 @@ from deepvcp_tpu_torch.ops.kernels.fps import (  # noqa: F401
     farthest_point_sample,
     farthest_point_sample_reference,
 )
+# K4/K5 stay in their module, `ops.kernels.onehot_gather`: a function of
+# the same name exported here would hide it

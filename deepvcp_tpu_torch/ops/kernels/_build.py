@@ -107,6 +107,10 @@ def library() -> ctypes.CDLL:
             lib.band_max_grad_f32.restype = i
             lib.fps_f32.argtypes = [p, p, i, i, i, i, p]
             lib.fps_f32.restype = i
+            lib.onehot_gather_f32.argtypes = [p, p, p, i, i, i, i, p]
+            lib.onehot_gather_f32.restype = i
+            lib.onehot_scatter_add_f32.argtypes = [p, p, p, i, i, i, i, p]
+            lib.onehot_scatter_add_f32.restype = i
             lib.band_max_error_string.argtypes = [i]
             lib.band_max_error_string.restype = ctypes.c_char_p
             _lib = lib

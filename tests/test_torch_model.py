@@ -231,11 +231,28 @@ def test_forward_tracks_gradients():
         assert torch.equal(b, stats[name]), name
 
 
+def test_two_level_builds_and_auto_selects_it():
+    """tgt_knn="two_level" builds; "auto" takes it at the bench operating
+    point (extent 20, reach 1.0) and not at ModelNet scale, under exact
+    candidate selection or with "flat" (the gate of test_two_level.py)."""
+    from deepvcp_tpu_torch.config import DeepVCPConfig as PortConfig
+
+    assert DeepVCP(dataclasses.replace(PortConfig.tiny(), tgt_knn="two_level")).cfg \
+        .use_two_level_tgt_knn
+    base = PortConfig(num_points=1024, use_normal=False)
+    auto = dataclasses.replace(base, tgt_knn="auto")
+    assert not base.use_two_level_tgt_knn and auto.use_two_level_tgt_knn
+    assert DeepVCP(dataclasses.replace(auto, num_points=128)).cfg.use_two_level_tgt_knn
+    assert not dataclasses.replace(auto, spatial_extent=2.5).use_two_level_tgt_knn
+    assert not dataclasses.replace(auto, candidate_knn="exact").use_two_level_tgt_knn
+    assert not dataclasses.replace(base, tgt_knn="flat").use_two_level_tgt_knn
+
+
 @pytest.mark.parametrize("change", [
-    {"tgt_knn": "two_level"},
     {"neighbor_method": "windowed"},
     {"dfe_src_neighbors": "keypoints"},
     {"use_pallas_band_max": False},
+    {"tgt_knn": "two_level", "use_pallas_onehot_gather": False},
 ])
 def test_unported_branches_raise(change):
     cfg = dataclasses.replace(DeepVCPConfig.tiny(), **change)

@@ -44,6 +44,11 @@ def test_exported_modelnet_weights_equal_checkpoint(name):
     _assert_exported_equals_checkpoint(name)
 
 
+def test_exported_kitti25_weights_equal_checkpoint():
+    """kitti25, the model the two-level path is validated on, likewise."""
+    _assert_exported_equals_checkpoint("kitti25")
+
+
 def _assert_exported_equals_checkpoint(name):
     cfg_j, want = jpretrained.load(name)
     cfg_t, got = pretrained.load(name)
@@ -84,7 +89,7 @@ def test_strict_load_and_registrar_defaults():
 
 def test_unexported_checkpoint_is_reported():
     with pytest.raises(FileNotFoundError, match="export_torch_weights"):
-        pretrained.load("kitti25")
+        pretrained.load("lidar-fine")
     with pytest.raises(KeyError):
         pretrained.config("no-such-model")
 

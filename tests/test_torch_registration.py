@@ -199,7 +199,7 @@ def test_cascade_bf16_selection_near_jax(cascade_pair):
     with torch.no_grad():
         enc = model.encode(torch.from_numpy(src), torch.from_numpy(tgt))
         eye = torch.eye(3).expand(2, 3, 3)
-        q = model.candidates(enc, eye, torch.zeros(2, 3)).reshape(2, -1, 3)
+        q = model.candidates(enc, eye, torch.zeros(2, 3))[1].reshape(2, -1, 3)
     k = model.cfg.num_neighbors
     dt, it = (a.numpy() for a in approx_knn(enc.tgt_xyz, q, k, select_dtype="bfloat16"))
     dj, ij = (np.asarray(a) for a in japprox_knn(jnp.asarray(enc.tgt_xyz.numpy()),
