@@ -53,12 +53,15 @@ any rotation, `initializer.so3_global_init` then
                  idle share, peak memory (printed only)
  16. K4/K5       one-hot gather and its scatter-add backward against their
                  plain versions at the two-level path's table and indices
-                 (kitti25, pair 0), with every query into 8 rows, and at a Q
-                 that is not a multiple of K4's block: K4 identical to
-                 torch.gather; K5 0.0 with integer cotangents, <= 1e-5 with
-                 Gaussian ones, equal to itself run twice; median times of
-                 the kernels, the plain versions and torch.gather /
-                 torch.scatter_add
+                 (kitti25, pair 0), with every query into 8 rows and into
+                 one row, at D = 5, at T = 600 and at a Q that is not a
+                 multiple of K4's block: K4 identical to torch.gather; K5's
+                 row lists identical to their plain version; K5 0.0 with
+                 integer and with Gaussian cotangents, equal to itself run
+                 twice; the path's per-64-row-group load; median times of
+                 the kernels (K5's two passes apart), the plain versions
+                 and torch.gather / torch.scatter_add, warm and with L2
+                 flushed
  17. two-level   campaign_r5b W3: kitti25 with tgt_knn="two_level", T=512, on
                  phase 4's 16 pairs: mean RRE <= 1.0 deg and RTE <= 0.05 m, 2 K4
                  and 6 K1 launches per call; flat kitti25 and T=1024 on the
@@ -114,10 +117,10 @@ TWO_LEVEL = {"tgt_knn": "two_level", "tgt_knn_table": 512}
 K4_PER_CALL = 2            # kitti25's refine_iters
 TWO_LEVEL_STEPS = 4
 RECALL_LIMIT = 0.95
-K5_GAUSS_LIMIT = 1e-5      # K5 vs plain with Gaussian cotangents
 # H100 SXM published peaks (NVIDIA datasheet): HBM bytes/s and
 # float32 (non-tensor-core) operations/s, for the kernels' bounds
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+HOLD_CYCLES = 20_000_000   # ~10 ms of the card's clock: see hold_device
 
 
 def fail(msg: str) -> None:
@@ -134,10 +137,20 @@ def card_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
+def hold_device(torch) -> None:
+    """Keep the card busy for ~10 ms, so that the launches enqueued next
+    wait in the stream and run back to back: CUDA events around each then
+    time the device's work, not the host's time to issue it (the wrappers'
+    Python around a launch takes longer than a kernel of 0.03 ms)."""
+    torch.cuda._sleep(HOLD_CYCLES)
+
+
 def cuda_median_ms(torch, fn, reps: int, warmup: int = 3) -> float:
-    """Median device time of fn() over `reps` runs, from CUDA events."""
+    """Median device time of fn() over `reps` runs, from CUDA events, the
+    runs enqueued behind hold_device."""
     for _ in range(warmup):
         fn()
+    hold_device(torch)
     pairs = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -884,14 +897,10 @@ def registrar_timing(torch, reg, src, tgt, what: str, reps: int, plain_reps: int
     return lat
 
 
-def onehot_phase(torch, dev, reg, pair) -> tuple:
-    """Phase 16: K4 and K5 against their plain versions and the library
-    calls (torch.gather, torch.scatter_add): at the path's table and
-    indices (the two-level registrar's first refinement of `pair`, identity
-    warm start), with every query into 8 rows, and at a Q that is not a
-    multiple of K4's 256-query block. Median CUDA-event times at the path's
-    case. Returns K4's and K5's numbers there."""
-    from deepvcp_tpu_torch.ops.kernels import onehot_gather as og
+def path_onehot_inputs(torch, dev, reg, pair) -> tuple:
+    """The table [B, K, T, D] and indices [B, K, C * k] that K4 gathers in
+    the two-level registrar's first refinement of `pair` (identity warm
+    start)."""
     from deepvcp_tpu_torch.ops.two_level import keypoint_tables, table_neighbors
 
     m = reg.model
@@ -905,42 +914,96 @@ def onehot_phase(torch, dev, reg, pair) -> tuple:
         l_idx = table_neighbors(table[..., :3], kp_warm, cand, m.cfg.num_neighbors,
                                 args["select_dtype"])
     B, K, C, k = l_idx.shape
-    idx = l_idx.reshape(B, K, C * k).contiguous()
+    return table, l_idx.reshape(B, K, C * k).contiguous()
+
+
+def flushed_median_ms(torch, fn, reps: int, flush) -> float:
+    """Median CUDA-event time of fn() with L2 flushed before each launch by
+    writing the buffer `flush` (larger than L2); the events enclose fn()
+    alone."""
+    fn()
+    hold_device(torch)
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in times)
+
+
+def onehot_phase(torch, dev, reg, pair) -> tuple:
+    """Phase 16: K4 and K5 against their plain versions and the library
+    calls (torch.gather, torch.scatter_add): at the path's table and
+    indices (the two-level registrar's first refinement of `pair`, identity
+    warm start), with every query into 8 rows, with every query into one
+    row (the longest add chain), at D = 5 (K4's generic D), at a T above
+    K5's 512-row sort block that is not a multiple of 64, and at a Q that
+    is not a multiple of K4's 256-query block; K5's pass A against its plain
+    version in each. The path's per-64-row-group load. Median CUDA-event
+    times at the path's case, warm and with L2 flushed, K5's passes apart.
+    Returns K4's and K5's numbers there."""
+    from deepvcp_tpu_torch.ops.kernels import onehot_gather as og
+
+    table, idx = path_onehot_inputs(torch, dev, reg, pair)
+    B, K, Q = idx.shape
+    T, D = table.shape[2:]
     gen = torch.Generator(device=dev).manual_seed(3)
-    cases = [(f"the path's [{B}, {K}, {table.shape[2]}, {table.shape[3]}] table, Q = {C * k}",
-              table, idx),
+    cases = [(f"the path's [{B}, {K}, {T}, {D}] table, Q = {Q}", table, idx),
              ("the same, every query into 8 rows", table,
               torch.randint(0, 8, idx.shape, device=dev, generator=gen)),
+             ("the same, every query into row 0", table, torch.zeros_like(idx)),
+             (f"[{B}, {K}, {T}, 5], the path's indices",
+              torch.randn(B, K, T, 5, device=dev, generator=gen), idx),
+             (f"[1, 8, 600, {D}], Q = {Q}", torch.randn(1, 8, 600, D, device=dev, generator=gen),
+              torch.randint(0, 600, (1, 8, Q), device=dev, generator=gen)),
              ("[2, 3, 136, 7], Q = 1000", torch.randn(2, 3, 136, 7, device=dev, generator=gen),
               torch.randint(0, 136, (2, 3, 1000), device=dev, generator=gen))]
     k4_err = k5_err = 0.0
     for name, tb, ix in cases:
-        T, D = tb.shape[2:]
-        expand = ix[..., None].expand(-1, -1, -1, D)
+        Tc, Dc = tb.shape[2:]
+        expand = ix[..., None].expand(-1, -1, -1, Dc)
         got = og.onehot_gather(tb, ix)
         want = og.onehot_gather_reference(tb, ix)
         if not (torch.equal(got, want) and torch.equal(got, torch.gather(tb, 2, expand))):
             fail(f"K4 differs from torch.gather at {name}")
         k4_err = max(k4_err, (got - want).abs().max().item())
-        shape = (*ix.shape, D)
+        lists, want_lists = og.row_lists(ix, Tc), og.onehot_row_lists_reference(ix, Tc)
+        if not all(torch.equal(a, b) for a, b in zip(lists, want_lists)):
+            fail(f"K5's pass A (row lists) differs from its plain version at {name}")
+        shape = (*ix.shape, Dc)
         g_int = torch.randint(-8, 9, shape, device=dev, generator=gen).float()
         g = torch.randn(shape, device=dev, generator=gen)
-        err_int = (og.onehot_scatter_add(g_int, ix, T)
-                   - og.onehot_scatter_add_reference(g_int, ix, T)).abs().max().item()
-        got = og.onehot_scatter_add(g, ix, T)
-        err = (got - og.onehot_scatter_add_reference(g, ix, T)).abs().max().item()
+        err_int = (og.onehot_scatter_add(g_int, ix, Tc)
+                   - og.onehot_scatter_add_reference(g_int, ix, Tc)).abs().max().item()
+        got = og.onehot_scatter_add(g, ix, Tc)
+        err = (got - og.onehot_scatter_add_reference(g, ix, Tc)).abs().max().item()
         err_lib = (got - torch.scatter_add(torch.zeros_like(tb), 2, expand, g)).abs().max().item()
-        again = torch.equal(got, og.onehot_scatter_add(g, ix, T))
-        fullest = int(torch.zeros(ix.shape[:2] + (T,), dtype=torch.int64, device=dev)
+        again = torch.equal(got, og.onehot_scatter_add(g, ix, Tc))
+        fullest = int(torch.zeros(ix.shape[:2] + (Tc,), dtype=torch.int64, device=dev)
                       .scatter_add_(2, ix, torch.ones_like(ix)).max())
         print(f"K4/K5 at {name} (fullest row {fullest} queries): K4 identical to torch.gather; "
-              f"K5 vs plain max_abs_err {err_int} (integer g), {err:.3e} (Gaussian g), vs "
-              f"scatter_add {err_lib:.3e}, run twice identical: {again}")
-        if err_int != 0.0 or err > K5_GAUSS_LIMIT or not again:
+              f"K5's row lists identical to the plain ones; K5 vs plain max_abs_err {err_int} "
+              f"(integer g), {err} (Gaussian g), vs scatter_add {err_lib:.3e}, run twice "
+              f"identical: {again}")
+        if err_int != 0.0 or err != 0.0 or not again:
             fail(f"K5 disagrees with its plain version or with itself at {name}")
         k5_err = max(k5_err, err)
 
-    T, D = table.shape[2:]
+    # the load of the first K5 design's blocks (64 rows each): the rows
+    # nearest each keypoint come first in its table and are the fullest
+    rows = torch.zeros(B * K, T, dtype=torch.int64, device=dev).scatter_add_(
+        1, idx.reshape(B * K, Q), torch.ones_like(idx.reshape(B * K, Q)))
+    groups = rows[:, :T // 64 * 64].reshape(B * K, -1, 64).sum(-1).float()
+    print(f"the path's per-64-row-group query counts: max {groups.max().item():.0f}, mean "
+          f"{groups.mean().item():.1f} (max / mean {(groups.max() / groups.mean()).item():.2f}); "
+          f"group 0 holds {(groups[:, 0].sum() / groups.sum()).item():.4f} of the queries; "
+          f"rows: max {rows.max().item()}, mean {rows.float().mean().item():.2f}")
+
     expand = idx[..., None].expand(-1, -1, -1, D)
     dout = torch.randn((*idx.shape, D), device=dev, generator=gen)
     zeros = torch.zeros_like(table)
@@ -955,17 +1018,32 @@ def onehot_phase(torch, dev, reg, pair) -> tuple:
         "library_ms": lambda: torch.scatter_add(zeros, 2, expand, dout)}, reps=50)}
     k5["plain_ms"] = cuda_median_ms(
         torch, lambda: og.onehot_scatter_add_reference(dout, idx, T), reps=5)
+    lists = og.row_lists(idx, T)
+    passes = turns_median_ms(torch, {"A": lambda: og.row_lists(idx, T),
+                                     "B": lambda: og.row_sums(dout, *lists)}, reps=50)
+    flush = torch.empty(64 * 2**20 // 4, device=dev)
+    cold = {name: flushed_median_ms(torch, fn, 50, flush) for name, fn in (
+        ("K4", lambda: og.onehot_gather(table, idx)),
+        ("torch.gather", lambda: torch.gather(table, 2, expand)),
+        ("K5", lambda: og.onehot_scatter_add(dout, idx, T)),
+        ("torch.scatter_add", lambda: torch.scatter_add(zeros, 2, expand, dout)))}
+    del flush
     # bytes: each input read once (the table or dout, int64 indices), the
     # output written once; operations: K5's one add per dout element
     k4["bound_ms"], k4["bound_by"] = bound_ms(4 * table.numel() + 8 * idx.numel()
                                               + 4 * dout.numel(), 0)
     k5["bound_ms"], k5["bound_by"] = bound_ms(4 * dout.numel() + 8 * idx.numel()
                                               + 4 * table.numel(), dout.numel())
-    for name, r in (("K4 onehot_gather", k4), ("K5 onehot_scatter_add", k5)):
-        print(f"{name} at the path's shapes: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
-              f"ms, library {r['library_ms']:.4f} ms (median, CUDA events; kernel and "
-              f"library in 4 turns of 50), bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    for name, r, lib in (("K4 onehot_gather", k4, "torch.gather"),
+                         ("K5 onehot_scatter_add", k5, "torch.scatter_add")):
+        print(f"{name} at the path's shapes: kernel {r['ms']:.4f} ms, library ({lib}) "
+              f"{r['library_ms']:.4f} ms, kernel / library {r['ms'] / r['library_ms']:.3f} "
+              f"(median, CUDA events, in 4 turns of 50); plain {r['plain_ms']:.4f} ms; bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['bound_ms'] / r['ms']:.3f} of it "
+              f"reached; with L2 flushed before each launch: kernel {cold[name[:2]]:.4f} ms, "
+              f"library {cold[lib]:.4f} ms, kernel / library {cold[name[:2]] / cold[lib]:.3f}")
+    print(f"K5's two passes at the path's shapes (median, CUDA events, in 4 turns of 50): "
+          f"A (row lists) {passes['A']:.4f} ms, B (row sums) {passes['B']:.4f} ms")
     return k4, k5
 
 

@@ -7,115 +7,167 @@
 // bk runs over batch x keypoints, q over the C*k candidate neighbours of a
 // keypoint, t over the T rows of its table. The last stage of the
 // two-level candidate grouping (ops/two_level.py). K4 replaces the TPU
-// kernel deepvcp_tpu/ops/pallas/onehot_gather.py::onehot_gather and K5 its
-// backward, _scatter_add of the same file. On the TPU both are a one-hot
-// [T, bq] matrix times the table on the MXU, padded to Mosaic's (8, 128)
-// tiles with D padded to 128 lanes: a way to gather without indexed loads.
-// Hopper has indexed loads, so neither kernel builds a one-hot matrix.
+// kernel deepvcp_tpu/ops/pallas/onehot_gather.py::onehot_gather (:74) and
+// K5 its backward, _scatter_add of the same file (:156). On the TPU both
+// are a one-hot [T, bq] matrix times the table on the MXU, padded to
+// Mosaic's (8, 128) tiles with D padded to 128 lanes: a way to gather
+// without indexed loads. Hopper has indexed loads, so neither kernel builds
+// a one-hot matrix.
 //
-// K4 design. One block per (bk, 256 queries). The block reads its 256
-// indices into shared memory, then its threads walk the flat [256 * D]
-// span of the output: neighbouring threads write neighbouring floats (a
-// 35-float row is 140 bytes, not 16-byte aligned, so rows are not stored
-// as vectors) and read neighbouring floats of one table row through the
-// read-only cache (__ldg): a keypoint's table is 71 680 bytes at T = 512,
-// D = 35, and all tables together (4.6 MB) sit in L2. A copy, so the output
-// is bit-identical to torch.gather. An index outside [0, T) gives a row of
-// NaN (torch.gather would raise; checking would cost the wrapper a host
-// synchronisation).
+// What bounds them: bytes. At the path's shapes (64 keypoints, Q = 6912,
+// T = 512, D = 35) K4 writes 61.9 MB and reads 4.6 MB of tables and 3.5 MB
+// of indices; K5 reads the same 61.9 MB of dout and the indices and writes
+// the tables: about 70 MB each, 21 us at 3.35 TB/s.
 //
-// K5 design, deterministic, with no atomics in global memory. One block per
-// (bk, 64 table rows). The block sorts the keypoint's Q indices that fall
-// in its rows by a stable counting sort in shared memory: each of the 8
-// warps owns a contiguous eighth of q and counts its entries per row
-// (shared-memory integer atomics: exact counts); an exclusive scan over
-// the rows gives each row's start and each warp its own cursor per row;
-// then each warp walks its eighth in ascending chunks of 32, where
-// __match_any_sync gives each lane its rank among the lanes of the chunk
-// with the same row, and the group's leader advances the warp's cursor.
-// The list so built holds each row's q in ascending order. Then each thread
-// owns (row, channel) outputs and sums its row's list in that order,
-// starting from 0, as ops/kernels/onehot_gather.py's plain version does:
-// the same bits, run after run. An index outside [0, T) adds to no row.
+// K4. One block per (bk, 256 queries) stores its whole output span, which
+// is contiguous, with 16-byte streaming stores (__stcs: the output does not
+// fit L2 and is read by the next kernel from HBM anyway): each thread
+// builds a float4 from four table values read through the read-only cache
+// (all 64 tables, 4.6 MB, sit in L2). The span's ends that are not 16-byte
+// aligned are stored a float at a time. D is a template parameter, 35 for
+// the path and 0 (read at run time) for any other D, so that the element ->
+// (query, channel) split is a multiply, not a division. The first design
+// (PR 4) stored 4 bytes an element after a runtime division, with one load
+// in flight a thread, and was 1.4-1.5x slower than torch.gather. A copy, so
+// the output is bit-identical to torch.gather. An index outside [0, T)
+// gives a row of NaN (torch.gather would raise; checking would cost the
+// wrapper a host synchronisation).
 //
-// What bounds them. Bytes: K4 reads the indices (8 bytes each) and the
-// table and writes Q * D floats; K5 reads dout and the indices and writes
-// the tables; each does at most one add per dout element. At the path's
-// shapes (64 keypoints, Q = 6912, T = 512, D = 35) about 70 MB each: 21 us
-// at 3.35 TB/s. K5 also re-reads its keypoint's indices once per 64 rows
-// (from L2) and spends a few microseconds on the sort before it sums.
+// K5, deterministic, with no atomics in global memory, in two launches on
+// scratch that the wrapper allocates.
+//   A. Row lists. One 1024-thread block per (bk, 512 table rows) -- one per
+//      keypoint at T <= 512 -- sorts the keypoint's indices into its rows by
+//      a stable counting sort: each of the 32 warps owns a contiguous 32nd
+//      of q and counts its entries per row (shared-memory integer atomics:
+//      exact counts); an exclusive scan over the rows gives each row's start
+//      and each warp its own cursor per row; then each warp walks its part
+//      in ascending chunks of 32, where __match_any_sync gives each lane its
+//      rank among the lanes of the chunk with the same row. It writes
+//      perm [BK, Q] int32 (row t's q ascending in perm[start[t]:start[t+1]];
+//      -1 past start[T], where indices outside [0, T) would go) and
+//      start [BK, T + 1] int32.
+//   B. Row sums. One warp per (bk, row), item i being row i / BK of keypoint
+//      i % BK: the rows nearest each keypoint, which are the longest lists
+//      (level 1 orders a table nearest first), run first and on every SM.
+//      Lane l owns channels l, l + 32 (D <= 64 in one walk of the list) and
+//      walks the row's list in ascending q, starting from 0, with 16 dout
+//      loads issued ahead of their in-order __fadd_rn adds, as
+//      ops/kernels/onehot_gather.py's plain version adds: the same bits,
+//      run after run. An index outside [0, T) adds to no row.
+// The first design (PR 4) ran the sort in each of 8 blocks of 64 rows per
+// keypoint and summed in the block that sorted, so the block holding a
+// keypoint's nearest rows carried most of its work on 256 threads; it was
+// 2.2x slower than torch.scatter_add.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int GATHER_QUERIES = 256;  // K4: queries per block
-constexpr int SCATTER_ROWS = 64;     // K5: table rows per block
-static_assert(SCATTER_ROWS % 32 == 0 && SCATTER_ROWS <= THREADS, "scan layout");
 
-__global__ void __launch_bounds__(THREADS)
+constexpr int GATHER_THREADS = 256;
+constexpr int GATHER_QUERIES = 256;  // K4: queries per block
+
+constexpr int SORT_THREADS = 1024;   // K5 pass A
+constexpr int SORT_WARPS = SORT_THREADS / 32;
+constexpr int SORT_ROWS = 512;       // rows per pass-A block: 64 KB of per-warp counters
+static_assert(SORT_ROWS <= SORT_THREADS, "one scan thread per row");
+
+constexpr int SUM_THREADS = 256;     // K5 pass B: 8 rows a block, a warp each
+constexpr int SUM_AHEAD = 16;        // dout loads in flight ahead of their adds
+static_assert(32 % SUM_AHEAD == 0, "batches tile a 32-entry chunk of a list");
+
+__device__ __forceinline__ float table_value(const float* btab, const int* s_idx, int p, int D) {
+  const int r = p / D;
+  const int t = s_idx[r];
+  return t >= 0 ? __ldg(btab + t * D + (p - r * D)) : CUDART_NAN_F;
+}
+
+// DC > 0: D == DC known at compile time; DC == 0: D as given
+template <int DC>
+__global__ void __launch_bounds__(GATHER_THREADS)
 onehot_gather_kernel(const float* __restrict__ table, const long long* __restrict__ idx,
-                     float* __restrict__ out, int T, int Q, int D) {
+                     float* __restrict__ out, int T, int Q, int d) {
+  const int D = DC > 0 ? DC : d;
   __shared__ int s_idx[GATHER_QUERIES];
   const size_t bk = blockIdx.x;
   const int q0 = blockIdx.y * GATHER_QUERIES;
   const int rows = min(GATHER_QUERIES, Q - q0);
   const long long* bidx = idx + bk * Q + q0;
-  for (int i = threadIdx.x; i < rows; i += THREADS) {
+  for (int i = threadIdx.x; i < rows; i += GATHER_THREADS) {
     const long long t = bidx[i];
     s_idx[i] = (t >= 0 && t < T) ? static_cast<int>(t) : -1;
   }
   __syncthreads();
   const float* btab = table + bk * T * D;
-  float* bout = out + (bk * Q + q0) * D;
+  const size_t s = (bk * Q + q0) * D;  // the span out[s, s + n)
+  float* bout = out + s;
   const int n = rows * D;
-  for (int p = threadIdx.x; p < n; p += THREADS) {
-    const int r = p / D;
-    const int t = s_idx[r];
-    bout[p] = t >= 0 ? __ldg(btab + static_cast<size_t>(t) * D + (p - r * D)) : CUDART_NAN_F;
+  // out is 16-byte aligned (the wrapper allocates it): the span's first
+  // `head` floats lie before a 16-byte boundary
+  const int head = min(n, static_cast<int>((4 - (s & 3)) & 3));
+  const int nv = (n - head) / 4;
+#pragma unroll 2
+  for (int i = threadIdx.x; i < nv; i += GATHER_THREADS) {
+    const int p = head + 4 * i;
+    const float4 v = make_float4(
+        table_value(btab, s_idx, p, D), table_value(btab, s_idx, p + 1, D),
+        table_value(btab, s_idx, p + 2, D), table_value(btab, s_idx, p + 3, D));
+    __stcs(reinterpret_cast<float4*>(bout + p), v);
+  }
+  const int tail = head + 4 * nv;
+  for (int i = threadIdx.x; i < head + (n - tail); i += GATHER_THREADS) {
+    const int p = i < head ? i : tail + (i - head);
+    bout[p] = table_value(btab, s_idx, p, D);
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-onehot_scatter_add_kernel(const float* __restrict__ dout, const long long* __restrict__ idx,
-                          float* __restrict__ dtable, int T, int Q, int D) {
-  extern __shared__ int s_list[];               // [Q]: q grouped by row, ascending
-  __shared__ int s_cur[WARPS][SCATTER_ROWS];    // counts, then each warp's cursors
-  __shared__ int s_start[SCATTER_ROWS + 1];
-  __shared__ int s_wsum[SCATTER_ROWS / 32];
+__global__ void __launch_bounds__(SORT_THREADS)
+onehot_row_lists_kernel(const long long* __restrict__ idx, int* __restrict__ perm,
+                        int* __restrict__ start, int T, int Q) {
+  extern __shared__ int s_cur[];  // [SORT_WARPS][nrows]: counts, then each warp's cursors
+  __shared__ int s_wsum[SORT_WARPS];
+  __shared__ int s_below;         // entries of rows before this block's
+  __shared__ int s_end;           // entries of rows up to this block's last
 
   const size_t bk = blockIdx.x;
-  const int t0 = blockIdx.y * SCATTER_ROWS;
-  const int nrows = min(SCATTER_ROWS, T - t0);
+  const int t0 = blockIdx.y * SORT_ROWS;
+  const int nrows = min(SORT_ROWS, T - t0);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long* bidx = idx + bk * Q;
-  const int seg = (Q + WARPS - 1) / WARPS;
+  int* bperm = perm + bk * Q;
+  int* my = s_cur + warp * nrows;
+  const int seg = ((Q + SORT_WARPS - 1) / SORT_WARPS + 31) & ~31;
   const int q_lo = min(Q, warp * seg);
   const int q_hi = min(Q, q_lo + seg);
 
-  for (int i = threadIdx.x; i < WARPS * SCATTER_ROWS; i += THREADS) {
-    (&s_cur[0][0])[i] = 0;
-  }
+  for (int i = threadIdx.x; i < SORT_WARPS * nrows; i += SORT_THREADS) s_cur[i] = 0;
+  if (threadIdx.x == 0) s_below = 0;
   __syncthreads();
 
-  // 1. each warp counts its eighth's entries per row of this block
+  // 1. each warp counts its part's entries per row of this block
+  int below = 0;
   for (int q = q_lo + lane; q < q_hi; q += 32) {
     const long long t = bidx[q];
-    if (t >= t0 && t < t0 + nrows) atomicAdd(&s_cur[warp][t - t0], 1);
+    if (t >= t0 && t < t0 + nrows) {
+      atomicAdd(my + (t - t0), 1);
+    } else if (t >= 0 && t < t0) {
+      ++below;
+    }
   }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) below += __shfl_xor_sync(FULL, below, off);
+  if (lane == 0 && below > 0) atomicAdd(&s_below, below);
   __syncthreads();
 
   // 2. exclusive scan of the row totals; warp w's cursor for a row starts
   // after the entries of warps < w in that row
   const int r = threadIdx.x;
   int total = 0;
-  if (r < SCATTER_ROWS) {
-    for (int w = 0; w < WARPS; ++w) total += s_cur[w][r];
+  if (r < nrows) {
+    for (int w = 0; w < SORT_WARPS; ++w) total += s_cur[w * nrows + r];
   }
   int incl = total;
 #pragma unroll
@@ -123,91 +175,154 @@ onehot_scatter_add_kernel(const float* __restrict__ dout, const long long* __res
     const int v = __shfl_up_sync(FULL, incl, off);
     if (lane >= off) incl += v;
   }
-  if (r < SCATTER_ROWS && lane == 31) s_wsum[warp] = incl;
+  if (lane == 31) s_wsum[warp] = incl;
   __syncthreads();
-  if (r < SCATTER_ROWS) {
-    int before = 0;
-    for (int w = 0; w < warp; ++w) before += s_wsum[w];
-    int run = before + incl - total;
-    s_start[r] = run;
-    if (r == SCATTER_ROWS - 1) s_start[SCATTER_ROWS] = before + incl;
-    for (int w = 0; w < WARPS; ++w) {
-      const int c = s_cur[w][r];
-      s_cur[w][r] = run;
+  if (r < nrows) {
+    int run = s_below + incl - total;
+    for (int w = 0; w < warp; ++w) run += s_wsum[w];
+    start[bk * (T + 1) + t0 + r] = run;
+    for (int w = 0; w < SORT_WARPS; ++w) {
+      const int c = s_cur[w * nrows + r];
+      s_cur[w * nrows + r] = run;
       run += c;
+    }
+    if (r == nrows - 1) {
+      s_end = run;
+      if (t0 + nrows == T) start[bk * (T + 1) + T] = run;
     }
   }
   __syncthreads();
 
   // 3. stable placement: chunks of 32 in ascending q, ranks among equal rows
+  long long t_next = q_lo + lane < q_hi ? bidx[q_lo + lane] : -1;
   for (int base = q_lo; base < q_hi; base += 32) {
     const int q = base + lane;
-    const long long t = q < q_hi ? bidx[q] : -1;
+    const long long t = t_next;
+    t_next = q + 32 < q_hi ? bidx[q + 32] : -1;
     const bool mine = t >= t0 && t < t0 + nrows;
     const int key = mine ? static_cast<int>(t - t0) : -1;
     const unsigned group = __match_any_sync(FULL, key);
     const int leader = __ffs(group) - 1;
     int pos = 0;
     if (mine && lane == leader) {
-      pos = s_cur[warp][key];
-      s_cur[warp][key] = pos + __popc(group);
+      pos = my[key];
+      my[key] = pos + __popc(group);
     }
     pos = __shfl_sync(FULL, pos, leader);
-    if (mine) s_list[pos + __popc(group & ((1u << lane) - 1u))] = q;
+    if (mine) bperm[pos + __popc(group & ((1u << lane) - 1u))] = q;
   }
-  __syncthreads();
 
-  // 4. each (row, channel) output sums its row's list in ascending q; the
-  // loads of four terms are issued before they are added, in order
+  // 4. the last row group marks the unused end of perm
+  if (t0 + nrows == T) {
+    for (int p = s_end + threadIdx.x; p < Q; p += SORT_THREADS) bperm[p] = -1;
+  }
+}
+
+// lane l sums channels c0 + l + 32 s, s < SLOTS, in each walk of the list
+template <int SLOTS>
+__global__ void __launch_bounds__(SUM_THREADS)
+onehot_row_sums_kernel(const float* __restrict__ dout, const int* __restrict__ perm,
+                       const int* __restrict__ start, float* __restrict__ dtable, int BK,
+                       int T, int Q, int D) {
+  const int lane = threadIdx.x & 31;
+  const long long item = static_cast<long long>(blockIdx.x) * (SUM_THREADS / 32)
+                         + (threadIdx.x >> 5);
+  if (item >= static_cast<long long>(BK) * T) return;  // the whole warp
+  const int row = static_cast<int>(item / BK);
+  const size_t bk = static_cast<size_t>(item - static_cast<long long>(row) * BK);
+  const int e0 = start[bk * (T + 1) + row];
+  const int e1 = start[bk * (T + 1) + row + 1];
+  const int* bperm = perm + bk * Q;
   const float* bd = dout + bk * Q * D;
-  float* bt = dtable + (bk * T + t0) * D;
-  const int n = nrows * D;
-  for (int p = threadIdx.x; p < n; p += THREADS) {
-    const int row = p / D;
-    const int d = p - row * D;
-    const int e = s_start[row + 1];
-    int j = s_start[row];
-    float acc = 0.f;
-    for (; j + 4 <= e; j += 4) {
-      const float a = __ldg(bd + static_cast<size_t>(s_list[j]) * D + d);
-      const float b = __ldg(bd + static_cast<size_t>(s_list[j + 1]) * D + d);
-      const float c = __ldg(bd + static_cast<size_t>(s_list[j + 2]) * D + d);
-      const float f = __ldg(bd + static_cast<size_t>(s_list[j + 3]) * D + d);
-      acc = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(acc, a), b), c), f);
+  float* bt = dtable + (bk * T + row) * D;
+
+  for (int c0 = 0; c0 < D; c0 += 32 * SLOTS) {
+    float acc[SLOTS];
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s) acc[s] = 0.f;
+    int next = e0 + lane < e1 ? __ldg(bperm + e0 + lane) : 0;
+    for (int j0 = e0; j0 < e1; j0 += 32) {
+      const int mine = next;  // entry j0 + lane of the list
+      next = j0 + 32 + lane < e1 ? __ldg(bperm + j0 + 32 + lane) : 0;
+      const int n = min(32, e1 - j0);
+      for (int u0 = 0; u0 < n; u0 += SUM_AHEAD) {
+        float v[SUM_AHEAD][SLOTS];
+#pragma unroll
+        for (int u = 0; u < SUM_AHEAD; ++u) {
+          const size_t q = static_cast<size_t>(__shfl_sync(FULL, mine, u0 + u));
+#pragma unroll
+          for (int s = 0; s < SLOTS; ++s) {
+            const int c = c0 + 32 * s + lane;
+            v[u][s] = (u0 + u < n && c < D) ? __ldg(bd + q * D + c) : 0.f;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < SUM_AHEAD; ++u) {
+          if (u0 + u < n) {
+#pragma unroll
+            for (int s = 0; s < SLOTS; ++s) acc[s] = __fadd_rn(acc[s], v[u][s]);
+          }
+        }
+      }
     }
-    for (; j < e; ++j) acc = __fadd_rn(acc, __ldg(bd + static_cast<size_t>(s_list[j]) * D + d));
-    bt[p] = acc;
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s) {
+      const int c = c0 + 32 * s + lane;
+      if (c < D) bt[c] = acc[s];
+    }
   }
 }
 
 }  // namespace
 
 // Plain C entry points for ctypes. table/dtable [BK, T, D], idx [BK, Q]
-// int64, out/dout [BK, Q, D], all contiguous on the current device, float32
-// unless said otherwise; BK, T, Q, D >= 1, Q <= 65535 * 256 (K4) and
-// Q * 4 bytes within a block's shared memory (K5). Each returns the
-// cudaError_t of its launch (0 on success).
+// int64, out/dout [BK, Q, D], perm [BK, Q] int32, start [BK, T + 1] int32,
+// all contiguous on the current device, float32 unless said otherwise,
+// out 16-byte aligned; BK, T, Q, D >= 1, Q <= 65535 * 256. Each returns
+// the cudaError_t of its launch (0 on success).
 extern "C" int onehot_gather_f32(const float* table, const long long* idx, float* out, int BK,
                                  int T, int Q, int D, void* stream) {
   if (BK <= 0 || T <= 0 || Q <= 0 || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(BK, (Q + GATHER_QUERIES - 1) / GATHER_QUERIES);
-  onehot_gather_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      table, idx, out, T, Q, D);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 35) {
+    onehot_gather_kernel<35><<<grid, GATHER_THREADS, 0, s>>>(table, idx, out, T, Q, D);
+  } else {
+    onehot_gather_kernel<0><<<grid, GATHER_THREADS, 0, s>>>(table, idx, out, T, Q, D);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int onehot_scatter_add_f32(const float* dout, const long long* idx, float* dtable,
-                                      int BK, int T, int Q, int D, void* stream) {
-  if (BK <= 0 || T <= 0 || Q <= 0 || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(Q) * sizeof(int);
+// K5 pass A: perm and start from idx
+extern "C" int onehot_row_lists(const long long* idx, int* perm, int* start, int BK, int T,
+                                int Q, void* stream) {
+  if (BK <= 0 || T <= 0 || Q <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = SORT_WARPS * (T < SORT_ROWS ? T : SORT_ROWS) * static_cast<int>(sizeof(int));
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        onehot_scatter_add_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        onehot_row_lists_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid(BK, (T + SCATTER_ROWS - 1) / SCATTER_ROWS);
-  onehot_scatter_add_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      dout, idx, dtable, T, Q, D);
+  const dim3 grid(BK, (T + SORT_ROWS - 1) / SORT_ROWS);
+  onehot_row_lists_kernel<<<grid, SORT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      idx, perm, start, T, Q);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5 pass B: dtable from dout, perm and start
+extern "C" int onehot_row_sums_f32(const float* dout, const int* perm, const int* start,
+                                   float* dtable, int BK, int T, int Q, int D, void* stream) {
+  if (BK <= 0 || T <= 0 || Q <= 0 || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long items = static_cast<long long>(BK) * T;
+  const long long blocks = (items + SUM_THREADS / 32 - 1) / (SUM_THREADS / 32);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D <= 32) {
+    onehot_row_sums_kernel<1><<<static_cast<unsigned>(blocks), SUM_THREADS, 0, s>>>(
+        dout, perm, start, dtable, BK, T, Q, D);
+  } else {
+    onehot_row_sums_kernel<2><<<static_cast<unsigned>(blocks), SUM_THREADS, 0, s>>>(
+        dout, perm, start, dtable, BK, T, Q, D);
+  }
   return static_cast<int>(cudaGetLastError());
 }

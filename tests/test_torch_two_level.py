@@ -105,6 +105,30 @@ def test_scatter_add_reference_sums_in_ascending_q():
         np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("case", ["outside", "8 rows", "ragged T"])
+def test_row_lists_reference_matches_numpy_stable_sort(case):
+    """K5's pass A, plain version: each row's queries in ascending q, as
+    numpy's stable argsort of the valid indices; start from bincount and
+    cumsum; the entries left over by indices outside [0, T) are -1."""
+    rng = np.random.default_rng(4)
+    B, K, Q, T = 2, 3, 700, {"outside": 40, "8 rows": 40, "ragged T": 137}[case]
+    idx = {"outside": rng.integers(-3, T + 3, (B, K, Q)),
+           "8 rows": rng.integers(0, 8, (B, K, Q)),
+           "ragged T": rng.integers(0, T, (B, K, Q))}[case]
+    perm, start = og.onehot_row_lists_reference(torch.from_numpy(idx), T)
+    assert perm.dtype == start.dtype == torch.int32
+    assert perm.shape == (B, K, Q) and start.shape == (B, K, T + 1)
+    for b in range(B):
+        for k in range(K):
+            ix = idx[b, k]
+            ok = (ix >= 0) & (ix < T)
+            order = np.flatnonzero(ok)[np.argsort(ix[ok], kind="stable")]
+            want_start = np.concatenate([[0], np.cumsum(np.bincount(ix[ok], minlength=T))])
+            np.testing.assert_array_equal(start[b, k].numpy(), want_start)
+            np.testing.assert_array_equal(perm[b, k, :ok.sum()].numpy(), order)
+            assert (perm[b, k, ok.sum():] == -1).all()
+
+
 def test_gather_vjp_gradient_matches_jax():
     """The autograd.Function's gradient of sum(sin(gather)) against JAX's
     through onehot_gather_vjp (test_two_level.py's case): within
@@ -405,16 +429,37 @@ def cuda():
     return torch.device("cuda")
 
 
+def _topk_idx(B, K, T, C, k, device, gen):
+    """Indices as the two-level path makes them: each of C candidates' k
+    nearest of T table rows, the rows ordered nearest the keypoint first (so
+    the first rows are the fullest) and distinct within a candidate's k."""
+    xyz = torch.randn(B, K, T, 3, device=device, generator=gen)
+    xyz = torch.gather(xyz, 2, xyz.norm(dim=-1).argsort(-1)[..., None].expand(-1, -1, -1, 3))
+    cand = torch.rand(B, K, C, 3, device=device, generator=gen) - 0.5
+    d2 = ((cand[:, :, :, None] - xyz[:, :, None]) ** 2).sum(-1)
+    return torch.topk(d2, k, dim=-1, largest=False).indices.reshape(B, K, C * k)
+
+
 def _card_cases(device):
-    """The path's shapes (64 keypoints, T=512, Q=216*32, D=35), every query
-    into 8 rows, and a Q that is not a multiple of K4's 256-query block."""
+    """The path's shapes (64 keypoints, T=512, Q=216*32, D=35) with uniform
+    indices and with a real top-32's; every query into 8 rows, and into one
+    row (the longest add chain); D = 7, 5 and 1 (K4's generic D); a T above
+    K5's 512-row sort block and not a multiple of 64; a Q that is not a
+    multiple of K4's 256-query block."""
     gen = torch.Generator(device=device).manual_seed(0)
     cases = []
     for name, (B, K, T, Q, D), hi in (("path", (1, 64, 512, 6912, 35), 512),
+                                      ("top-32", (1, 64, 512, 6912, 35), None),
                                       ("8 rows", (1, 64, 512, 6912, 35), 8),
+                                      ("one row", (1, 64, 512, 6912, 35), 1),
+                                      ("D=7", (1, 8, 512, 6912, 7), 512),
+                                      ("D=5", (1, 8, 512, 6912, 5), 512),
+                                      ("D=1", (1, 8, 512, 6912, 1), 512),
+                                      ("ragged T", (1, 4, 600, 2000, 35), 600),
                                       ("ragged Q", (2, 3, 136, 1000, 7), 136)):
         table = torch.randn(B, K, T, D, device=device, generator=gen)
-        idx = torch.randint(0, hi, (B, K, Q), device=device, generator=gen)
+        idx = (_topk_idx(B, K, T, Q // 32, 32, device, gen) if hi is None
+               else torch.randint(0, hi, (B, K, Q), device=device, generator=gen))
         cases.append((name, table, idx))
     return cases
 
@@ -450,6 +495,22 @@ def test_scatter_add_kernel_matches_reference_on_card(cuda):
             assert og.onehot_scatter_add.launches == before + 2
             assert torch.equal(got, again), name
             assert torch.equal(got, og.onehot_scatter_add_reference(g, idx, T)), name
+
+
+@pytest.mark.gpu
+def test_row_lists_kernel_matches_reference_on_card(cuda):
+    """K5's pass A: each row's queries in ascending q, equal to the plain
+    version, with indices outside [0, T) and across several sort blocks."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    cases = [(name, idx, table.shape[2]) for name, table, idx in _card_cases(cuda)]
+    cases.append(("outside", torch.randint(-3, 603, (2, 3, 700), device=cuda, generator=gen),
+                  600))
+    for name, idx, T in cases:
+        perm, start = og.row_lists(idx, T)
+        want_perm, want_start = og.onehot_row_lists_reference(idx, T)
+        torch.cuda.synchronize()
+        assert torch.equal(start, want_start), name
+        assert torch.equal(perm, want_perm), name
 
 
 @pytest.mark.gpu
