@@ -55,13 +55,11 @@ any rotation, `initializer.so3_global_init` then
                  plain versions at the two-level path's table and indices
                  (kitti25, pair 0), with every query into 8 rows and into
                  one row, at D = 5, at T = 600 and at a Q that is not a
-                 multiple of K4's block: K4 identical to torch.gather; K5's
-                 row lists identical to their plain version; K5 0.0 with
-                 integer and with Gaussian cotangents, equal to itself run
-                 twice; the path's per-64-row-group load; median times of
-                 the kernels (K5's two passes apart), the plain versions
-                 and torch.gather / torch.scatter_add, warm and with L2
-                 flushed
+                 multiple of K4's block: K4 identical to torch.gather; K5
+                 0.0 with integer and with Gaussian cotangents, equal to
+                 itself run twice; the path's per-64-row-group load; median
+                 times of the kernels, the plain versions and torch.gather /
+                 torch.scatter_add, warm and with L2 flushed
  17. two-level   campaign_r5b W3: kitti25 with tgt_knn="two_level", T=512, on
                  phase 4's 16 pairs: mean RRE <= 1.0 deg and RTE <= 0.05 m, 2 K4
                  and 6 K1 launches per call; flat kitti25 and T=1024 on the
@@ -941,12 +939,11 @@ def onehot_phase(torch, dev, reg, pair) -> tuple:
     calls (torch.gather, torch.scatter_add): at the path's table and
     indices (the two-level registrar's first refinement of `pair`, identity
     warm start), with every query into 8 rows, with every query into one
-    row (the longest add chain), at D = 5 (K4's generic D), at a T above
-    K5's 512-row sort block that is not a multiple of 64, and at a Q that
-    is not a multiple of K4's 256-query block; K5's pass A against its plain
-    version in each. The path's per-64-row-group load. Median CUDA-event
-    times at the path's case, warm and with L2 flushed, K5's passes apart.
-    Returns K4's and K5's numbers there."""
+    row (the longest add chain), at D = 5 (K4's generic D), at a T that is
+    not a multiple of 64, and at a Q that is not a multiple of K4's
+    256-query block or K5's 512-query tile. The path's per-64-row-group
+    load. Median CUDA-event times at the path's case, warm and with L2
+    flushed. Returns K4's and K5's numbers there."""
     from deepvcp_tpu_torch.ops.kernels import onehot_gather as og
 
     table, idx = path_onehot_inputs(torch, dev, reg, pair)
@@ -972,9 +969,6 @@ def onehot_phase(torch, dev, reg, pair) -> tuple:
         if not (torch.equal(got, want) and torch.equal(got, torch.gather(tb, 2, expand))):
             fail(f"K4 differs from torch.gather at {name}")
         k4_err = max(k4_err, (got - want).abs().max().item())
-        lists, want_lists = og.row_lists(ix, Tc), og.onehot_row_lists_reference(ix, Tc)
-        if not all(torch.equal(a, b) for a, b in zip(lists, want_lists)):
-            fail(f"K5's pass A (row lists) differs from its plain version at {name}")
         shape = (*ix.shape, Dc)
         g_int = torch.randint(-8, 9, shape, device=dev, generator=gen).float()
         g = torch.randn(shape, device=dev, generator=gen)
@@ -987,9 +981,8 @@ def onehot_phase(torch, dev, reg, pair) -> tuple:
         fullest = int(torch.zeros(ix.shape[:2] + (Tc,), dtype=torch.int64, device=dev)
                       .scatter_add_(2, ix, torch.ones_like(ix)).max())
         print(f"K4/K5 at {name} (fullest row {fullest} queries): K4 identical to torch.gather; "
-              f"K5's row lists identical to the plain ones; K5 vs plain max_abs_err {err_int} "
-              f"(integer g), {err} (Gaussian g), vs scatter_add {err_lib:.3e}, run twice "
-              f"identical: {again}")
+              f"K5 vs plain max_abs_err {err_int} (integer g), {err} (Gaussian g), vs "
+              f"scatter_add {err_lib:.3e}, run twice identical: {again}")
         if err_int != 0.0 or err != 0.0 or not again:
             fail(f"K5 disagrees with its plain version or with itself at {name}")
         k5_err = max(k5_err, err)
@@ -1018,9 +1011,6 @@ def onehot_phase(torch, dev, reg, pair) -> tuple:
         "library_ms": lambda: torch.scatter_add(zeros, 2, expand, dout)}, reps=50)}
     k5["plain_ms"] = cuda_median_ms(
         torch, lambda: og.onehot_scatter_add_reference(dout, idx, T), reps=5)
-    lists = og.row_lists(idx, T)
-    passes = turns_median_ms(torch, {"A": lambda: og.row_lists(idx, T),
-                                     "B": lambda: og.row_sums(dout, *lists)}, reps=50)
     flush = torch.empty(64 * 2**20 // 4, device=dev)
     cold = {name: flushed_median_ms(torch, fn, 50, flush) for name, fn in (
         ("K4", lambda: og.onehot_gather(table, idx)),
@@ -1042,8 +1032,6 @@ def onehot_phase(torch, dev, reg, pair) -> tuple:
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['bound_ms'] / r['ms']:.3f} of it "
               f"reached; with L2 flushed before each launch: kernel {cold[name[:2]]:.4f} ms, "
               f"library {cold[lib]:.4f} ms, kernel / library {cold[name[:2]] / cold[lib]:.3f}")
-    print(f"K5's two passes at the path's shapes (median, CUDA events, in 4 turns of 50): "
-          f"A (row lists) {passes['A']:.4f} ms, B (row sums) {passes['B']:.4f} ms")
     return k4, k5
 
 

@@ -33,31 +33,30 @@
 // gives a row of NaN (torch.gather would raise; checking would cost the
 // wrapper a host synchronisation).
 //
-// K5, deterministic, with no atomics in global memory, in two launches on
-// scratch that the wrapper allocates.
-//   A. Row lists. One 1024-thread block per (bk, 512 table rows) -- one per
-//      keypoint at T <= 512 -- sorts the keypoint's indices into its rows by
-//      a stable counting sort: each of the 32 warps owns a contiguous 32nd
-//      of q and counts its entries per row (shared-memory integer atomics:
-//      exact counts); an exclusive scan over the rows gives each row's start
-//      and each warp its own cursor per row; then each warp walks its part
-//      in ascending chunks of 32, where __match_any_sync gives each lane its
-//      rank among the lanes of the chunk with the same row. It writes
-//      perm [BK, Q] int32 (row t's q ascending in perm[start[t]:start[t+1]];
-//      -1 past start[T], where indices outside [0, T) would go) and
-//      start [BK, T + 1] int32.
-//   B. Row sums. One warp per (bk, row), item i being row i / BK of keypoint
-//      i % BK: the rows nearest each keypoint, which are the longest lists
-//      (level 1 orders a table nearest first), run first and on every SM.
-//      Lane l owns channels l, l + 32 (D <= 64 in one walk of the list) and
-//      walks the row's list in ascending q, starting from 0, with 16 dout
-//      loads issued ahead of their in-order __fadd_rn adds, as
-//      ops/kernels/onehot_gather.py's plain version adds: the same bits,
-//      run after run. An index outside [0, T) adds to no row.
-// The first design (PR 4) ran the sort in each of 8 blocks of 64 rows per
-// keypoint and summed in the block that sorted, so the block holding a
-// keypoint's nearest rows carried most of its work on 256 threads; it was
-// 2.2x slower than torch.scatter_add.
+// K5, deterministic, with no atomics in global memory, one launch. Each
+// block owns one keypoint's table rows (all of them where they fit in
+// shared memory, as at the path's T = 512) for a group of DC channels, and
+// keeps their sums in shared memory, one warp per channel. It streams the
+// keypoint's dout columns and indices in ascending q through a ring of two
+// 512-query tiles in shared memory, filled by cp.async so that one tile's
+// copies are in flight while the warps add the other: lane l of a
+// channel's warp adds query 32 j + l of chunk j to its row's sum. The rows
+// of a chunk are one candidate's 32 neighbours, distinct on the path;
+// where a chunk repeats a row, __match_any_sync ranks those lanes and they
+// add one after another in lane order. So every (row, channel) sums its
+// queries in ascending q, starting from 0, with __fadd_rn, as
+// ops/kernels/onehot_gather.py's plain version adds: the same bits, run
+// after run. An index outside [0, T) adds to no row. dout is read once, in
+// order. The channel groups are the fewest that give every SM a block (3
+// groups of 12 at the path's 64 keypoints x 35: 192 blocks of 92 KB, two
+// an SM, one wave); a deeper ring fits one block an SM and takes two
+// waves, which was slower. The first design (PR 4) sorted the keypoint's
+// indices in each of 8 blocks of 64 rows, then summed each row's dout
+// entries in random order, and the block holding the keypoint's nearest
+// rows (72% of its queries: level 1 orders a table nearest first) carried
+// most of the work; it was 2.2x slower than torch.scatter_add. Sorting
+// once into row lists and summing a row per warp still read dout in random
+// 140-byte pieces, and that sum alone was slower than torch.scatter_add.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -69,14 +68,12 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int GATHER_THREADS = 256;
 constexpr int GATHER_QUERIES = 256;  // K4: queries per block
 
-constexpr int SORT_THREADS = 1024;   // K5 pass A
-constexpr int SORT_WARPS = SORT_THREADS / 32;
-constexpr int SORT_ROWS = 512;       // rows per pass-A block: 64 KB of per-warp counters
-static_assert(SORT_ROWS <= SORT_THREADS, "one scan thread per row");
-
-constexpr int SUM_THREADS = 256;     // K5 pass B: 8 rows a block, a warp each
-constexpr int SUM_AHEAD = 16;        // dout loads in flight ahead of their adds
-static_assert(32 % SUM_AHEAD == 0, "batches tile a 32-entry chunk of a list");
+constexpr int SCATTER_TILE = 512;    // K5: queries a block stages per step
+constexpr int SCATTER_STAGES = 2;    // tiles in the ring: one in flight while one is added
+constexpr int SCATTER_CHUNKS = SCATTER_TILE / 32;
+constexpr int SCATTER_LOADS = SCATTER_TILE / 32;  // dout values a thread copies per tile
+constexpr int SCATTER_SMEM = 200 * 1024;          // of the 227 KB a block may use
+constexpr int SCATTER_CHANNELS = 16;              // at most, a warp each
 
 __device__ __forceinline__ float table_value(const float* btab, const int* s_idx, int p, int D) {
   const int r = p / D;
@@ -123,163 +120,139 @@ onehot_gather_kernel(const float* __restrict__ table, const long long* __restric
   }
 }
 
-__global__ void __launch_bounds__(SORT_THREADS)
-onehot_row_lists_kernel(const long long* __restrict__ idx, int* __restrict__ perm,
-                        int* __restrict__ start, int T, int Q) {
-  extern __shared__ int s_cur[];  // [SORT_WARPS][nrows]: counts, then each warp's cursors
-  __shared__ int s_wsum[SORT_WARPS];
-  __shared__ int s_below;         // entries of rows before this block's
-  __shared__ int s_end;           // entries of rows up to this block's last
-
-  const size_t bk = blockIdx.x;
-  const int t0 = blockIdx.y * SORT_ROWS;
-  const int nrows = min(SORT_ROWS, T - t0);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long* bidx = idx + bk * Q;
-  int* bperm = perm + bk * Q;
-  int* my = s_cur + warp * nrows;
-  const int seg = ((Q + SORT_WARPS - 1) / SORT_WARPS + 31) & ~31;
-  const int q_lo = min(Q, warp * seg);
-  const int q_hi = min(Q, q_lo + seg);
-
-  for (int i = threadIdx.x; i < SORT_WARPS * nrows; i += SORT_THREADS) s_cur[i] = 0;
-  if (threadIdx.x == 0) s_below = 0;
-  __syncthreads();
-
-  // 1. each warp counts its part's entries per row of this block
-  int below = 0;
-  for (int q = q_lo + lane; q < q_hi; q += 32) {
-    const long long t = bidx[q];
-    if (t >= t0 && t < t0 + nrows) {
-      atomicAdd(my + (t - t0), 1);
-    } else if (t >= 0 && t < t0) {
-      ++below;
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) below += __shfl_xor_sync(FULL, below, off);
-  if (lane == 0 && below > 0) atomicAdd(&s_below, below);
-  __syncthreads();
-
-  // 2. exclusive scan of the row totals; warp w's cursor for a row starts
-  // after the entries of warps < w in that row
-  const int r = threadIdx.x;
-  int total = 0;
-  if (r < nrows) {
-    for (int w = 0; w < SORT_WARPS; ++w) total += s_cur[w * nrows + r];
-  }
-  int incl = total;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int v = __shfl_up_sync(FULL, incl, off);
-    if (lane >= off) incl += v;
-  }
-  if (lane == 31) s_wsum[warp] = incl;
-  __syncthreads();
-  if (r < nrows) {
-    int run = s_below + incl - total;
-    for (int w = 0; w < warp; ++w) run += s_wsum[w];
-    start[bk * (T + 1) + t0 + r] = run;
-    for (int w = 0; w < SORT_WARPS; ++w) {
-      const int c = s_cur[w * nrows + r];
-      s_cur[w * nrows + r] = run;
-      run += c;
-    }
-    if (r == nrows - 1) {
-      s_end = run;
-      if (t0 + nrows == T) start[bk * (T + 1) + T] = run;
-    }
-  }
-  __syncthreads();
-
-  // 3. stable placement: chunks of 32 in ascending q, ranks among equal rows
-  long long t_next = q_lo + lane < q_hi ? bidx[q_lo + lane] : -1;
-  for (int base = q_lo; base < q_hi; base += 32) {
-    const int q = base + lane;
-    const long long t = t_next;
-    t_next = q + 32 < q_hi ? bidx[q + 32] : -1;
-    const bool mine = t >= t0 && t < t0 + nrows;
-    const int key = mine ? static_cast<int>(t - t0) : -1;
-    const unsigned group = __match_any_sync(FULL, key);
-    const int leader = __ffs(group) - 1;
-    int pos = 0;
-    if (mine && lane == leader) {
-      pos = my[key];
-      my[key] = pos + __popc(group);
-    }
-    pos = __shfl_sync(FULL, pos, leader);
-    if (mine) bperm[pos + __popc(group & ((1u << lane) - 1u))] = q;
-  }
-
-  // 4. the last row group marks the unused end of perm
-  if (t0 + nrows == T) {
-    for (int p = s_end + threadIdx.x; p < Q; p += SORT_THREADS) bperm[p] = -1;
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
   }
 }
 
-// lane l sums channels c0 + l + 32 s, s < SLOTS, in each walk of the list
-template <int SLOTS>
-__global__ void __launch_bounds__(SUM_THREADS)
-onehot_row_sums_kernel(const float* __restrict__ dout, const int* __restrict__ perm,
-                       const int* __restrict__ start, float* __restrict__ dtable, int BK,
-                       int T, int Q, int D) {
-  const int lane = threadIdx.x & 31;
-  const long long item = static_cast<long long>(blockIdx.x) * (SUM_THREADS / 32)
-                         + (threadIdx.x >> 5);
-  if (item >= static_cast<long long>(BK) * T) return;  // the whole warp
-  const int row = static_cast<int>(item / BK);
-  const size_t bk = static_cast<size_t>(item - static_cast<long long>(row) * BK);
-  const int e0 = start[bk * (T + 1) + row];
-  const int e1 = start[bk * (T + 1) + row + 1];
-  const int* bperm = perm + bk * Q;
-  const float* bd = dout + bk * Q * D;
-  float* bt = dtable + (bk * T + row) * D;
+// Copy tile `tile` of the block's dout columns and of the indices into
+// ring stage tile % SCATTER_STAGES, asynchronously: element (query ql +
+// 32 k, channel ct) for each k, and indices threadIdx.x + k * nthreads.
+__device__ __forceinline__ void stage_tile(int tile, float* s_tile, long long* s_idx,
+                                           const float* bd, const long long* bidx, int Q,
+                                           int D, int DCP, int dc, int nthreads, int ql,
+                                           int ct) {
+  const int stage = tile % SCATTER_STAGES;
+  const int q0 = tile * SCATTER_TILE;
+  float* st = s_tile + stage * SCATTER_TILE * DCP;
+  if (ct < dc) {
+#pragma unroll
+    for (int k = 0; k < SCATTER_LOADS; ++k) {
+      const int q = q0 + ql + 32 * k;
+      if (q < Q) cp_async(st + (ql + 32 * k) * DCP + ct, bd + static_cast<size_t>(q) * D + ct, 4);
+    }
+  }
+  for (int e = threadIdx.x; e < SCATTER_TILE && q0 + e < Q; e += nthreads) {
+    cp_async(s_idx + stage * SCATTER_TILE + e, bidx + q0 + e, 8);
+  }
+}
 
-  for (int c0 = 0; c0 < D; c0 += 32 * SLOTS) {
-    float acc[SLOTS];
-#pragma unroll
-    for (int s = 0; s < SLOTS; ++s) acc[s] = 0.f;
-    int next = e0 + lane < e1 ? __ldg(bperm + e0 + lane) : 0;
-    for (int j0 = e0; j0 < e1; j0 += 32) {
-      const int mine = next;  // entry j0 + lane of the list
-      next = j0 + 32 + lane < e1 ? __ldg(bperm + j0 + 32 + lane) : 0;
-      const int n = min(32, e1 - j0);
-      for (int u0 = 0; u0 < n; u0 += SUM_AHEAD) {
-        float v[SUM_AHEAD][SLOTS];
-#pragma unroll
-        for (int u = 0; u < SUM_AHEAD; ++u) {
-          const size_t q = static_cast<size_t>(__shfl_sync(FULL, mine, u0 + u));
-#pragma unroll
-          for (int s = 0; s < SLOTS; ++s) {
-            const int c = c0 + 32 * s + lane;
-            v[u][s] = (u0 + u < n && c < D) ? __ldg(bd + q * D + c) : 0.f;
+// grid (BK, channel groups, row groups), 32 * DC threads: warp w sums
+// channel c0 + w of rows [t0, t0 + TR) in shared memory
+__global__ void __launch_bounds__(32 * SCATTER_CHANNELS)
+onehot_scatter_add_kernel(const float* __restrict__ dout, const long long* __restrict__ idx,
+                          float* __restrict__ dtable, int T, int Q, int D, int DC, int TR) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int DCP = DC | 1;  // an odd row stride: a warp's column reads hit 32 banks
+  const int nthreads = 32 * DC;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const size_t bk = blockIdx.x;
+  const int c0 = blockIdx.y * DC;
+  const int dc = min(DC, D - c0);
+  const int t0 = blockIdx.z * TR;
+  const int tr = min(TR, T - t0);
+  long long* s_idx = reinterpret_cast<long long*>(smem);     // [STAGES][TILE] indices
+  float* s_tile = reinterpret_cast<float*>(s_idx + SCATTER_STAGES * SCATTER_TILE);
+  float* s_acc = s_tile + SCATTER_STAGES * SCATTER_TILE * DCP;  // [TR][DCP] row sums
+  int* s_row = reinterpret_cast<int*>(s_acc + TR * DCP);  // [TILE] row - t0, or -1
+  int* s_rank = s_row + SCATTER_TILE;     // [TILE] rank among the chunk's lanes of that row
+  int* s_rounds = s_rank + SCATTER_TILE;  // [CHUNKS] 1 + the chunk's largest rank
+  const float* bd = dout + bk * Q * D + c0;
+  const long long* bidx = idx + bk * Q;
+  // this thread copies query ql + 32 k, channel ct of each tile
+  const int ql = threadIdx.x / DC;
+  const int ct = threadIdx.x - ql * DC;
+
+  for (int i = threadIdx.x; i < tr * DCP; i += nthreads) s_acc[i] = 0.f;
+
+  // a ring of SCATTER_STAGES tiles: STAGES - 1 in flight while one is added
+  const int ntiles = (Q + SCATTER_TILE - 1) / SCATTER_TILE;
+  for (int tile = 0; tile < SCATTER_STAGES - 1; ++tile) {
+    if (tile < ntiles) stage_tile(tile, s_tile, s_idx, bd, bidx, Q, D, DCP, dc, nthreads, ql, ct);
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  for (int tile = 0; tile < ntiles; ++tile) {
+    __syncthreads();  // the last tile's adds are done: its stage and s_row are free
+    const int ahead = tile + SCATTER_STAGES - 1;
+    if (ahead < ntiles) stage_tile(ahead, s_tile, s_idx, bd, bidx, Q, D, DCP, dc, nthreads, ql, ct);
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(SCATTER_STAGES - 1));
+    __syncthreads();  // every thread's copies of this tile have landed
+
+    const int stage = tile % SCATTER_STAGES;
+    const int n = min(SCATTER_TILE, Q - tile * SCATTER_TILE);
+    for (int ch = warp; ch * 32 < n; ch += DC) {
+      const int j = ch * 32 + lane;
+      const long long t = j < n ? s_idx[stage * SCATTER_TILE + j] : -1;
+      const int r = (t >= t0 && t < t0 + tr) ? static_cast<int>(t - t0) : -1;
+      const unsigned group = __match_any_sync(FULL, r);
+      const int rank = __popc(group & ((1u << lane) - 1u));
+      const int most = __reduce_max_sync(FULL, r >= 0 ? rank : 0);
+      s_row[j] = r;
+      s_rank[j] = rank;
+      if (lane == 0) s_rounds[ch] = most + 1;
+    }
+    __syncthreads();
+
+    if (warp < dc) {
+      // chunk ch's row, value and rounds are read while chunk ch - 1 adds
+      const float* st = s_tile + stage * SCATTER_TILE * DCP + warp;
+      int r = s_row[lane];
+      float v = st[lane * DCP];
+      int rounds = s_rounds[0];
+      for (int ch = 0; ch * 32 < n; ++ch) {
+        const int j = ch * 32 + lane;
+        const bool more = (ch + 1) * 32 < n;
+        const int r_next = more ? s_row[j + 32] : -1;
+        const float v_next = more ? st[(j + 32) * DCP] : 0.f;
+        const int rounds_next = more ? s_rounds[ch + 1] : 1;
+        if (rounds == 1) {
+          if (r >= 0) s_acc[r * DCP + warp] = __fadd_rn(s_acc[r * DCP + warp], v);
+        } else {  // a repeated row: its lanes add in lane order, so in ascending q
+          const int rank = s_rank[j];
+          for (int k = 0; k < rounds; ++k) {
+            if (r >= 0 && rank == k) s_acc[r * DCP + warp] = __fadd_rn(s_acc[r * DCP + warp], v);
+            __syncwarp();
           }
         }
-#pragma unroll
-        for (int u = 0; u < SUM_AHEAD; ++u) {
-          if (u0 + u < n) {
-#pragma unroll
-            for (int s = 0; s < SLOTS; ++s) acc[s] = __fadd_rn(acc[s], v[u][s]);
-          }
-        }
+        __syncwarp();  // this chunk's sums are seen by the next chunk's lanes
+        r = r_next;
+        v = v_next;
+        rounds = rounds_next;
       }
     }
-#pragma unroll
-    for (int s = 0; s < SLOTS; ++s) {
-      const int c = c0 + 32 * s + lane;
-      if (c < D) bt[c] = acc[s];
-    }
+  }
+  __syncthreads();
+  float* bt = dtable + (bk * T + t0) * D + c0;
+  for (int e = threadIdx.x; e < tr * dc; e += nthreads) {
+    const int t = e / dc;
+    const int c = e - t * dc;
+    bt[static_cast<size_t>(t) * D + c] = s_acc[t * DCP + c];
   }
 }
 
 }  // namespace
 
 // Plain C entry points for ctypes. table/dtable [BK, T, D], idx [BK, Q]
-// int64, out/dout [BK, Q, D], perm [BK, Q] int32, start [BK, T + 1] int32,
-// all contiguous on the current device, float32 unless said otherwise,
-// out 16-byte aligned; BK, T, Q, D >= 1, Q <= 65535 * 256. Each returns
-// the cudaError_t of its launch (0 on success).
+// int64, out/dout [BK, Q, D], all contiguous on the current device,
+// float32 unless said otherwise, out 16-byte aligned; BK, T, Q, D >= 1,
+// Q <= 65535 * 256. Each returns the cudaError_t of its launch (0 on
+// success).
 extern "C" int onehot_gather_f32(const float* table, const long long* idx, float* out, int BK,
                                  int T, int Q, int D, void* stream) {
   if (BK <= 0 || T <= 0 || Q <= 0 || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -293,36 +266,39 @@ extern "C" int onehot_gather_f32(const float* table, const long long* idx, float
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5 pass A: perm and start from idx
-extern "C" int onehot_row_lists(const long long* idx, int* perm, int* start, int BK, int T,
-                                int Q, void* stream) {
-  if (BK <= 0 || T <= 0 || Q <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = SORT_WARPS * (T < SORT_ROWS ? T : SORT_ROWS) * static_cast<int>(sizeof(int));
+// K5: dtable from dout and idx
+extern "C" int onehot_scatter_add_f32(const float* dout, const long long* idx, float* dtable,
+                                      int BK, int T, int Q, int D, void* stream) {
+  if (BK <= 0 || T <= 0 || Q <= 0 || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // channel groups: the fewest that give a block an SM, at most
+  // SCATTER_CHANNELS channels (warps) a block, evened out
+  int DC = D < SCATTER_CHANNELS ? D : SCATTER_CHANNELS;
+  while (DC > 1 && static_cast<long long>(BK) * ((D + DC - 1) / DC) < sms) --DC;
+  int groups = (D + DC - 1) / DC;
+  DC = (D + groups - 1) / groups;
+  groups = (D + DC - 1) / DC;
+  // row groups: as many rows' sums as fit beside a tile
+  const int DCP = DC | 1;
+  const int fixed = SCATTER_STAGES * SCATTER_TILE * (8 + 4 * DCP)
+                    + (2 * SCATTER_TILE + SCATTER_CHUNKS) * 4;
+  const int fit = (SCATTER_SMEM - fixed) / (4 * DCP);
+  const int row_groups = (T + fit - 1) / fit;
+  const int TR = (T + row_groups - 1) / row_groups;
+  if (row_groups > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = fixed + TR * DCP * 4;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        onehot_row_lists_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    err = cudaFuncSetAttribute(onehot_scatter_add_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid(BK, (T + SORT_ROWS - 1) / SORT_ROWS);
-  onehot_row_lists_kernel<<<grid, SORT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      idx, perm, start, T, Q);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K5 pass B: dtable from dout, perm and start
-extern "C" int onehot_row_sums_f32(const float* dout, const int* perm, const int* start,
-                                   float* dtable, int BK, int T, int Q, int D, void* stream) {
-  if (BK <= 0 || T <= 0 || Q <= 0 || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long items = static_cast<long long>(BK) * T;
-  const long long blocks = (items + SUM_THREADS / 32 - 1) / (SUM_THREADS / 32);
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 32) {
-    onehot_row_sums_kernel<1><<<static_cast<unsigned>(blocks), SUM_THREADS, 0, s>>>(
-        dout, perm, start, dtable, BK, T, Q, D);
-  } else {
-    onehot_row_sums_kernel<2><<<static_cast<unsigned>(blocks), SUM_THREADS, 0, s>>>(
-        dout, perm, start, dtable, BK, T, Q, D);
-  }
+  const dim3 grid(BK, groups, row_groups);
+  onehot_scatter_add_kernel<<<grid, 32 * DC, smem, static_cast<cudaStream_t>(stream)>>>(
+      dout, idx, dtable, T, Q, D, DC, TR);
   return static_cast<int>(cudaGetLastError());
 }

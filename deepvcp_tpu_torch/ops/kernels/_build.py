@@ -109,10 +109,8 @@ def library() -> ctypes.CDLL:
             lib.fps_f32.restype = i
             lib.onehot_gather_f32.argtypes = [p, p, p, i, i, i, i, p]
             lib.onehot_gather_f32.restype = i
-            lib.onehot_row_lists.argtypes = [p, p, p, i, i, i, p]
-            lib.onehot_row_lists.restype = i
-            lib.onehot_row_sums_f32.argtypes = [p, p, p, p, i, i, i, i, p]
-            lib.onehot_row_sums_f32.restype = i
+            lib.onehot_scatter_add_f32.argtypes = [p, p, p, i, i, i, i, p]
+            lib.onehot_scatter_add_f32.restype = i
             lib.band_max_error_string.argtypes = [i]
             lib.band_max_error_string.restype = ctypes.c_char_p
             _lib = lib

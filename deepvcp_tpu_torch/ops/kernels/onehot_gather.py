@@ -8,7 +8,7 @@ candidate's neighbour rows come out of its keypoint's T-row table. On a CUDA
 tensor `onehot_gather` launches the hand-written Hopper kernel in
 `csrc/onehot_gather.cu` (replacing the TPU kernel
 `deepvcp_tpu/ops/pallas/onehot_gather.py::onehot_gather`) and
-`onehot_scatter_add` the two beside it (replacing `_scatter_add` of the same
+`onehot_scatter_add` the one beside it (replacing `_scatter_add` of the same
 file, the backward of `onehot_gather_vjp`); on a CPU tensor, or within
 `ops.kernels.reference_path()`, each runs its plain PyTorch version
 (`*_reference`). `onehot_gather_vjp` is the differentiable gather: K4
@@ -16,16 +16,14 @@ forward, K5 backward, no gradient for the indices.
 
 Both kernels take the indices as int64, the dtype `torch.topk` returns, so
 nothing is cast. K4 is a copy and bit-identical to `torch.gather`. K5 is
-deterministic and runs as two launches: `row_lists` (pass A) sorts each
-keypoint's queries into its table rows once, stable, into int32 scratch
-`perm` / `start` (plain version `onehot_row_lists_reference`), and
-`row_sums` (pass B) sums each row's list with one warp per (keypoint, row),
-in ascending q starting from 0. The plain version of K5 adds in the same
-order (a stable sort, then the j-th entry of every row in step j, a loop as
-long as the fullest row), so the two agree bit for bit; `index_add_` and
-`scatter_add_` use atomics on the card and are not deterministic there. An
-index outside [0, T) gives a NaN row in K4 (the plain `torch.gather` raises)
-and adds to no row in K5.
+deterministic: it streams dout in ascending q and adds each query to its
+row's sum in shared memory, so every table row sums its queries in
+ascending q, starting from 0. The plain version adds in the same order (a
+stable sort groups each row's queries; step j adds every row's j-th entry,
+a loop as long as the fullest row), so the two agree bit for bit;
+`index_add_` and `scatter_add_` use atomics on the card and are not
+deterministic there. An index outside [0, T) gives a NaN row in K4 (the
+plain `torch.gather` raises) and adds to no row in K5.
 """
 
 from __future__ import annotations
@@ -35,9 +33,10 @@ import torch
 from deepvcp_tpu_torch.ops.kernels import _plain
 
 # csrc/onehot_gather.cu: K4's grid has at most 65535 blocks of 256 queries
-# per keypoint. K5 keeps nothing per query in shared memory (its row lists
-# are int32 scratch in device memory), so the same bound holds for it; a
-# row's sum is a chain of adds as long as its list, up to Q.
+# per keypoint. K5 holds only a 512-query tile of a keypoint's queries on
+# chip at a time (its shared memory holds the table rows' sums), so Q
+# bounds nothing but its loop there; it takes K4's bound. Each row still
+# sums in ascending q, a chain of adds as long as the row's list.
 MAX_GATHER_QUERIES = 65535 * 256
 MAX_SCATTER_QUERIES = MAX_GATHER_QUERIES
 
@@ -65,23 +64,6 @@ def onehot_scatter_add_reference(dout: torch.Tensor, idx: torch.Tensor, T: int) 
         add = torch.gather(rows, 2, (start + j).clamp_max(Q - 1)[..., None].expand(-1, -1, -1, D))
         out = torch.where((count > j)[..., None], out + add, out)
     return out
-
-
-@torch.no_grad()
-def onehot_row_lists_reference(idx: torch.Tensor, T: int) -> tuple:
-    """Plain PyTorch of K5's pass A (`row_lists`): each table row's queries
-    in ascending q. idx [B, K, Q] int64 -> (perm [B, K, Q] int32, start
-    [B, K, T + 1] int32): row t's queries are perm[..., start[t]:start[t + 1]];
-    entries past start[T] (as many as indices outside [0, T)) are -1."""
-    Q = idx.shape[-1]
-    sidx, order = torch.sort(idx, dim=-1, stable=True)
-    t = torch.arange(T + 1, device=idx.device).expand(*idx.shape[:-1], T + 1).contiguous()
-    below = torch.searchsorted(sidx, t)  # entries under row t, negative indices first
-    start = below - below[..., :1]
-    j = torch.arange(Q, device=idx.device)
-    perm = torch.gather(order, -1, (j + below[..., :1]).clamp_max(Q - 1))
-    perm = torch.where(j < start[..., -1:], perm, -1)
-    return perm.int(), start.int()
 
 
 def _check(rows: torch.Tensor, idx: torch.Tensor, what: str) -> None:
@@ -149,10 +131,9 @@ def onehot_scatter_add(dout: torch.Tensor, idx: torch.Tensor, T: int) -> torch.T
     """dtable[b, k, t] = sum over q with idx[b, k, q] == t of dout[b, k, q]:
     dout [B, K, Q, D] float32, idx [B, K, Q] int64 -> [B, K, T, D], the
     gradient of onehot_gather with respect to the table. A CPU tensor runs
-    the plain reference; a CUDA tensor launches the Hopper kernel's two
-    passes, row_lists then row_sums (contiguous inputs, Q <=
-    MAX_SCATTER_QUERIES), or raises. `onehot_scatter_add.launches` counts
-    one per call."""
+    the plain reference; a CUDA tensor launches the Hopper kernel
+    (contiguous inputs, Q <= MAX_SCATTER_QUERIES) or raises.
+    `onehot_scatter_add.launches` counts kernel launches."""
     _check(dout, idx, "dout")
     if dout.shape[2] != idx.shape[2]:
         raise ValueError(f"dout {tuple(dout.shape)} and idx {tuple(idx.shape)} disagree on Q")
@@ -164,54 +145,19 @@ def onehot_scatter_add(dout: torch.Tensor, idx: torch.Tensor, T: int) -> torch.T
     B, K, Q, D = dout.shape
     if Q > MAX_SCATTER_QUERIES:
         raise ValueError(f"Q={Q} exceeds the scatter-add kernel's {MAX_SCATTER_QUERIES}")
-    dtable = row_sums(dout, *row_lists(idx, T))
+    from deepvcp_tpu_torch.ops.kernels._build import library
+
+    lib = library()
+    dtable = torch.empty((B, K, T, D), dtype=dout.dtype, device=dout.device)
+    with torch.cuda.device(dout.device):
+        stream = torch.cuda.current_stream(dout.device).cuda_stream
+        _launch(lib.onehot_scatter_add_f32, dout.data_ptr(), idx.data_ptr(), dtable.data_ptr(),
+                B * K, T, Q, D, stream)
     onehot_scatter_add.launches += 1
     return dtable
 
 
 onehot_scatter_add.launches = 0
-
-
-def row_lists(idx: torch.Tensor, T: int) -> tuple:
-    """K5's pass A on the card, as onehot_row_lists_reference: idx [B, K, Q]
-    int64, contiguous, on a CUDA device -> (perm, start), int32 scratch for
-    row_sums. Counts no launch: onehot_scatter_add counts one per call."""
-    _kernel_args(idx)
-    if idx.dim() != 3 or idx.dtype != torch.int64 or T < 1:
-        raise ValueError(f"row_lists takes int64 idx [B, K, Q] and T >= 1, got {idx.dtype} "
-                         f"{tuple(idx.shape)}, T={T}")
-    from deepvcp_tpu_torch.ops.kernels._build import library
-
-    B, K, Q = idx.shape
-    perm = torch.empty((B, K, Q), dtype=torch.int32, device=idx.device)
-    start = torch.empty((B, K, T + 1), dtype=torch.int32, device=idx.device)
-    with torch.cuda.device(idx.device):
-        stream = torch.cuda.current_stream(idx.device).cuda_stream
-        _launch(library().onehot_row_lists, idx.data_ptr(), perm.data_ptr(), start.data_ptr(),
-                B * K, T, Q, stream)
-    return perm, start
-
-
-def row_sums(dout: torch.Tensor, perm: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
-    """K5's pass B on the card: dtable [B, K, T, D] from dout [B, K, Q, D]
-    float32 and row_lists' perm [B, K, Q] and start [B, K, T + 1], each
-    row's list summed in ascending q from 0. Counts no launch."""
-    _kernel_args(dout, perm, start)
-    B, K, Q, D = dout.shape
-    if (perm.shape != (B, K, Q) or start.shape[:2] != (B, K) or perm.dtype != torch.int32
-            or start.dtype != torch.int32 or dout.dtype != torch.float32):
-        raise ValueError(f"row_sums takes float32 dout [B, K, Q, D] with int32 perm [B, K, Q] "
-                         f"and start [B, K, T + 1], got {tuple(dout.shape)}, "
-                         f"{tuple(perm.shape)}, {tuple(start.shape)}")
-    from deepvcp_tpu_torch.ops.kernels._build import library
-
-    T = start.shape[2] - 1
-    dtable = torch.empty((B, K, T, D), dtype=dout.dtype, device=dout.device)
-    with torch.cuda.device(dout.device):
-        stream = torch.cuda.current_stream(dout.device).cuda_stream
-        _launch(library().onehot_row_sums_f32, dout.data_ptr(), perm.data_ptr(),
-                start.data_ptr(), dtable.data_ptr(), B * K, T, Q, D, stream)
-    return dtable
 
 
 class _OnehotGather(torch.autograd.Function):

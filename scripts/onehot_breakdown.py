@@ -7,7 +7,7 @@ variants of them, into deepvcp_tpu_torch/_build/breakdown/, and times them
 at the two-level path's shapes (kitti25, T = 512, the table and indices of
 pair 0's first refinement, as chip_smoke.py phase 16), in turns, beside the
 library calls torch.gather / torch.scatter_add, then the package's current
-K4 / K5 (csrc/onehot_gather.cu, K5's two passes apart too) beside them:
+K4 / K5 (csrc/onehot_gather.cu) beside them:
 
   K5 first design    one block per (keypoint, 64 rows): stable counting sort
                      of all the keypoint's indices (phases 1-3), then sums
@@ -415,8 +415,12 @@ def main() -> None:
     stream = torch.cuda.current_stream(dev).cuda_stream
     gen = torch.Generator(device=dev).manual_seed(5)
     dout = torch.randn(B, K, Q, D, device=dev, generator=gen)
-    perm, start = og.onehot_row_lists_reference(idx, T)
-    perm, start = perm.reshape(BK, Q).contiguous(), start.reshape(BK, T + 1).contiguous()
+    # the stable sort that "K5 sum only" reads: row t's q ascending in
+    # perm[start[t]:start[t + 1]]
+    sidx, order = torch.sort(idx.reshape(BK, Q), dim=-1, stable=True)
+    perm = order.int().contiguous()
+    start = torch.searchsorted(sidx, torch.arange(T + 1, device=dev).expand(BK, T + 1)
+                               .contiguous()).int().contiguous()
     sink = torch.empty(BK * ((T + 63) // 64) * 256, dtype=torch.int32, device=dev)
     out4 = torch.empty(B, K, Q, D, device=dev)
     out5 = torch.empty_like(table)
@@ -467,20 +471,15 @@ def main() -> None:
     ptxas_report(os.path.join(ROOT, "deepvcp_tpu_torch", "csrc", "onehot_gather.cu"),
                  os.path.join(os.path.dirname(lib._name), "package.o"), shared=False)
     got4, got5 = og.onehot_gather(table, idx), og.onehot_scatter_add(dout, idx, T)
-    lists = og.row_lists(idx, T)
     torch.cuda.synchronize()
-    if not (torch.equal(got4, want4) and torch.equal(got5, want5)
-            and torch.equal(lists[0].reshape(BK, Q), perm)
-            and torch.equal(lists[1].reshape(BK, T + 1), start)):
+    if not (torch.equal(got4, want4) and torch.equal(got5, want5)):
         cs.fail("the package's K4 / K5 differ from their plain versions")
-    print("the package's K4, K5 and K5's pass A equal their plain versions at the path's case")
+    print("the package's K4 and K5 equal their plain versions at the path's case")
     fns = {"K4 first design": k4(0),
            "K4 package (csrc/onehot_gather.cu)": lambda: og.onehot_gather(table, idx),
            "torch.gather": lambda: torch.gather(table, 2, expand),
            "K5 first design": k5(0),
            "K5 package (csrc/onehot_gather.cu)": lambda: og.onehot_scatter_add(dout, idx, T),
-           "K5 package pass A (row lists)": lambda: og.row_lists(idx, T),
-           "K5 package pass B (row sums)": lambda: og.row_sums(dout, *lists),
            "torch.scatter_add": lambda: torch.scatter_add(zeros, 2, expand, dout)}
     print("-- the package's kernels beside the first designs")
     in_turns(torch, fns)

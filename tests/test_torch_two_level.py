@@ -105,30 +105,6 @@ def test_scatter_add_reference_sums_in_ascending_q():
         np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("case", ["outside", "8 rows", "ragged T"])
-def test_row_lists_reference_matches_numpy_stable_sort(case):
-    """K5's pass A, plain version: each row's queries in ascending q, as
-    numpy's stable argsort of the valid indices; start from bincount and
-    cumsum; the entries left over by indices outside [0, T) are -1."""
-    rng = np.random.default_rng(4)
-    B, K, Q, T = 2, 3, 700, {"outside": 40, "8 rows": 40, "ragged T": 137}[case]
-    idx = {"outside": rng.integers(-3, T + 3, (B, K, Q)),
-           "8 rows": rng.integers(0, 8, (B, K, Q)),
-           "ragged T": rng.integers(0, T, (B, K, Q))}[case]
-    perm, start = og.onehot_row_lists_reference(torch.from_numpy(idx), T)
-    assert perm.dtype == start.dtype == torch.int32
-    assert perm.shape == (B, K, Q) and start.shape == (B, K, T + 1)
-    for b in range(B):
-        for k in range(K):
-            ix = idx[b, k]
-            ok = (ix >= 0) & (ix < T)
-            order = np.flatnonzero(ok)[np.argsort(ix[ok], kind="stable")]
-            want_start = np.concatenate([[0], np.cumsum(np.bincount(ix[ok], minlength=T))])
-            np.testing.assert_array_equal(start[b, k].numpy(), want_start)
-            np.testing.assert_array_equal(perm[b, k, :ok.sum()].numpy(), order)
-            assert (perm[b, k, ok.sum():] == -1).all()
-
-
 def test_gather_vjp_gradient_matches_jax():
     """The autograd.Function's gradient of sum(sin(gather)) against JAX's
     through onehot_gather_vjp (test_two_level.py's case): within
@@ -443,9 +419,9 @@ def _topk_idx(B, K, T, C, k, device, gen):
 def _card_cases(device):
     """The path's shapes (64 keypoints, T=512, Q=216*32, D=35) with uniform
     indices and with a real top-32's; every query into 8 rows, and into one
-    row (the longest add chain); D = 7, 5 and 1 (K4's generic D); a T above
-    K5's 512-row sort block and not a multiple of 64; a Q that is not a
-    multiple of K4's 256-query block."""
+    row (the longest add chain); D = 7, 5 and 1 (K4's generic D, K5's
+    channel groups); a T that is not a multiple of 64; a Q that is not a
+    multiple of K4's 256-query block or K5's 512-query tile."""
     gen = torch.Generator(device=device).manual_seed(0)
     cases = []
     for name, (B, K, T, Q, D), hi in (("path", (1, 64, 512, 6912, 35), 512),
@@ -495,22 +471,6 @@ def test_scatter_add_kernel_matches_reference_on_card(cuda):
             assert og.onehot_scatter_add.launches == before + 2
             assert torch.equal(got, again), name
             assert torch.equal(got, og.onehot_scatter_add_reference(g, idx, T)), name
-
-
-@pytest.mark.gpu
-def test_row_lists_kernel_matches_reference_on_card(cuda):
-    """K5's pass A: each row's queries in ascending q, equal to the plain
-    version, with indices outside [0, T) and across several sort blocks."""
-    gen = torch.Generator(device=cuda).manual_seed(3)
-    cases = [(name, idx, table.shape[2]) for name, table, idx in _card_cases(cuda)]
-    cases.append(("outside", torch.randint(-3, 603, (2, 3, 700), device=cuda, generator=gen),
-                  600))
-    for name, idx, T in cases:
-        perm, start = og.row_lists(idx, T)
-        want_perm, want_start = og.onehot_row_lists_reference(idx, T)
-        torch.cuda.synchronize()
-        assert torch.equal(start, want_start), name
-        assert torch.equal(perm, want_perm), name
 
 
 @pytest.mark.gpu
