@@ -54,12 +54,14 @@ any rotation, `initializer.so3_global_init` then
  16. K4/K5       one-hot gather and its scatter-add backward against their
                  plain versions at the two-level path's table and indices
                  (kitti25, pair 0), with every query into 8 rows and into
-                 one row, at D = 5, at T = 600 and at a Q that is not a
+                 one row, at D = 5, at T = 600, at T = 3001 (K5's row
+                 groups) and at a Q that is not a
                  multiple of K4's block: K4 identical to torch.gather; K5
                  0.0 with integer and with Gaussian cotangents, equal to
                  itself run twice; the path's per-64-row-group load; median
                  times of the kernels, the plain versions and torch.gather /
-                 torch.scatter_add, warm and with L2 flushed
+                 torch.scatter_add, per call and behind a device hold, warm
+                 and with L2 flushed
  17. two-level   campaign_r5b W3: kitti25 with tgt_knn="two_level", T=512, on
                  phase 4's 16 pairs: mean RRE <= 1.0 deg and RTE <= 0.05 m, 2 K4
                  and 6 K1 launches per call; flat kitti25 and T=1024 on the
@@ -138,17 +140,19 @@ def card_line() -> str:
 def hold_device(torch) -> None:
     """Keep the card busy for ~10 ms, so that the launches enqueued next
     wait in the stream and run back to back: CUDA events around each then
-    time the device's work, not the host's time to issue it (the wrappers'
-    Python around a launch takes longer than a kernel of 0.03 ms)."""
+    time the device's work alone, not the host's time to issue it."""
     torch.cuda._sleep(HOLD_CYCLES)
 
 
-def cuda_median_ms(torch, fn, reps: int, warmup: int = 3) -> float:
-    """Median device time of fn() over `reps` runs, from CUDA events, the
-    runs enqueued behind hold_device."""
+def cuda_median_ms(torch, fn, reps: int, warmup: int = 3, hold: bool = False) -> float:
+    """Median time of fn() over `reps` runs, from CUDA events around each
+    call. A call whose host work outlasts its device work is timed by the
+    host's (the card waits for it); with `hold`, the runs are enqueued behind
+    hold_device and the events time the device's work alone."""
     for _ in range(warmup):
         fn()
-    hold_device(torch)
+    if hold:
+        hold_device(torch)
     pairs = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -161,15 +165,30 @@ def cuda_median_ms(torch, fn, reps: int, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def turns_median_ms(torch, fns: dict, reps: int, rounds: int = 4) -> dict:
-    """Median CUDA-event time of each of `fns` ({name: fn}), taken in turns
-    (a, b, b, a, ...) over `rounds` rounds of `reps` runs each: the median
-    of the rounds' medians."""
+def issue_ms(torch, fn, reps: int) -> float:
+    """Host time to issue one call of fn(), the mean over `reps` calls
+    enqueued behind hold_device, so that the card never makes the host
+    wait."""
+    fn()
+    torch.cuda.synchronize()
+    hold_device(torch)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
+def turns_ms(torch, fns: dict, reps: int, rounds: int = 4, hold: bool = False) -> dict:
+    """CUDA-event times of each of `fns` ({name: fn}), taken in turns (a, b,
+    b, a, ...) over `rounds` rounds of `reps` runs each: {name: the rounds'
+    medians}."""
     times = {name: [] for name in fns}
     for r in range(rounds):
         for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
-            times[name].append(cuda_median_ms(torch, fns[name], reps=reps))
-    return {name: statistics.median(t) for name, t in times.items()}
+            times[name].append(cuda_median_ms(torch, fns[name], reps=reps, hold=hold))
+    return times
 
 
 def host_median_ms(torch, fn, reps: int) -> float:
@@ -895,32 +914,13 @@ def registrar_timing(torch, reg, src, tgt, what: str, reps: int, plain_reps: int
     return lat
 
 
-def path_onehot_inputs(torch, dev, reg, pair) -> tuple:
-    """The table [B, K, T, D] and indices [B, K, C * k] that K4 gathers in
-    the two-level registrar's first refinement of `pair` (identity warm
-    start)."""
-    from deepvcp_tpu_torch.ops.two_level import keypoint_tables, table_neighbors
-
-    m = reg.model
-    args = m.two_level_args()
-    with torch.no_grad():
-        enc = m.encode(pair[0], pair[1])
-        kp_warm, cand = m.candidates(enc, torch.eye(3, device=dev)[None],
-                                     torch.zeros(1, 3, device=dev))
-        table = keypoint_tables(enc.tgt_xyz, enc.tgt_table, kp_warm, args["table_size"],
-                                args["center_select_dtype"]).contiguous()
-        l_idx = table_neighbors(table[..., :3], kp_warm, cand, m.cfg.num_neighbors,
-                                args["select_dtype"])
-    B, K, C, k = l_idx.shape
-    return table, l_idx.reshape(B, K, C * k).contiguous()
-
-
-def flushed_median_ms(torch, fn, reps: int, flush) -> float:
+def flushed_median_ms(torch, fn, reps: int, flush, hold: bool = False) -> float:
     """Median CUDA-event time of fn() with L2 flushed before each launch by
     writing the buffer `flush` (larger than L2); the events enclose fn()
-    alone."""
+    alone. `hold` as in cuda_median_ms."""
     fn()
-    hold_device(torch)
+    if hold:
+        hold_device(torch)
     times = []
     for _ in range(reps):
         flush.zero_()
@@ -940,14 +940,28 @@ def onehot_phase(torch, dev, reg, pair) -> tuple:
     indices (the two-level registrar's first refinement of `pair`, identity
     warm start), with every query into 8 rows, with every query into one
     row (the longest add chain), at D = 5 (K4's generic D), at a T that is
-    not a multiple of 64, and at a Q that is not a multiple of K4's
-    256-query block or K5's 512-query tile. The path's per-64-row-group
-    load. Median CUDA-event times at the path's case, warm and with L2
-    flushed. Returns K4's and K5's numbers there."""
+    not a multiple of 64, at a T = 3001 whose row sums K5 splits over two
+    groups of rows, and at a Q that is not a multiple of K4's 256-query block
+    or K5's 512-query tile. The path's per-64-row-group load. Median
+    CUDA-event times at the path's case, per call and behind a device hold,
+    warm and with L2 flushed. Returns K4's and K5's numbers there (per
+    call)."""
     from deepvcp_tpu_torch.ops.kernels import onehot_gather as og
+    from deepvcp_tpu_torch.ops.two_level import keypoint_tables, table_neighbors
 
-    table, idx = path_onehot_inputs(torch, dev, reg, pair)
-    B, K, Q = idx.shape
+    m = reg.model
+    args = m.two_level_args()
+    with torch.no_grad():
+        enc = m.encode(pair[0], pair[1])
+        kp_warm, cand = m.candidates(enc, torch.eye(3, device=dev)[None],
+                                     torch.zeros(1, 3, device=dev))
+        table = keypoint_tables(enc.tgt_xyz, enc.tgt_table, kp_warm, args["table_size"],
+                                args["center_select_dtype"]).contiguous()
+        l_idx = table_neighbors(table[..., :3], kp_warm, cand, m.cfg.num_neighbors,
+                                args["select_dtype"])
+    B, K, C, k = l_idx.shape
+    idx = l_idx.reshape(B, K, C * k).contiguous()
+    Q = C * k
     T, D = table.shape[2:]
     gen = torch.Generator(device=dev).manual_seed(3)
     cases = [(f"the path's [{B}, {K}, {T}, {D}] table, Q = {Q}", table, idx),
@@ -958,6 +972,9 @@ def onehot_phase(torch, dev, reg, pair) -> tuple:
               torch.randn(B, K, T, 5, device=dev, generator=gen), idx),
              (f"[1, 8, 600, {D}], Q = {Q}", torch.randn(1, 8, 600, D, device=dev, generator=gen),
               torch.randint(0, 600, (1, 8, Q), device=dev, generator=gen)),
+             (f"[{B}, {K}, 3001, {D}], Q = {Q} (K5 in two groups of rows)",
+              torch.randn(B, K, 3001, D, device=dev, generator=gen),
+              torch.randint(0, 3001, idx.shape, device=dev, generator=gen)),
              ("[2, 3, 136, 7], Q = 1000", torch.randn(2, 3, 136, 7, device=dev, generator=gen),
               torch.randint(0, 136, (2, 3, 1000), device=dev, generator=gen))]
     k4_err = k5_err = 0.0
@@ -1000,38 +1017,58 @@ def onehot_phase(torch, dev, reg, pair) -> tuple:
     expand = idx[..., None].expand(-1, -1, -1, D)
     dout = torch.randn((*idx.shape, D), device=dev, generator=gen)
     zeros = torch.zeros_like(table)
-    # kernel and library call in turns (a, b, b, a, ...) within this call
-    k4 = {"max_abs_err": k4_err, **turns_median_ms(torch, {
-        "ms": lambda: og.onehot_gather(table, idx),
-        "library_ms": lambda: torch.gather(table, 2, expand)}, reps=50)}
-    k4["plain_ms"] = cuda_median_ms(torch, lambda: og.onehot_gather_reference(table, idx),
-                                    reps=50)
-    k5 = {"max_abs_err": k5_err, **turns_median_ms(torch, {
-        "ms": lambda: og.onehot_scatter_add(dout, idx, T),
-        "library_ms": lambda: torch.scatter_add(zeros, 2, expand, dout)}, reps=50)}
-    k5["plain_ms"] = cuda_median_ms(
-        torch, lambda: og.onehot_scatter_add_reference(dout, idx, T), reps=5)
+    fns = {"K4": lambda: og.onehot_gather(table, idx),
+           "torch.gather": lambda: torch.gather(table, 2, expand),
+           "K5": lambda: og.onehot_scatter_add(dout, idx, T),
+           "torch.scatter_add": lambda: torch.scatter_add(zeros, 2, expand, dout)}
+    # each kernel and its library call in turns (a, b, b, a, ...): per call,
+    # the host's time to issue a call included where it outlasts the
+    # device's (the `ms` of the kernels line, as in every kernel's row), and
+    # behind a device hold, the device's time alone
+    warm, held = {}, {}
+    for pair_ in (("K4", "torch.gather"), ("K5", "torch.scatter_add")):
+        warm.update(turns_ms(torch, {n: fns[n] for n in pair_}, reps=50))
+        held.update(turns_ms(torch, {n: fns[n] for n in pair_}, reps=50, hold=True))
+    issue = {n: statistics.median(issue_ms(torch, fn, 50) for _ in range(4))
+             for n, fn in fns.items()}
     flush = torch.empty(64 * 2**20 // 4, device=dev)
-    cold = {name: flushed_median_ms(torch, fn, 50, flush) for name, fn in (
-        ("K4", lambda: og.onehot_gather(table, idx)),
-        ("torch.gather", lambda: torch.gather(table, 2, expand)),
-        ("K5", lambda: og.onehot_scatter_add(dout, idx, T)),
-        ("torch.scatter_add", lambda: torch.scatter_add(zeros, 2, expand, dout)))}
+    cold = {(n, hold): flushed_median_ms(torch, fn, 50, flush, hold)
+            for n, fn in fns.items() for hold in (False, True)}
     del flush
+    k4 = {"max_abs_err": k4_err, "ms": statistics.median(warm["K4"]),
+          "library_ms": statistics.median(warm["torch.gather"]),
+          "plain_ms": cuda_median_ms(torch, lambda: og.onehot_gather_reference(table, idx),
+                                     reps=50)}
+    k5 = {"max_abs_err": k5_err, "ms": statistics.median(warm["K5"]),
+          "library_ms": statistics.median(warm["torch.scatter_add"]),
+          "plain_ms": cuda_median_ms(
+              torch, lambda: og.onehot_scatter_add_reference(dout, idx, T), reps=5)}
     # bytes: each input read once (the table or dout, int64 indices), the
     # output written once; operations: K5's one add per dout element
     k4["bound_ms"], k4["bound_by"] = bound_ms(4 * table.numel() + 8 * idx.numel()
                                               + 4 * dout.numel(), 0)
     k5["bound_ms"], k5["bound_by"] = bound_ms(4 * dout.numel() + 8 * idx.numel()
                                               + 4 * table.numel(), dout.numel())
+
+    def rounds(t: list) -> str:
+        return f"{statistics.median(t):.4f} ms (rounds {min(t):.4f}-{max(t):.4f})"
+
     for name, r, lib in (("K4 onehot_gather", k4, "torch.gather"),
                          ("K5 onehot_scatter_add", k5, "torch.scatter_add")):
-        print(f"{name} at the path's shapes: kernel {r['ms']:.4f} ms, library ({lib}) "
-              f"{r['library_ms']:.4f} ms, kernel / library {r['ms'] / r['library_ms']:.3f} "
-              f"(median, CUDA events, in 4 turns of 50); plain {r['plain_ms']:.4f} ms; bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['bound_ms'] / r['ms']:.3f} of it "
-              f"reached; with L2 flushed before each launch: kernel {cold[name[:2]]:.4f} ms, "
-              f"library {cold[lib]:.4f} ms, kernel / library {cold[name[:2]] / cold[lib]:.3f}")
+        kn = name[:2]
+        print(f"{name} at the path's shapes, in 4 turns of 50 with {lib} (medians, CUDA "
+              f"events): per call, host time included: kernel {rounds(warm[kn])}, library "
+              f"{rounds(warm[lib])}, kernel / library {r['ms'] / r['library_ms']:.3f}; behind "
+              f"a device hold: kernel {rounds(held[kn])}, library {rounds(held[lib])}, kernel / "
+              f"library {statistics.median(held[kn]) / statistics.median(held[lib]):.3f}")
+        print(f"{name}: plain {r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.3f} of it reached per call, "
+              f"{r['bound_ms'] / statistics.median(held[kn]):.3f} behind the hold; with L2 "
+              f"flushed before each launch: kernel {cold[kn, False]:.4f} ms, library "
+              f"{cold[lib, False]:.4f} ms per call, kernel {cold[kn, True]:.4f} ms, library "
+              f"{cold[lib, True]:.4f} ms behind the hold")
+    print("host time to issue one call (median of 4 means of 50 calls behind a device hold): "
+          + ", ".join(f"{n} {t:.4f} ms" for n, t in issue.items()))
     return k4, k5
 
 

@@ -27,7 +27,7 @@
 // aligned are stored a float at a time. D is a template parameter, 35 for
 // the path and 0 (read at run time) for any other D, so that the element ->
 // (query, channel) split is a multiply, not a division. The first design
-// (PR 4) stored 4 bytes an element after a runtime division, with one load
+// stored 4 bytes an element after a runtime division, with one load
 // in flight a thread, and was 1.4-1.5x slower than torch.gather. A copy, so
 // the output is bit-identical to torch.gather. An index outside [0, T)
 // gives a row of NaN (torch.gather would raise; checking would cost the
@@ -50,7 +50,7 @@
 // order. The channel groups are the fewest that give every SM a block (3
 // groups of 12 at the path's 64 keypoints x 35: 192 blocks of 92 KB, two
 // an SM, one wave); a deeper ring fits one block an SM and takes two
-// waves, which was slower. The first design (PR 4) sorted the keypoint's
+// waves, which was slower. The first design sorted the keypoint's
 // indices in each of 8 blocks of 64 rows, then summed each row's dout
 // entries in random order, and the block holding the keypoint's nearest
 // rows (72% of its queries: level 1 orders a table nearest first) carried
@@ -270,12 +270,28 @@ extern "C" int onehot_gather_f32(const float* table, const long long* idx, float
 extern "C" int onehot_scatter_add_f32(const float* dout, const long long* idx, float* dtable,
                                       int BK, int T, int Q, int D, void* stream) {
   if (BK <= 0 || T <= 0 || Q <= 0 || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  int device = 0, sms = 0;
+  // the card's SM count, and the kernel's shared-memory limit raised to
+  // SCATTER_SMEM (every launch's need, below), once a card: the launch's
+  // host time is the path's
+  constexpr int MAX_DEVICES = 64;
+  static int sms_of[MAX_DEVICES];
+  static bool smem_raised[MAX_DEVICES];
+  int device = 0;
   cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (device >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  int sms = sms_of[device];
+  if (sms == 0) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sms_of[device] = sms;
+  }
+  if (!smem_raised[device]) {
+    err = cudaFuncSetAttribute(onehot_scatter_add_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, SCATTER_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_raised[device] = true;
+  }
   // channel groups: the fewest that give a block an SM, at most
   // SCATTER_CHANNELS channels (warps) a block, evened out
   int DC = D < SCATTER_CHANNELS ? D : SCATTER_CHANNELS;
@@ -291,12 +307,7 @@ extern "C" int onehot_scatter_add_f32(const float* dout, const long long* idx, f
   const int row_groups = (T + fit - 1) / fit;
   const int TR = (T + row_groups - 1) / row_groups;
   if (row_groups > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = fixed + TR * DCP * 4;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(onehot_scatter_add_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const int smem = fixed + TR * DCP * 4;  // <= SCATTER_SMEM, since TR <= fit
   const dim3 grid(BK, groups, row_groups);
   onehot_scatter_add_kernel<<<grid, 32 * DC, smem, static_cast<cudaStream_t>(stream)>>>(
       dout, idx, dtable, T, Q, D, DC, TR);

@@ -83,14 +83,22 @@ def _check(rows: torch.Tensor, idx: torch.Tensor, what: str) -> None:
 
 def _kernel_args(*tensors: torch.Tensor) -> None:
     """Raise unless the CUDA kernels take these tensors as they are."""
-    if tensors[0].device.type != "cuda":
+    if not tensors[0].is_cuda:
         raise ValueError(f"no kernel for device {tensors[0].device}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the one-hot gather kernels need contiguous inputs")
 
 
-def _launch(fn, *args) -> None:
-    rc = fn(*args)
+def _launch(fn, t: torch.Tensor, *args) -> None:
+    """fn(*args, stream) on t's card and its current stream. The host's
+    time here is the path's (it waits on the host): the stream is read as
+    a raw handle, and the current card is switched only when t lies on
+    another."""
+    index = t.get_device()
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return _launch(fn, t, *args)
+    rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         from deepvcp_tpu_torch.ops.kernels._build import library
 
@@ -114,12 +122,9 @@ def onehot_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"Q={Q} exceeds the gather kernel's {MAX_GATHER_QUERIES}")
     from deepvcp_tpu_torch.ops.kernels._build import library
 
-    lib = library()
-    out = torch.empty((B, K, Q, D), dtype=table.dtype, device=table.device)
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        _launch(lib.onehot_gather_f32, table.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                B * K, T, Q, D, stream)
+    out = table.new_empty((B, K, Q, D))
+    _launch(library().onehot_gather_f32, table, table.data_ptr(), idx.data_ptr(),
+            out.data_ptr(), B * K, T, Q, D)
     onehot_gather.launches += 1
     return out
 
@@ -147,12 +152,9 @@ def onehot_scatter_add(dout: torch.Tensor, idx: torch.Tensor, T: int) -> torch.T
         raise ValueError(f"Q={Q} exceeds the scatter-add kernel's {MAX_SCATTER_QUERIES}")
     from deepvcp_tpu_torch.ops.kernels._build import library
 
-    lib = library()
-    dtable = torch.empty((B, K, T, D), dtype=dout.dtype, device=dout.device)
-    with torch.cuda.device(dout.device):
-        stream = torch.cuda.current_stream(dout.device).cuda_stream
-        _launch(lib.onehot_scatter_add_f32, dout.data_ptr(), idx.data_ptr(), dtable.data_ptr(),
-                B * K, T, Q, D, stream)
+    dtable = dout.new_empty((B, K, T, D))
+    _launch(library().onehot_scatter_add_f32, dout, dout.data_ptr(), idx.data_ptr(),
+            dtable.data_ptr(), B * K, T, Q, D)
     onehot_scatter_add.launches += 1
     return dtable
 

@@ -420,8 +420,10 @@ def _card_cases(device):
     """The path's shapes (64 keypoints, T=512, Q=216*32, D=35) with uniform
     indices and with a real top-32's; every query into 8 rows, and into one
     row (the longest add chain); D = 7, 5 and 1 (K4's generic D, K5's
-    channel groups); a T that is not a multiple of 64; a Q that is not a
-    multiple of K4's 256-query block or K5's 512-query tile."""
+    channel groups); a T that is not a multiple of 64; T = 3001 at 64
+    keypoints, whose row sums K5 splits over two groups of rows (blocks)
+    that each read all of dout; a Q that is not a multiple of K4's 256-query
+    block or K5's 512-query tile."""
     gen = torch.Generator(device=device).manual_seed(0)
     cases = []
     for name, (B, K, T, Q, D), hi in (("path", (1, 64, 512, 6912, 35), 512),
@@ -432,6 +434,7 @@ def _card_cases(device):
                                       ("D=5", (1, 8, 512, 6912, 5), 512),
                                       ("D=1", (1, 8, 512, 6912, 1), 512),
                                       ("ragged T", (1, 4, 600, 2000, 35), 600),
+                                      ("row groups", (1, 64, 3001, 6912, 35), 3001),
                                       ("ragged Q", (2, 3, 136, 1000, 7), 136)):
         table = torch.randn(B, K, T, D, device=device, generator=gen)
         idx = (_topk_idx(B, K, T, Q // 32, 32, device, gen) if hi is None
@@ -456,8 +459,7 @@ def test_gather_kernel_matches_reference_on_card(cuda):
 @pytest.mark.gpu
 def test_scatter_add_kernel_matches_reference_on_card(cuda):
     """Integer cotangents: equal. Gaussian ones: equal too, since both sum
-    each row in ascending q (the gate elsewhere is 1e-5); and the kernel
-    agrees with itself run to run."""
+    each row in ascending q; and the kernel agrees with itself run to run."""
     gen = torch.Generator(device=cuda).manual_seed(1)
     for name, table, idx in _card_cases(cuda):
         T = table.shape[2]
