@@ -13,9 +13,13 @@ any rotation, `initializer.so3_global_init` then
 
   1. device      a CUDA card is present; prints nvidia-smi's name and power limit
   2. build       builds every CUDA kernel of the paths from csrc/ with nvcc
-  3. kernels     each kernel against its plain PyTorch version at the paths'
-                 shapes: K1 max abs difference 0.0; K2 0.0 with integer
-                 cotangents and <= 1e-5 with Gaussian ones; median times
+  3. kernels     K1 and K2 against their plain PyTorch versions at the
+                 serving shapes, and K1 at the cascade's (phase 13's clouds,
+                 B = 2) with each shape family's slab per 32-query tile
+                 (max / mean) and in-radius pairs: K1 max abs difference
+                 0.0; K2 0.0 with integer cotangents and <= 1e-5 with
+                 Gaussian ones; both also at C = 8, 24, 40 and 128; median
+                 times per call and behind a device hold
   4. registrar   16 pairs, GT-free RRE / RTE against the identity-init errors;
                  mean RRE <= 1.0 deg and mean RTE <= 0.05 m
   5. paths       kernel path against plain path on pair 0: same keypoints,
@@ -37,8 +41,11 @@ any rotation, `initializer.so3_global_init` then
                  model's GT-free RRE / RTE on the 16 held pairs (printed only)
  12. K3          FPS kernel against its plain version at the global path's
                  shapes ([2, 10 000, 3] at npoint 4096 and 128; [2, 256, 3] at
-                 64, the salient_fps shape) and on a lattice cloud with every
-                 point twice: indices identical; median times
+                 64, the salient_fps shape), on a lattice cloud with every
+                 point twice, and at N = 16 385, 40 000 and 70 000 (past the
+                 cluster's registers: streamed): indices identical, one launch
+                 each; median times; the pick protocol alone at cluster sizes
+                 1-16 and the serial floor it sets an init
  13. global      so3_global_init + modelnet-cascade on the 16 lidar-like and
                  16 uniform-cube pairs: every lidar-like init RRE < 10 deg
                  and refined median RRE < 2 deg; at least 13 of 16 cube
@@ -107,6 +114,10 @@ CANCEL_FRAC = 1e-3         # a gradient tensor below this share of |g| is a canc
 # the global path: campaign_r5f W6, the JAX package's validation of it
 GLOBAL_BATCHES, GLOBAL_B = 8, 2                  # 16 pairs per held set
 FPS_SHAPES = ((2, N_POINTS, 4096), (2, N_POINTS, 128), (2, 256, 64))   # (B, N, npoint)
+# past the old 16 384-point limit; 70 000 exceeds 16 blocks' registers
+FPS_LARGE = ((2, 16385, 512), (2, 40000, 512), (2, 70000, 256))
+EXTRA_CHANNELS = (8, 24, 40, 128)                # K1/K2 widths outside the SA stages'
+SLAB_TILE = 32                                   # K1's queries per block
 K3_PER_INIT = 2                                  # one FPS per cloud
 K1_PER_CASCADE = 2 * LAUNCHES_PER_CALL           # two stages
 INIT_BASIN_DEG, REFINED_MEDIAN_DEG, CUBE_IN_BASIN = 10.0, 2.0, 13
@@ -597,13 +608,142 @@ def in_radius_pairs(torch, x, radius: float) -> int:
     return count
 
 
-def k3_phase(torch, dev) -> dict:
-    """Phase 12: K3 against its plain version at the global path's shapes
-    and on a tie cloud; median CUDA-event times. Returns the numbers of the
-    two shapes one so3_global_init call runs ([2, N, 3] at 4096 and 128)."""
+def slab_stats(torch, x, radius: float) -> tuple:
+    """(max, mean) over K1's tiles of SLAB_TILE sorted queries of the slab
+    each scans in the x-sorted clouds x [B, N, 3]: the points whose x lies
+    within radius of the tile's x range."""
+    keys = x[..., 0].contiguous()
+    N = keys.shape[1]
+    first = torch.arange(0, N, SLAB_TILE, device=x.device)
+    last = torch.clamp(first + SLAB_TILE - 1, max=N - 1)
+    lo = torch.searchsorted(keys, keys[:, first] - radius)
+    hi = torch.searchsorted(keys, keys[:, last] + radius, right=True)
+    length = (hi - lo).float()
+    return int(length.max()), float(length.mean())
+
+
+def band_phase(torch, dev) -> dict:
+    """Phase 3: K1 and K2 against their plain versions at the serving
+    shapes (one FE pass of kitti25-rot on a 25 m lidar-like cloud), K1 at
+    the cascade's (phase 13's first batch of each held set, B = 2), and both
+    at C outside the SA stages' widths; times per call and behind a device
+    hold; bounds. Returns the serving sums for the kernels line."""
     import numpy as np
 
     from deepvcp_tpu_torch.data import lidar_like_cloud
+    from deepvcp_tpu_torch.ops.kernels.band_max import (
+        banded_masked_max, banded_masked_max_grad, banded_masked_max_grad_reference,
+        banded_masked_max_reference)
+
+    def sort_x(c):
+        return torch.stack([b[torch.sort(b[:, 0], stable=True).indices] for b in c])
+
+    rng = np.random.default_rng(0)
+    xyz = lidar_like_cloud(rng, N_POINTS, max_range=25.0).astype(np.float32)
+    serving = torch.from_numpy(xyz[np.argsort(xyz[:, 0], kind="stable")][None]).to(dev)
+    batches = global_batches(torch, dev)
+    families = {"serving": serving,
+                "cascade lidar_like": sort_x(batches["lidar_like"][0][0][..., :3]),
+                "cascade uniform_cube": sort_x(batches["uniform_cube"][0][0][..., :3])}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    res = {"k1_err": 0.0, "k2_err": 0.0}
+    for fam, x in families.items():
+        ms_sum = held_sum = plain_sum = 0.0
+        work = [0, 0]
+        for C, r in SA_SHAPES:
+            u = torch.randn(*x.shape[:2], C, device=dev, generator=gen)
+            got = banded_masked_max(x, u, r)
+            want = banded_masked_max_reference(x, u, r)
+            err = (got - want).abs().max().item()
+            if not torch.isfinite(got).all() or err != 0.0:
+                fail(f"K1 disagrees with its plain version at {fam} C={C}, r={r}: max abs {err}")
+            ms = cuda_median_ms(torch, lambda: banded_masked_max(x, u, r), reps=50)
+            held = cuda_median_ms(torch, lambda: banded_masked_max(x, u, r), reps=50, hold=True)
+            plain = cuda_median_ms(torch, lambda: banded_masked_max_reference(x, u, r),
+                                   reps=20 if fam == "serving" else 3)
+            slab_max, slab_mean = slab_stats(torch, x, r)
+            pairs_r = in_radius_pairs(torch, x, r)
+            # bytes: each input read once, the output written once;
+            # operations: per in-radius pair, the f32 distance test (9) and C max
+            nbytes, ops = 4 * x.shape[0] * x.shape[1] * (3 + 2 * C), pairs_r * (9 + C)
+            bound, by = bound_ms(nbytes, ops)
+            print(f"K1 banded_masked_max {fam} [{x.shape[0]}, {x.shape[1]}] C={C} r={r}: "
+                  f"max_abs_err {err} | kernel {ms:.4f} ms per call, {held:.4f} behind a hold, "
+                  f"plain {plain:.4f} ms, bound {bound:.5f} ms ({by}) | slab per {SLAB_TILE}-query "
+                  f"tile max {slab_max} mean {slab_mean:.1f} (max / mean {slab_max / slab_mean:.2f})"
+                  f", {pairs_r} in-radius pairs")
+            res["k1_err"] = max(res["k1_err"], err)
+            ms_sum, held_sum, plain_sum = ms_sum + ms, held_sum + held, plain_sum + plain
+            work = [work[0] + nbytes, work[1] + ops]
+        bound, by = bound_ms(*work)
+        print(f"K1 {fam}, the 3 SA shapes: kernel {ms_sum:.4f} ms per call, {held_sum:.4f} behind "
+              f"a hold, plain {plain_sum:.4f} ms, bound {bound:.5f} ms ({by})")
+        if fam == "serving":
+            res.update(k1_ms=ms_sum, k1_plain_ms=plain_sum, k1_bound=(bound, by))
+
+    # K2 at the serving shapes, cotangents of the forward's output
+    x = serving
+    k2_ms = k2_plain = 0.0
+    k2_work = [0, 0]
+    for C, r in SA_SHAPES:
+        u = torch.randn(1, N_POINTS, C, device=dev, generator=gen)
+        out = banded_masked_max(x, u, r)
+        g_int = torch.randint(-8, 9, u.shape, device=dev, generator=gen).float()
+        g = torch.randn(u.shape, device=dev, generator=gen)
+        err_int = (banded_masked_max_grad(x, u, out, g_int, r)
+                   - banded_masked_max_grad_reference(x, u, out, g_int, r)).abs().max().item()
+        got = banded_masked_max_grad(x, u, out, g, r)
+        err = (got - banded_masked_max_grad_reference(x, u, out, g, r)).abs().max().item()
+        if not torch.isfinite(got).all() or err_int != 0.0 or err > K2_GAUSS_LIMIT:
+            fail(f"K2 disagrees with its plain version at C={C}, r={r}: max abs {err_int} "
+                 f"(integer cotangents, must be 0) and {err} (Gaussian, <= {K2_GAUSS_LIMIT})")
+        ms = cuda_median_ms(torch, lambda: banded_masked_max_grad(x, u, out, g, r), reps=50)
+        plain = cuda_median_ms(
+            torch, lambda: banded_masked_max_grad_reference(x, u, out, g, r), reps=20)
+        print(f"K2 banded_masked_max_grad N={N_POINTS} C={C} r={r}: max_abs_err {err_int} "
+              f"(integer g), {err:.3e} (Gaussian g) | kernel {ms:.4f} ms, plain {plain:.4f} ms "
+              f"(median, CUDA events)")
+        res["k2_err"] = max(res["k2_err"], err)
+        k2_ms, k2_plain = k2_ms + ms, k2_plain + plain
+        # bytes: each input read once, the output written once;
+        # operations: per in-radius pair, the test (9), C compares, C adds
+        pairs_r = in_radius_pairs(torch, x, r)
+        k2_work = [k2_work[0] + 4 * N_POINTS * (3 + 4 * C), k2_work[1] + pairs_r * (9 + 2 * C)]
+    res.update(k2_ms=k2_ms, k2_plain_ms=k2_plain, k2_bound=bound_ms(*k2_work))
+
+    # K1 and K2 at widths outside the SA stages' (any C): a 3 000-point
+    # slice of the cube cloud at r = 0.2
+    x = families["cascade uniform_cube"][:1, :3000].contiguous()
+    for C in EXTRA_CHANNELS:
+        u = torch.randn(1, x.shape[1], C, device=dev, generator=gen)
+        k1, k2 = banded_masked_max.launches, banded_masked_max_grad.launches
+        out = banded_masked_max(x, u, 0.2)
+        err1 = (out - banded_masked_max_reference(x, u, 0.2)).abs().max().item()
+        g_int = torch.randint(-8, 9, u.shape, device=dev, generator=gen).float()
+        g = torch.randn(u.shape, device=dev, generator=gen)
+        err_int = (banded_masked_max_grad(x, u, out, g_int, 0.2)
+                   - banded_masked_max_grad_reference(x, u, out, g_int, 0.2)).abs().max().item()
+        err = (banded_masked_max_grad(x, u, out, g, 0.2)
+               - banded_masked_max_grad_reference(x, u, out, g, 0.2)).abs().max().item()
+        launched = (banded_masked_max.launches - k1, banded_masked_max_grad.launches - k2)
+        print(f"C={C}: K1 max_abs_err {err1}, K2 {err_int} (integer g), {err:.3e} (Gaussian g); "
+              f"launches K1 {launched[0]}, K2 {launched[1]}")
+        if err1 != 0.0 or err_int != 0.0 or err > K2_GAUSS_LIMIT or launched != (1, 2):
+            fail(f"K1/K2 at C={C}: errors {err1}, {err_int}, {err} or launches {launched}")
+        res["k1_err"], res["k2_err"] = max(res["k1_err"], err1), max(res["k2_err"], err)
+    return res
+
+
+def k3_phase(torch, dev) -> dict:
+    """Phase 12: K3 against its plain version at the global path's shapes,
+    on a tie cloud and past the old 16 384-point limit; median CUDA-event
+    times; the pick protocol alone at each cluster size. Returns the
+    numbers of the two shapes one so3_global_init call runs ([2, N, 3] at
+    4096 and 128)."""
+    import numpy as np
+
+    from deepvcp_tpu_torch.data import lidar_like_cloud
+    from deepvcp_tpu_torch.ops.kernels import fps
     from deepvcp_tpu_torch.ops.kernels.fps import (
         farthest_point_sample, farthest_point_sample_reference)
 
@@ -613,28 +753,33 @@ def k3_phase(torch, dev) -> dict:
     lattice = np.concatenate([lattice, lattice])[rng.permutation(2 * len(lattice))]
     cases = [(f"[{B}, {N}, 3] npoint {k}",
               np.stack([lidar_like_cloud(rng, N, max_range=1.0) for _ in range(B)]), k)
-             for B, N, k in FPS_SHAPES]
+             for B, N, k in FPS_SHAPES + FPS_LARGE]
     cases.append((f"tie cloud [1, {len(lattice)}, 3] (a 17^3 lattice, every point twice) "
                   f"npoint 4096", lattice[None], 4096))
     init = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0, "max_abs_err": 0}
     for name, xyz, k in cases:
         x = torch.from_numpy(np.ascontiguousarray(xyz, dtype=np.float32)).to(dev)
+        B, N, _ = x.shape
+        before = farthest_point_sample.launches
         got = farthest_point_sample(x, k)
+        launched = farthest_point_sample.launches - before
         want = farthest_point_sample_reference(x, k)
         err = int((got - want).abs().max())
-        if err != 0:
-            bad = int((got != want).nonzero()[0, 1])
-            fail(f"K3 disagrees with its plain version at {name}: first at pick {bad}")
+        if err != 0 or launched != 1:
+            bad = int((got != want).nonzero()[0, 1]) if err else -1
+            fail(f"K3 at {name}: {launched} launches (want 1), disagrees with its plain version "
+                 f"first at pick {bad}")
         ms = cuda_median_ms(torch, lambda: farthest_point_sample(x, k), reps=10, warmup=1)
         plain = cuda_median_ms(torch, lambda: farthest_point_sample_reference(x, k), reps=3,
                                warmup=1)
-        B, N, _ = x.shape
         # bytes: the cloud read once, the indices written once; operations:
         # each pick, 3 sub, 3 mul, 2 add, a min and a max-compare per point
         nbytes, ops = B * N * 12 + B * k * 8, B * k * N * 10
         bound, by = bound_ms(nbytes, ops)
-        print(f"K3 farthest_point_sample {name}: indices identical | kernel {ms:.4f} ms, "
-              f"plain {plain:.4f} ms (median, CUDA events), bound {bound:.4f} ms ({by})")
+        print(f"K3 farthest_point_sample {name}: indices identical, {launched} launch, cluster of "
+              f"{fps.cluster_size(N)} blocks{' (streamed)' if fps.streams(N, fps.cluster_size(N)) else ''}"
+              f" | kernel {ms:.4f} ms, plain {plain:.4f} ms (median, CUDA events), bound "
+              f"{bound:.4f} ms ({by})")
         if B == GLOBAL_B and N == N_POINTS:
             init["ms"] += ms
             init["plain_ms"] += plain
@@ -642,6 +787,28 @@ def k3_phase(torch, dev) -> dict:
             init["ops"] += ops
             init["max_abs_err"] = max(init["max_abs_err"], err)
     init["bound_ms"], init["bound_by"] = bound_ms(init["bytes"], init["ops"])
+
+    # the pick protocol alone (two warp reductions, the records to every
+    # block of the cluster, the wait for this block's, the slot reduction):
+    # a floor per pick that no cluster of this design beats; beside it the
+    # same records through a cluster barrier and DSMEM round trip a pick
+    iters = 4096
+    per_pick = {False: {}, True: {}}
+    for barrier in (False, True):
+        for cs in (1, 2, 4, 8, 16):
+            smid = torch.empty(GLOBAL_B * cs, dtype=torch.int32, device=dev)
+            ms = cuda_median_ms(torch, lambda: fps.pick_probe(smid, GLOBAL_B, cs, iters, barrier),
+                                reps=5)
+            per_pick[barrier][cs] = ms / iters * 1e3
+    cs = fps.cluster_size(N_POINTS)
+    picks = sum(k for B, N, k in FPS_SHAPES if N == N_POINTS) - 2   # the first pick is free
+    for barrier, what in ((False, "K3's pick protocol alone (st.async + mbarrier)"),
+                          (True, "a cluster barrier + DSMEM round trip a pick")):
+        print(f"{what}, us per pick (median, CUDA events): " + ", ".join(
+            f"{c} blocks {us:.4f}" for c, us in per_pick[barrier].items()))
+    print(f"K3 serial floor of one init at {cs} blocks ({picks} dependent picks x the protocol "
+          f"alone): {picks * per_pick[False][cs] / 1e3:.4f} ms, beside its operations bound "
+          f"{init['bound_ms']:.4f} ms")
     return init
 
 
@@ -695,21 +862,11 @@ def init_split(torch, src, tgt) -> dict:
             "fine_icp_pick": ev[-2].elapsed_time(ev[-1])}
 
 
-def global_phase(torch, dev) -> dict:
-    """Phases 13-15: so3_global_init + modelnet-cascade on the two held sets
-    of campaign_r5f W6, the kernel path against the plain path, and timing.
-    Returns the K1 and K3 launch counts of the gated run."""
-    import numpy as np
+def global_batches(torch, dev) -> dict:
+    """campaign_r5f W6's two held sets, 8 batches of B = 2 pairs each on the
+    card: {name: [(src, tgt, R, t), ...]}."""
+    from deepvcp_tpu_torch.data import LidarLikeDataset, SyntheticDataset, batch_iterator
 
-    from deepvcp_tpu_torch import pretrained
-    from deepvcp_tpu_torch.data import (
-        LidarLikeDataset, SyntheticDataset, batch_iterator, rotation_geodesic_deg,
-        translation_error)
-    from deepvcp_tpu_torch.initializer import so3_global_init
-    from deepvcp_tpu_torch.ops import farthest_point_sample
-    from deepvcp_tpu_torch.ops.kernels import band_max, fps, reference_path
-
-    casc = pretrained.cascade("modelnet-cascade", device="cuda")   # the current card, dev
     held = {
         "lidar_like": LidarLikeDataset(num_clouds=GLOBAL_B * GLOBAL_BATCHES,
                                        num_points=N_POINTS, max_range=1.0, seed=103,
@@ -718,9 +875,25 @@ def global_phase(torch, dev) -> dict:
                                          num_points=N_POINTS, extent=1.0, seed=102,
                                          noise_std=0.01),
     }
-    batches = {name: [tuple(torch.from_numpy(a).to(dev) for a in b) for b in
-                      batch_iterator(ds, GLOBAL_B, epoch=0, seed=777, shuffle=False)]
-               for name, ds in held.items()}
+    return {name: [tuple(torch.from_numpy(a).to(dev) for a in b) for b in
+                   batch_iterator(ds, GLOBAL_B, epoch=0, seed=777, shuffle=False)]
+            for name, ds in held.items()}
+
+
+def global_phase(torch, dev) -> dict:
+    """Phases 13-15: so3_global_init + modelnet-cascade on the two held sets
+    of campaign_r5f W6, the kernel path against the plain path, and timing.
+    Returns the K1 and K3 launch counts of the gated run."""
+    import numpy as np
+
+    from deepvcp_tpu_torch import pretrained
+    from deepvcp_tpu_torch.data import rotation_geodesic_deg, translation_error
+    from deepvcp_tpu_torch.initializer import so3_global_init
+    from deepvcp_tpu_torch.ops import farthest_point_sample
+    from deepvcp_tpu_torch.ops.kernels import band_max, fps, reference_path
+
+    casc = pretrained.cascade("modelnet-cascade", device="cuda")   # the current card, dev
+    batches = global_batches(torch, dev)
 
     # 13. the main path
     torch.cuda.synchronize()
@@ -1238,16 +1411,11 @@ def main() -> None:
 
     # the port itself: an ImportError here (no checkout around the script)
     # ends the run before anything is printed
-    import numpy as np
-
     from deepvcp_tpu_torch import pretrained
     from deepvcp_tpu_torch.data import (
-        LidarLikeDataset, batch_iterator, lidar_like_cloud,
-        rotation_geodesic_deg, translation_error)
+        LidarLikeDataset, batch_iterator, rotation_geodesic_deg, translation_error)
     from deepvcp_tpu_torch.ops.kernels import _build
-    from deepvcp_tpu_torch.ops.kernels.band_max import (
-        banded_masked_max, banded_masked_max_grad, banded_masked_max_grad_reference,
-        banded_masked_max_reference)
+    from deepvcp_tpu_torch.ops.kernels.band_max import banded_masked_max
 
     card = card_line()
     print(f"card: {card}")
@@ -1261,50 +1429,8 @@ def main() -> None:
     _build.library()
     print(f"build: {time.perf_counter() - t0:.2f} s ({_build.build()})")
 
-    # 3. kernel vs plain at the three SA shapes
-    rng = np.random.default_rng(0)
-    xyz = lidar_like_cloud(rng, N_POINTS, max_range=25.0).astype(np.float32)
-    x = torch.from_numpy(xyz[np.argsort(xyz[:, 0], kind="stable")][None]).to(dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    k1_err, k1_ms, k1_plain_ms = 0.0, 0.0, 0.0
-    for C, r in SA_SHAPES:
-        u = torch.randn(1, N_POINTS, C, device=dev, generator=gen)
-        got = banded_masked_max(x, u, r)
-        want = banded_masked_max_reference(x, u, r)
-        err = (got - want).abs().max().item()
-        if not torch.isfinite(got).all() or err != 0.0:
-            fail(f"K1 disagrees with its plain version at C={C}, r={r}: max abs {err}")
-        ms = cuda_median_ms(torch, lambda: banded_masked_max(x, u, r), reps=50)
-        plain = cuda_median_ms(torch, lambda: banded_masked_max_reference(x, u, r), reps=20)
-        print(f"K1 banded_masked_max N={N_POINTS} C={C} r={r}: max_abs_err {err} | "
-              f"kernel {ms:.4f} ms, plain {plain:.4f} ms (median, CUDA events)")
-        k1_err = max(k1_err, err)
-        k1_ms += ms
-        k1_plain_ms += plain
-
-    # 3b. K2 vs plain at the same shapes, cotangents of the forward's output
-    k2_err, k2_ms, k2_plain_ms = 0.0, 0.0, 0.0
-    for C, r in SA_SHAPES:
-        u = torch.randn(1, N_POINTS, C, device=dev, generator=gen)
-        out = banded_masked_max(x, u, r)
-        g_int = torch.randint(-8, 9, u.shape, device=dev, generator=gen).float()
-        g = torch.randn(u.shape, device=dev, generator=gen)
-        err_int = (banded_masked_max_grad(x, u, out, g_int, r)
-                   - banded_masked_max_grad_reference(x, u, out, g_int, r)).abs().max().item()
-        got = banded_masked_max_grad(x, u, out, g, r)
-        err = (got - banded_masked_max_grad_reference(x, u, out, g, r)).abs().max().item()
-        if not torch.isfinite(got).all() or err_int != 0.0 or err > K2_GAUSS_LIMIT:
-            fail(f"K2 disagrees with its plain version at C={C}, r={r}: max abs {err_int} "
-                 f"(integer cotangents, must be 0) and {err} (Gaussian, <= {K2_GAUSS_LIMIT})")
-        ms = cuda_median_ms(torch, lambda: banded_masked_max_grad(x, u, out, g, r), reps=50)
-        plain = cuda_median_ms(
-            torch, lambda: banded_masked_max_grad_reference(x, u, out, g, r), reps=20)
-        print(f"K2 banded_masked_max_grad N={N_POINTS} C={C} r={r}: max_abs_err {err_int} "
-              f"(integer g), {err:.3e} (Gaussian g) | kernel {ms:.4f} ms, plain {plain:.4f} ms "
-              f"(median, CUDA events)")
-        k2_err = max(k2_err, err)
-        k2_ms += ms
-        k2_plain_ms += plain
+    # 3. K1 and K2 against their plain versions
+    band = band_phase(torch, dev)
 
     # 4. the main path: Registrar on kitti25-rot, 16 held-out pairs
     reg = pretrained.registrar("kitti25-rot", device=dev)
@@ -1356,21 +1482,9 @@ def main() -> None:
     two = two_level_phase(torch, dev, pairs)
     two_train = two_level_training(torch, dev)
 
-    # bounds of K1 and K2 at the three SA shapes, from this cloud's pairs
-    # bytes: each input read once, the output written once; operations: per
-    # in-radius pair, the f32 distance test (9) and C max (K1) or C compares
-    # and C adds (K2)
-    k1_work, k2_work = [0, 0], [0, 0]
-    for C, r in SA_SHAPES:
-        pairs_r = in_radius_pairs(torch, x, r)
-        k1_work[0] += 4 * N_POINTS * (3 + 2 * C)
-        k1_work[1] += pairs_r * (9 + C)
-        k2_work[0] += 4 * N_POINTS * (3 + 4 * C)
-        k2_work[1] += pairs_r * (9 + 2 * C)
-        print(f"SA shape C={C}, r={r}: {pairs_r} in-radius pairs in the phase-3 cloud")
-    (k1_bound, k1_by), (k2_bound, k2_by) = bound_ms(*k1_work), bound_ms(*k2_work)
-    print(f"bounds at the 3 SA shapes: K1 {k1_bound:.5f} ms ({k1_by}), K2 {k2_bound:.5f} ms "
-          f"({k2_by}); K3 at one init call's 2 shapes {k3['bound_ms']:.5f} ms "
+    (k1_bound, k1_by), (k2_bound, k2_by) = band["k1_bound"], band["k2_bound"]
+    print(f"bounds at the 3 serving SA shapes: K1 {k1_bound:.5f} ms ({k1_by}), K2 {k2_bound:.5f} "
+          f"ms ({k2_by}); K3 at one init call's 2 shapes {k3['bound_ms']:.5f} ms "
           f"({k3['bound_by']})")
 
     # 11. no jax, nothing of the JAX package
@@ -1391,9 +1505,9 @@ def main() -> None:
         "source": "deepvcp_tpu_torch/csrc/band_max.cu",
         "replaces": "deepvcp_tpu/ops/pallas/band_max_kernel.py:148",
         "launches": launches + train["k1"] + glob["k1"] + two["k1"] + two_train["k1"],
-        "max_abs_err": k1_err,
-        "ms": k1_ms,
-        "plain_ms": k1_plain_ms,
+        "max_abs_err": band["k1_err"],
+        "ms": band["k1_ms"],
+        "plain_ms": band["k1_plain_ms"],
         "bound_ms": k1_bound,
         "bound_by": k1_by,
         "library_ms": None,
@@ -1403,9 +1517,9 @@ def main() -> None:
         "source": "deepvcp_tpu_torch/csrc/band_max_grad.cu",
         "replaces": "deepvcp_tpu/ops/pallas/band_max_kernel.py:267",
         "launches": train["k2"] + two_train["k2"],
-        "max_abs_err": k2_err,
-        "ms": k2_ms,
-        "plain_ms": k2_plain_ms,
+        "max_abs_err": band["k2_err"],
+        "ms": band["k2_ms"],
+        "plain_ms": band["k2_plain_ms"],
         "bound_ms": k2_bound,
         "bound_by": k2_by,
         "library_ms": None,

@@ -8,59 +8,137 @@
 // It ports what that kernel computes, not Mosaic's layout: there is no
 // [B, C, N] transpose, no (8, 128) padding and no scalar prefetch.
 //
-// Design. One block per tile of TILE consecutive sorted queries. The block
-// finds its own slab [lo, hi) of candidate points by binary search over the
-// sort key (x), then streams the slab through shared memory CHUNK points at a
-// time. A thread owns one query and KPT channels and keeps their running
-// maxima in registers; at C = 64 four threads share a query. Threads of one
-// warp share their channel group, so every shared-memory read of a slab
-// point's features is a broadcast.
+// Design. One block per tile of 32 consecutive sorted queries and window of
+// KC channels (KC = 16, 32 or 64, a template parameter; a wider C takes
+// several windows, blockIdx.y). A lane owns one query and keeps the
+// window's KC running maxima in registers, so each (query, point) pair is
+// tested once, not once per channel group.
+//   - Slab search: warp 0 finds lo and warp 1 hi by the warp-cooperative
+//     search of band_slab.cuh (three rounds of 32 probes at N = 10 000, in
+//     place of one thread's two serial binary searches).
+//   - Staging: the slab streams through a two-stage cp.async ring of CHUNK
+//     = 128 points (xyz as float4, the window's channels), so the next
+//     chunk loads while the current one is tested.
+//   - Split: SW warps (4 at KC = 16, 8 above) take interleaved points of
+//     each chunk, so a long slab is shared by SW warps of the tile's 32
+//     queries; a point's row is read (a broadcast) only where some lane's
+//     query holds it, a warp-uniform branch.
+//   - Merge: each warp's maxima go to shared memory and the block takes
+//     their max, written as whole rows. fmaxf is exact and order-free, so
+//     the split changes no bit.
+// Any C >= 1: a window's channels past C are staged from nowhere and never
+// written; C % 4 == 0 stages 16-byte rows, other C 4-byte elements.
+// Larger tiles (64-256 queries a block, each staged row read by more
+// queries) and other splits were slower on both shape families (PERF.md,
+// PR 6).
 //
-// What bounds it. Each slab point's xyz and features cross HBM once per query
-// tile, but are read TILE times from shared memory, and each in-radius pair
-// costs KPT compare-and-max per thread. The loop is bound by shared-memory
-// reads and max throughput on slab pairs, not by HBM bytes.
+// What bounds it. At the serving shapes (slabs of 150-800 points, 1-2% of
+// the pairs in radius), latency: the search, the loads and few warps a
+// tile. On the object-scale clouds of the cascade (slabs of thousands of
+// points, up to 64% of the pairs in radius), the KC max operations a lane
+// does per in-radius point and the divergence of the lanes that do not.
 //
-// Exactness. The slab search and the pair test are band_slab.cuh's, shared
-// with K2: d2 = ((dx*dx) + (dy*dy)) + (dz*dz) in round-to-nearest
-// intrinsics, the f32 expression the plain PyTorch version evaluates, so
-// both accept the same pairs and the max, which never rounds, is
-// bit-identical.
-
 #include <cuda_runtime.h>
 
 #include "band_slab.cuh"
 
 namespace {
 
-constexpr int TILE = 64;    // queries per block
-constexpr int CHUNK = 128;  // slab points staged in shared memory per step
-constexpr int KPT = 16;     // channels per thread; C / KPT threads share a query
+constexpr int TILE = 32;     // queries per block, a lane each
+constexpr int CHUNK = 128;   // slab points per stage of the ring
 constexpr float NEG = -1e30f;
 
-template <int C>
-__global__ void __launch_bounds__(TILE * (C / KPT))
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// A block: SW warps over one tile of 32 queries, each taking every SW-th
+// point of a chunk. Dynamic shared memory holds the ring, then the merge.
+template <int KC, int SW>
+struct Shape {
+  static constexpr int THREADS = 32 * SW;
+  struct Ring {
+    float4 x[2][CHUNK];           // xyz of a chunk's points (w unused)
+    float4 u[2][CHUNK * KC / 4];  // the window's channels, row-major
+  };
+  static constexpr int MERGE = SW * TILE * (KC + 1) * 4;
+  static constexpr int SMEM = sizeof(Ring) > MERGE ? sizeof(Ring) : MERGE;
+};
+
+// Stage points [base, base + n) of the slab into ring stage st.
+template <int KC, int SW>
+__device__ __forceinline__ void stage(typename Shape<KC, SW>::Ring& ring, int st, const float* bx,
+                                      const float* bu, int base, int n, int C, int c0, int cw,
+                                      bool vec) {
+  constexpr int THREADS = Shape<KC, SW>::THREADS;
+  float* sx = reinterpret_cast<float*>(ring.x[st]);
+  for (int i = threadIdx.x; i < n * 3; i += THREADS) {
+    const int r = i / 3;
+    cp_async4(sx + 4 * r + (i - 3 * r), bx + static_cast<size_t>(base) * 3 + i);
+  }
+  if (vec && cw == KC) {  // whole 16-byte rows of the window
+    for (int i = threadIdx.x; i < n * (KC / 4); i += THREADS) {
+      const int r = i / (KC / 4), k = i % (KC / 4);
+      cp_async16(&ring.u[st][i], bu + static_cast<size_t>(base + r) * C + c0 + 4 * k);
+    }
+  } else if (vec) {  // cw % 4 == 0 and 16-byte aligned rows
+    const int per_row = cw / 4;
+    for (int i = threadIdx.x; i < n * per_row; i += THREADS) {
+      const int r = i / per_row, k = i - r * per_row;
+      cp_async16(&ring.u[st][r * (KC / 4) + k],
+                 bu + static_cast<size_t>(base + r) * C + c0 + 4 * k);
+    }
+  } else {
+    float* su = reinterpret_cast<float*>(ring.u[st]);
+    for (int i = threadIdx.x; i < n * cw; i += THREADS) {
+      const int r = i / cw, k = i - r * cw;
+      cp_async4(su + r * KC + k, bu + static_cast<size_t>(base + r) * C + c0 + k);
+    }
+  }
+}
+
+template <int KC, int SW>
+__global__ void __launch_bounds__(Shape<KC, SW>::THREADS)
 band_max_kernel(const float* __restrict__ xyz, const float* __restrict__ u,
-                float* __restrict__ out, int N, float radius, float r2) {
-  static_assert(C % KPT == 0, "C must be a multiple of KPT");
-  __shared__ float sx[CHUNK * 3];
-  __shared__ __align__(16) float su[CHUNK * C];
+                float* __restrict__ out, int N, int C, float radius, float r2) {
+  using S = Shape<KC, SW>;
+  extern __shared__ float4 smem[];
+  typename S::Ring& ring = *reinterpret_cast<typename S::Ring*>(smem);
   __shared__ int bounds[2];
 
-  const int b = blockIdx.y;
+  const int b = blockIdx.z;
   const int tile0 = blockIdx.x * TILE;
-  const int q = tile0 + threadIdx.x % TILE;
-  const int group = threadIdx.x / TILE;
+  const int c0 = blockIdx.y * KC;
+  const int cw = min(KC, C - c0);
+  const bool vec = C % 4 == 0 && reinterpret_cast<size_t>(u) % 16 == 0;
+  const int lane = threadIdx.x & 31;
+  const int sw = threadIdx.x >> 5;  // which share of each chunk
+  const int q = tile0 + lane;
   const float* bx = xyz + static_cast<size_t>(b) * N * 3;
   const float* bu = u + static_cast<size_t>(b) * N * C;
 
-  if (threadIdx.x == 0) {
-    band_slab::slab(bx, N, tile0, TILE, radius, &bounds[0], &bounds[1]);
+  if (sw == 0) {
+    const int lo = band_slab::lower_bound_key_warp(bx, N, band_slab::slab_lo_key(bx, tile0, radius));
+    if (lane == 0) bounds[0] = lo;
+  } else if (sw == 1) {
+    const int last = min(tile0 + TILE, N) - 1;
+    const int hi = band_slab::lower_bound_key_warp(bx, N, band_slab::slab_hi_key(bx, last, radius));
+    if (lane == 0) bounds[1] = hi;
   }
-  __syncthreads();
-  const int lo = bounds[0];
-  const int hi = bounds[1];
-
   const bool live = q < N;
   float qx = 0.f, qy = 0.f, qz = 0.f;
   if (live) {
@@ -68,64 +146,97 @@ band_max_kernel(const float* __restrict__ xyz, const float* __restrict__ u,
     qy = bx[3 * q + 1];
     qz = bx[3 * q + 2];
   }
-  float acc[KPT];
+  float acc[KC];
 #pragma unroll
-  for (int k = 0; k < KPT; ++k) acc[k] = NEG;
+  for (int k = 0; k < KC; ++k) acc[k] = NEG;
+  __syncthreads();
+  const int lo = bounds[0];
+  const int hi = bounds[1];
+  const int chunks = (hi - lo + CHUNK - 1) / CHUNK;
 
-  for (int base = lo; base < hi; base += CHUNK) {
+  if (chunks > 0) stage<KC, SW>(ring, 0, bx, bu, lo, min(CHUNK, hi - lo), C, c0, cw, vec);
+  cp_async_commit();
+  for (int k = 0; k < chunks; ++k) {
+    const int st = k & 1;
+    const int base = lo + k * CHUNK;
+    if (k + 1 < chunks) {
+      stage<KC, SW>(ring, st ^ 1, bx, bu, base + CHUNK, min(CHUNK, hi - base - CHUNK), C, c0, cw,
+                    vec);
+    }
+    cp_async_commit();
+    cp_async_wait_one();  // this thread's copies of chunk k have landed
+    __syncthreads();      // and everyone's
     const int n = min(CHUNK, hi - base);
-    __syncthreads();  // every thread is done with the previous chunk
-    for (int i = threadIdx.x; i < n * 3; i += blockDim.x) {
-      sx[i] = bx[static_cast<size_t>(base) * 3 + i];
-    }
-    for (int i = threadIdx.x; i < n * C; i += blockDim.x) {
-      su[i] = bu[static_cast<size_t>(base) * C + i];
-    }
-    __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      if (band_slab::in_radius(sx[3 * j], sx[3 * j + 1], sx[3 * j + 2], qx, qy, qz, r2)) {
-        const float4* row = reinterpret_cast<const float4*>(su + j * C + group * KPT);
+    for (int j = sw; j < n; j += SW) {
+      const float4 p = ring.x[st][j];
+      const bool hit = live && band_slab::in_radius(p.x, p.y, p.z, qx, qy, qz, r2);
+      if (__any_sync(0xffffffffu, hit)) {
+        const float4* row = &ring.u[st][j * (KC / 4)];
 #pragma unroll
-        for (int k = 0; k < KPT / 4; ++k) {
-          const float4 v = row[k];
-          acc[4 * k] = fmaxf(acc[4 * k], v.x);
-          acc[4 * k + 1] = fmaxf(acc[4 * k + 1], v.y);
-          acc[4 * k + 2] = fmaxf(acc[4 * k + 2], v.z);
-          acc[4 * k + 3] = fmaxf(acc[4 * k + 3], v.w);
+        for (int k4 = 0; k4 < KC / 4; ++k4) {
+          const float4 v = row[k4];
+          if (hit) {
+            acc[4 * k4] = fmaxf(acc[4 * k4], v.x);
+            acc[4 * k4 + 1] = fmaxf(acc[4 * k4 + 1], v.y);
+            acc[4 * k4 + 2] = fmaxf(acc[4 * k4 + 2], v.z);
+            acc[4 * k4 + 3] = fmaxf(acc[4 * k4 + 3], v.w);
+          }
         }
       }
     }
+    __syncthreads();  // everyone is done with stage st before it is refilled
   }
-  if (live) {
-    float* o = out + (static_cast<size_t>(b) * N + q) * C + group * KPT;
+
+  // merge the shares' maxima (the ring is free now) and write whole rows
+  float* red = reinterpret_cast<float*>(smem);
 #pragma unroll
-    for (int k = 0; k < KPT; ++k) o[k] = acc[k];
+  for (int k = 0; k < KC; ++k) red[(sw * TILE + lane) * (KC + 1) + k] = acc[k];
+  __syncthreads();
+  const int rows = min(TILE, N - tile0);
+  for (int i = threadIdx.x; i < rows * cw; i += S::THREADS) {
+    const int r = i / cw, k = i - r * cw;
+    float m = red[r * (KC + 1) + k];
+#pragma unroll
+    for (int w = 1; w < SW; ++w) m = fmaxf(m, red[(w * TILE + r) * (KC + 1) + k]);
+    out[(static_cast<size_t>(b) * N + tile0 + r) * C + c0 + k] = m;
   }
 }
 
-template <int C>
-int launch(const float* xyz, const float* u, float* out, int B, int N,
-           float radius, float r2, cudaStream_t stream) {
-  const dim3 grid((N + TILE - 1) / TILE, B);
-  band_max_kernel<C><<<grid, TILE * (C / KPT), 0, stream>>>(xyz, u, out, N, radius, r2);
+template <int KC, int SW>
+int launch(const float* xyz, const float* u, float* out, int B, int N, int C, float radius,
+           float r2, cudaStream_t stream) {
+  using S = Shape<KC, SW>;
+  auto kernel = band_max_kernel<KC, SW>;
+  if (S::SMEM > 48 * 1024) {  // above 48 KB only once allowed, per card
+    static unsigned allowed = 0;  // a bit per card
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev >= 32 || !(allowed & (1u << dev))) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      if (dev < 32) allowed |= 1u << dev;
+    }
+  }
+  const dim3 grid((N + TILE - 1) / TILE, (C + KC - 1) / KC, B);
+  kernel<<<grid, S::THREADS, S::SMEM, stream>>>(xyz, u, out, N, C, radius, r2);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C entry point for ctypes. xyz [B, N, 3], u and out [B, N, C], all
-// contiguous float32 on the current device; radius and r2 = f32(radius**2).
-// Returns the cudaError_t of the launch (0 on success).
+// contiguous float32 on the current device, any C >= 1; radius and
+// r2 = f32(radius**2). Returns the cudaError_t of the launch (0 on success).
 extern "C" int band_max_f32(const float* xyz, const float* u, float* out, int B,
                             int N, int C, float radius, float r2, void* stream) {
-  if (B <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || N <= 0 || C <= 0 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 16: return launch<16>(xyz, u, out, B, N, radius, r2, s);
-    case 32: return launch<32>(xyz, u, out, B, N, radius, r2, s);
-    case 64: return launch<64>(xyz, u, out, B, N, radius, r2, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  // 4 warps a tile at 16 channels, 8 above (the fastest on the serving and
+  // the cascade's clouds; PERF.md, PR 6)
+  if (C <= 16) return launch<16, 4>(xyz, u, out, B, N, C, radius, r2, s);
+  if (C <= 32) return launch<32, 8>(xyz, u, out, B, N, C, radius, r2, s);
+  return launch<64, 8>(xyz, u, out, B, N, C, radius, r2, s);
 }
 
 // Message for an error code returned above.

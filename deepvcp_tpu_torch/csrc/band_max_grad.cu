@@ -23,10 +23,15 @@
 // Determinism. Each sum runs over the slab in ascending q, one thread per
 // (n, channel group), with no atomics: the same inputs give the same bits.
 //
+// Any C >= 1: a block takes a window of CB channels (CB = 16, 32 or 64, a
+// template parameter; C = 16, 32 and 64 are one window each, and a wider or
+// other C takes ceil(C / CB) windows, blockIdx.z). A window's channels past
+// C are staged as zeros and never written.
+//
 // What bounds it. Like K1, shared-memory reads and compare-and-add on
 // in-radius pairs; each query row (3 + 2 C floats) crosses HBM once per
-// receiver tile. A chunk is CHUNK * (3 + 2 C) * 4 bytes: 33.5 KB at C = 64,
-// inside the 48 KB a block may declare statically.
+// receiver tile. A chunk is CHUNK * (3 + 2 CB) * 4 bytes: 33.5 KB at CB =
+// 64, inside the 48 KB a block may declare statically.
 
 #include <cuda_runtime.h>
 
@@ -38,19 +43,21 @@ constexpr int TILE = 64;   // receivers per block
 constexpr int CHUNK = 64;  // queries staged in shared memory per step
 constexpr int KPT = 16;    // channels per thread; C / KPT threads share a receiver
 
-template <int C>
-__global__ void __launch_bounds__(TILE * (C / KPT))
+template <int CB>
+__global__ void __launch_bounds__(TILE * (CB / KPT))
 band_max_grad_kernel(const float* __restrict__ xyz, const float* __restrict__ u,
                      const float* __restrict__ out, const float* __restrict__ g,
-                     float* __restrict__ grad, int N, float radius, float r2) {
-  static_assert(C % KPT == 0, "C must be a multiple of KPT");
+                     float* __restrict__ grad, int N, int C, float radius, float r2) {
+  static_assert(CB % KPT == 0, "CB must be a multiple of KPT");
   __shared__ float sx[CHUNK * 3];
-  __shared__ __align__(16) float so[CHUNK * C];
-  __shared__ __align__(16) float sg[CHUNK * C];
+  __shared__ __align__(16) float so[CHUNK * CB];
+  __shared__ __align__(16) float sg[CHUNK * CB];
   __shared__ int bounds[2];
 
   const int b = blockIdx.y;
   const int tile0 = blockIdx.x * TILE;
+  const int c0 = blockIdx.z * CB;
+  const int cw = min(CB, C - c0);  // == CB == C on the SA stages' widths
   const int n = tile0 + threadIdx.x % TILE;
   const int group = threadIdx.x / TILE;
   const float* bx = xyz + static_cast<size_t>(b) * N * 3;
@@ -68,23 +75,29 @@ band_max_grad_kernel(const float* __restrict__ xyz, const float* __restrict__ u,
   float nx = 0.f, ny = 0.f, nz = 0.f;
   float un[KPT];
   float acc[KPT];
+#pragma unroll
+  for (int k = 0; k < KPT; ++k) un[k] = 0.f;
   if (live) {
     nx = bx[3 * n];
     ny = bx[3 * n + 1];
     nz = bx[3 * n + 2];
-    const float4* row = reinterpret_cast<const float4*>(
-        u + (static_cast<size_t>(b) * N + n) * C + group * KPT);
+    const float* row = u + (static_cast<size_t>(b) * N + n) * C + c0 + group * KPT;
+    if (C == CB && reinterpret_cast<size_t>(row) % 16 == 0) {
+      const float4* row4 = reinterpret_cast<const float4*>(row);
 #pragma unroll
-    for (int k = 0; k < KPT / 4; ++k) {
-      const float4 v = row[k];
-      un[4 * k] = v.x;
-      un[4 * k + 1] = v.y;
-      un[4 * k + 2] = v.z;
-      un[4 * k + 3] = v.w;
+      for (int k = 0; k < KPT / 4; ++k) {
+        const float4 v = row4[k];
+        un[4 * k] = v.x;
+        un[4 * k + 1] = v.y;
+        un[4 * k + 2] = v.z;
+        un[4 * k + 3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < KPT; ++k) {
+        if (group * KPT + k < cw) un[k] = row[k];
+      }
     }
-  } else {
-#pragma unroll
-    for (int k = 0; k < KPT; ++k) un[k] = 0.f;
   }
 #pragma unroll
   for (int k = 0; k < KPT; ++k) acc[k] = 0.f;
@@ -95,16 +108,25 @@ band_max_grad_kernel(const float* __restrict__ xyz, const float* __restrict__ u,
     for (int i = threadIdx.x; i < m * 3; i += blockDim.x) {
       sx[i] = bx[static_cast<size_t>(base) * 3 + i];
     }
-    for (int i = threadIdx.x; i < m * C; i += blockDim.x) {
-      so[i] = bo[static_cast<size_t>(base) * C + i];
-      sg[i] = bg[static_cast<size_t>(base) * C + i];
+    if (C == CB) {  // the window is the whole row: one contiguous copy
+      for (int i = threadIdx.x; i < m * CB; i += blockDim.x) {
+        so[i] = bo[static_cast<size_t>(base) * C + i];
+        sg[i] = bg[static_cast<size_t>(base) * C + i];
+      }
+    } else {
+      for (int i = threadIdx.x; i < m * CB; i += blockDim.x) {
+        const int r = i / CB, k = i % CB;
+        const size_t at = static_cast<size_t>(base + r) * C + c0 + k;
+        so[i] = k < cw ? bo[at] : 0.f;
+        sg[i] = k < cw ? bg[at] : 0.f;
+      }
     }
     __syncthreads();
     if (!live) continue;
     for (int j = 0; j < m; ++j) {
       if (band_slab::in_radius(sx[3 * j], sx[3 * j + 1], sx[3 * j + 2], nx, ny, nz, r2)) {
-        const float4* orow = reinterpret_cast<const float4*>(so + j * C + group * KPT);
-        const float4* grow = reinterpret_cast<const float4*>(sg + j * C + group * KPT);
+        const float4* orow = reinterpret_cast<const float4*>(so + j * CB + group * KPT);
+        const float4* grow = reinterpret_cast<const float4*>(sg + j * CB + group * KPT);
 #pragma unroll
         for (int k = 0; k < KPT / 4; ++k) {
           const float4 o = orow[k];
@@ -118,36 +140,35 @@ band_max_grad_kernel(const float* __restrict__ xyz, const float* __restrict__ u,
     }
   }
   if (live) {
-    float* o = grad + (static_cast<size_t>(b) * N + n) * C + group * KPT;
+    float* o = grad + (static_cast<size_t>(b) * N + n) * C + c0 + group * KPT;
 #pragma unroll
-    for (int k = 0; k < KPT; ++k) o[k] = acc[k];
+    for (int k = 0; k < KPT; ++k) {
+      if (group * KPT + k < cw) o[k] = acc[k];
+    }
   }
 }
 
-template <int C>
+template <int CB>
 int launch(const float* xyz, const float* u, const float* out, const float* g,
-           float* grad, int B, int N, float radius, float r2, cudaStream_t stream) {
-  const dim3 grid((N + TILE - 1) / TILE, B);
-  band_max_grad_kernel<C><<<grid, TILE * (C / KPT), 0, stream>>>(
-      xyz, u, out, g, grad, N, radius, r2);
+           float* grad, int B, int N, int C, float radius, float r2, cudaStream_t stream) {
+  const dim3 grid((N + TILE - 1) / TILE, B, (C + CB - 1) / CB);
+  band_max_grad_kernel<CB><<<grid, TILE * (CB / KPT), 0, stream>>>(
+      xyz, u, out, g, grad, N, C, radius, r2);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C entry point for ctypes. xyz [B, N, 3]; u, out, g and grad
-// [B, N, C], all contiguous float32 on the current device; radius and
-// r2 = f32(radius**2), the values the forward (band_max_f32) was given.
-// Returns the cudaError_t of the launch (0 on success).
+// [B, N, C], all contiguous float32 on the current device, any C >= 1;
+// radius and r2 = f32(radius**2), the values the forward (band_max_f32)
+// was given. Returns the cudaError_t of the launch (0 on success).
 extern "C" int band_max_grad_f32(const float* xyz, const float* u, const float* out,
                                  const float* g, float* grad, int B, int N, int C,
                                  float radius, float r2, void* stream) {
-  if (B <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || N <= 0 || C <= 0 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 16: return launch<16>(xyz, u, out, g, grad, B, N, radius, r2, s);
-    case 32: return launch<32>(xyz, u, out, g, grad, B, N, radius, r2, s);
-    case 64: return launch<64>(xyz, u, out, g, grad, B, N, radius, r2, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (C <= 16) return launch<16>(xyz, u, out, g, grad, B, N, C, radius, r2, s);
+  if (C <= 32) return launch<32>(xyz, u, out, g, grad, B, N, C, radius, r2, s);
+  return launch<64>(xyz, u, out, g, grad, B, N, C, radius, r2, s);
 }

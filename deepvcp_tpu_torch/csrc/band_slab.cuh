@@ -4,7 +4,8 @@
 // A block owns the tile [tile0, tile_end) of an x-sorted cloud. Every point
 // within `radius` of a tile point has its x within radius of the tile's x
 // range, so the block's candidates form one contiguous slab [lo, hi) of the
-// sorted order, found by two binary searches over the sort key. The relation
+// sorted order, found by two searches over the sort key (K2: one thread's
+// binary searches; K1: lower_bound_key_warp, a warp's). The relation
 // is symmetric, so the same slab serves K1 (the tile holds queries, the slab
 // the points they pool) and K2 (the tile holds gradient receivers, the slab
 // the queries that can see them).
@@ -34,18 +35,50 @@ __device__ inline int lower_bound_key(const float* xyz, int n, float v) {
   return lo;
 }
 
+// The keys that bound the slab of the tile [tile0, last]: lo is the first
+// point with x >= slab_lo_key, hi the first with x >= slab_hi_key (the lower
+// bound of the next float above the widened reach).
+__device__ __forceinline__ float slab_lo_key(const float* bx, int tile0, float radius) {
+  const float x_first = bx[3 * tile0];
+  return x_first - (radius + (fabsf(x_first) + radius) * 0x1p-16f);
+}
+
+__device__ __forceinline__ float slab_hi_key(const float* bx, int last, float radius) {
+  const float x_last = bx[3 * last];
+  return nextafterf(x_last + (radius + (fabsf(x_last) + radius) * 0x1p-16f), CUDART_INF_F);
+}
+
 // [lo, hi) of the sorted cloud bx [N, 3] that can lie within radius of a
 // point of the tile [tile0, min(tile0 + tile, N)).
 __device__ inline void slab(const float* bx, int N, int tile0, int tile,
                             float radius, int* lo, int* hi) {
   const int last = min(tile0 + tile, N) - 1;
-  const float x_first = bx[3 * tile0];
-  const float x_last = bx[3 * last];
-  const float reach_lo = radius + (fabsf(x_first) + radius) * 0x1p-16f;
-  const float reach_hi = radius + (fabsf(x_last) + radius) * 0x1p-16f;
-  *lo = lower_bound_key(bx, N, x_first - reach_lo);
-  // first key > x_last + reach: lower bound of the next float up
-  *hi = lower_bound_key(bx, N, nextafterf(x_last + reach_hi, CUDART_INF_F));
+  *lo = lower_bound_key(bx, N, slab_lo_key(bx, tile0, radius));
+  *hi = lower_bound_key(bx, N, slab_hi_key(bx, last, radius));
+}
+
+// lower_bound_key by one warp: each round 32 lanes probe the remaining
+// range at 32 cut points and a ballot keeps the part that holds the bound,
+// so N = 10 000 takes three rounds of one load each, not ~14 dependent
+// loads. Every lane returns the same index.
+__device__ inline int lower_bound_key_warp(const float* xyz, int n, float v) {
+  const int lane = threadIdx.x & 31;
+  int lo = 0, hi = n;  // the bound lies in [lo, hi]; hi == n or xyz[3 hi] >= v
+  while (hi - lo > 32) {
+    const int len = hi - lo;
+    const int probe = lo + static_cast<int>((static_cast<long long>(lane + 1) * len) / 33);
+    const unsigned ge = __ballot_sync(0xffffffffu, xyz[3 * probe] >= v);
+    if (ge == 0u) {
+      lo = lo + static_cast<int>((32LL * len) / 33) + 1;
+    } else {
+      const int k = __ffs(ge) - 1;
+      const int new_hi = lo + static_cast<int>((static_cast<long long>(k + 1) * len) / 33);
+      lo = k == 0 ? lo : lo + static_cast<int>((static_cast<long long>(k) * len) / 33) + 1;
+      hi = new_hi;
+    }
+  }
+  const unsigned ge = __ballot_sync(0xffffffffu, lo + lane < hi && xyz[3 * (lo + lane)] >= v);
+  return ge == 0u ? hi : lo + __ffs(ge) - 1;
 }
 
 // |a - b|^2 <= r2 as ((dx*dx) + (dy*dy)) + (dz*dz) in round-to-nearest f32

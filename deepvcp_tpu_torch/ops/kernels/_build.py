@@ -22,6 +22,8 @@ import subprocess
 import tempfile
 import threading
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -97,6 +99,8 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use, with every entry
     point's argtypes and restype declared."""
     global _lib
+    if _lib is not None:  # the wrappers' path: no lock once loaded
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
@@ -105,8 +109,10 @@ def library() -> ctypes.CDLL:
             lib.band_max_f32.restype = i
             lib.band_max_grad_f32.argtypes = [p, p, p, p, p, i, i, i, f, f, p]
             lib.band_max_grad_f32.restype = i
-            lib.fps_f32.argtypes = [p, p, i, i, i, i, p]
+            lib.fps_f32.argtypes = [p, p, p, i, i, i, i, i, p]
             lib.fps_f32.restype = i
+            lib.fps_pick_probe.argtypes = [i, i, i, i, p, p]
+            lib.fps_pick_probe.restype = i
             lib.onehot_gather_f32.argtypes = [p, p, p, i, i, i, i, p]
             lib.onehot_gather_f32.restype = i
             lib.onehot_scatter_add_f32.argtypes = [p, p, p, i, i, i, i, p]
@@ -115,3 +121,19 @@ def library() -> ctypes.CDLL:
             lib.band_max_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+def launch(fn, t, *args) -> None:
+    """fn(*args, stream): one kernel of the library on the card of tensor t
+    and that card's current stream; raises with CUDA's message if fn
+    returns an error code. The host's time here is the caller's (the
+    paths wait on the host): the stream is read as a raw handle, and the
+    current card is switched only when t lies on another."""
+    index = t.get_device()
+    if index != torch._C._cuda_getDevice():
+        with torch.cuda.device(index):
+            return launch(fn, t, *args)
+    rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: "
+                           f"{library().band_max_error_string(rc).decode()}")

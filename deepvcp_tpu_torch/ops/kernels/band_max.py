@@ -31,18 +31,18 @@ interpret mode for its own semantics.
 
 from __future__ import annotations
 
-import ctypes
+import functools
 
 import numpy as np
 import torch
 
-from deepvcp_tpu_torch.ops.kernels import _plain
+from deepvcp_tpu_torch.ops.kernels import _build, _plain
 
 NEG = -1e30
-SUPPORTED_CHANNELS = (16, 32, 64)  # the SA stages' first widths
 _REFERENCE_CHUNK = 64  # queries (K1) or receivers (K2) per [B, chunk, N, C] block
 
 
+@functools.lru_cache(maxsize=64)
 def radius_squared(radius: float) -> float:
     """r^2 rounded once to f32, the threshold both versions compare with."""
     return float(np.float32(float(radius) ** 2))
@@ -99,30 +99,35 @@ def banded_masked_max_grad_reference(
     return grad
 
 
-def _check(sorted_xyz: torch.Tensor, *feats: torch.Tensor) -> None:
-    if sorted_xyz.dim() != 3 or sorted_xyz.shape[-1] != 3:
-        raise ValueError(f"sorted_xyz must be [B, N, 3], got {tuple(sorted_xyz.shape)}")
+def _check(sorted_xyz: torch.Tensor, *feats: torch.Tensor) -> torch.Size:
+    """Raise unless sorted_xyz is [B, N, 3] and the features [B, N, C] alike,
+    all float32 on one device; return the features' shape. Kept to a few
+    attribute reads: on the card this runs on the host before each launch."""
+    s, shape, dev = sorted_xyz.shape, feats[0].shape, sorted_xyz.device
+    if len(s) != 3 or s[2] != 3:
+        raise ValueError(f"sorted_xyz must be [B, N, 3], got {tuple(s)}")
+    if len(shape) != 3 or shape[0] != s[0] or shape[1] != s[1]:
+        raise ValueError(f"features must be [B, N, C] matching sorted_xyz {tuple(s)}, got "
+                         f"{tuple(shape)}")
     for u in feats:
-        if u.dim() != 3 or u.shape[:2] != sorted_xyz.shape[:2] or u.shape != feats[0].shape:
-            raise ValueError(
-                f"features must be [B, N, C] matching sorted_xyz "
-                f"{tuple(sorted_xyz.shape)} and each other, got {tuple(u.shape)}")
-        if u.dtype != torch.float32:
+        if u.shape != shape:
+            raise ValueError(f"features of shapes {tuple(shape)} and {tuple(u.shape)}")
+        if u.dtype is not torch.float32:
             raise TypeError(f"float32 only, got {u.dtype}")
-        if u.device != sorted_xyz.device:
-            raise ValueError(f"tensors on {sorted_xyz.device} and {u.device}")
-    if sorted_xyz.dtype != torch.float32:
+        if u.device != dev:
+            raise ValueError(f"tensors on {dev} and {u.device}")
+    if sorted_xyz.dtype is not torch.float32:
         raise TypeError(f"float32 only, got {sorted_xyz.dtype}")
+    return shape
 
 
-def _kernel_args(sorted_xyz: torch.Tensor, *feats: torch.Tensor) -> None:
+def _kernel_args(sorted_xyz: torch.Tensor, shape: torch.Size, *feats: torch.Tensor) -> None:
     """Raise unless the CUDA kernels take these tensors as they are."""
-    if sorted_xyz.device.type != "cuda":
+    if not sorted_xyz.is_cuda:
         raise ValueError(f"no kernel for device {sorted_xyz.device}")
-    C = feats[0].shape[-1]
-    if C not in SUPPORTED_CHANNELS:
-        raise ValueError(f"C={C} not in the kernel's {SUPPORTED_CHANNELS}")
-    if not all(t.is_contiguous() for t in (sorted_xyz, *feats)):
+    if 0 in shape:
+        raise ValueError(f"the band-max kernels need B, N, C >= 1, got {tuple(shape)}")
+    if not (sorted_xyz.is_contiguous() and all(t.is_contiguous() for t in feats)):
         raise ValueError("the band-max kernels need contiguous inputs")
 
 
@@ -133,27 +138,15 @@ def banded_masked_max(
 
     sorted_xyz [B, N, 3] sorted ascending by x, u [B, N, C], both float32
     -> [B, N, C] float32. A CPU tensor runs the plain reference; a CUDA
-    tensor launches the Hopper kernel (C in SUPPORTED_CHANNELS, contiguous
-    inputs) or raises. `banded_masked_max.launches` counts kernel launches."""
-    _check(sorted_xyz, u)
-    if sorted_xyz.device.type == "cpu" or _plain.active():
+    tensor launches the Hopper kernel (any C, contiguous inputs) or raises.
+    `banded_masked_max.launches` counts kernel launches."""
+    shape = _check(sorted_xyz, u)
+    if sorted_xyz.is_cpu or _plain.active():
         return banded_masked_max_reference(sorted_xyz, u, radius)
-    _kernel_args(sorted_xyz, u)
-    B, N, C = u.shape
-    from deepvcp_tpu_torch.ops.kernels._build import library
-
-    lib = library()
+    _kernel_args(sorted_xyz, shape, u)
     out = torch.empty_like(u)
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        rc = lib.band_max_f32(
-            sorted_xyz.data_ptr(), u.data_ptr(), out.data_ptr(), B, N, C,
-            ctypes.c_float(float(radius)), ctypes.c_float(radius_squared(radius)),
-            stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"band_max kernel launch failed: {lib.band_max_error_string(rc).decode()}")
+    _build.launch(_build.library().band_max_f32, u, sorted_xyz.data_ptr(), u.data_ptr(),
+                  out.data_ptr(), *shape, radius, radius_squared(radius))
     banded_masked_max.launches += 1
     return out
 
@@ -167,29 +160,16 @@ def banded_masked_max_grad(
 ) -> torch.Tensor:
     """grad_u of banded_masked_max(sorted_xyz, u, radius) = out for the
     cotangent g: [B, N, C] float32. A CPU tensor runs the plain reference; a
-    CUDA tensor launches the Hopper kernel (C in SUPPORTED_CHANNELS,
-    contiguous inputs) or raises. `banded_masked_max_grad.launches` counts
-    kernel launches."""
-    _check(sorted_xyz, u, out, g)
-    if sorted_xyz.device.type == "cpu" or _plain.active():
+    CUDA tensor launches the Hopper kernel (any C, contiguous inputs) or
+    raises. `banded_masked_max_grad.launches` counts kernel launches."""
+    shape = _check(sorted_xyz, u, out, g)
+    if sorted_xyz.is_cpu or _plain.active():
         return banded_masked_max_grad_reference(sorted_xyz, u, out, g, radius)
-    _kernel_args(sorted_xyz, u, out, g)
-    B, N, C = u.shape
-    from deepvcp_tpu_torch.ops.kernels._build import library
-
-    lib = library()
+    _kernel_args(sorted_xyz, shape, u, out, g)
     grad = torch.empty_like(u)
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        rc = lib.band_max_grad_f32(
-            sorted_xyz.data_ptr(), u.data_ptr(), out.data_ptr(), g.data_ptr(),
-            grad.data_ptr(), B, N, C,
-            ctypes.c_float(float(radius)), ctypes.c_float(radius_squared(radius)),
-            stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"band_max_grad kernel launch failed: {lib.band_max_error_string(rc).decode()}")
+    _build.launch(_build.library().band_max_grad_f32, u, sorted_xyz.data_ptr(), u.data_ptr(),
+                  out.data_ptr(), g.data_ptr(), grad.data_ptr(), *shape, radius,
+                  radius_squared(radius))
     banded_masked_max_grad.launches += 1
     return grad
 

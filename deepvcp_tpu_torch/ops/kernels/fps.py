@@ -23,8 +23,28 @@ import torch
 
 from deepvcp_tpu_torch.ops.kernels import _plain
 
-THREADS = 1024            # csrc/fps.cu: one block of 1024 threads per cloud
-MAX_POINTS = 16 * THREADS  # 16 points a thread in registers
+THREADS = 256          # csrc/fps.cu: threads of a block; a cluster of blocks per cloud
+MAX_CLUSTER = 16       # blocks per cluster, at most (16 is non-portable)
+SHARE_PER_THREAD = 5   # the cluster grows until a block holds at most this many points a thread
+REG_POINTS = 16 * THREADS   # a block's share held in registers; a larger one streams
+
+
+def cluster_size(N: int) -> int:
+    """Blocks of the cluster that samples one N-point cloud: the smallest
+    power of two (up to MAX_CLUSTER) whose blocks hold at most
+    SHARE_PER_THREAD points a thread, so a small cloud (salient_fps's 256
+    points) runs on one block and the path's 10 000 points on 8, the
+    fastest at that size (PERF.md, PR 6)."""
+    cs = 1
+    while cs < MAX_CLUSTER and -(-N // cs) > SHARE_PER_THREAD * THREADS:
+        cs *= 2
+    return cs
+
+
+def streams(N: int, cluster: int) -> bool:
+    """Whether a block's share of the cloud exceeds its registers, so that
+    the kernel streams points and distances through global scratch."""
+    return -(-N // cluster) > REG_POINTS
 
 
 @torch.no_grad()
@@ -65,29 +85,38 @@ def farthest_point_sample(
     """[B, N, 3] float32 -> [B, npoint] int64 indices of the FPS picks.
 
     A CPU tensor runs the plain reference; a CUDA tensor launches the Hopper
-    kernel (contiguous input, N <= MAX_POINTS) or raises.
+    kernel (contiguous input, any N) or raises.
     `farthest_point_sample.launches` counts kernel launches."""
     _check(xyz, npoint, start_idx)
     if xyz.device.type == "cpu" or _plain.active():
         return farthest_point_sample_reference(xyz, npoint, start_idx)
-    if xyz.device.type != "cuda":
+    if not xyz.is_cuda:
         raise ValueError(f"no kernel for device {xyz.device}")
-    B, N, _ = xyz.shape
-    if N > MAX_POINTS:
-        raise ValueError(f"N={N} exceeds the FPS kernel's {MAX_POINTS} points")
     if not xyz.is_contiguous():
         raise ValueError("the FPS kernel needs a contiguous input")
-    from deepvcp_tpu_torch.ops.kernels._build import library
+    from deepvcp_tpu_torch.ops.kernels._build import launch, library
 
-    lib = library()
+    B, N, _ = xyz.shape
+    cluster = cluster_size(N)
     out = torch.empty((B, npoint), dtype=torch.int64, device=xyz.device)
-    with torch.cuda.device(xyz.device):
-        stream = torch.cuda.current_stream(xyz.device).cuda_stream
-        rc = lib.fps_f32(xyz.data_ptr(), out.data_ptr(), B, N, npoint, start_idx, stream)
-    if rc != 0:
-        raise RuntimeError(f"fps kernel launch failed: {lib.band_max_error_string(rc).decode()}")
+    scratch = torch.empty((B, N), dtype=torch.float32, device=xyz.device) \
+        if streams(N, cluster) else None
+    launch(library().fps_f32, xyz, xyz.data_ptr(), out.data_ptr(),
+           0 if scratch is None else scratch.data_ptr(), B, N, npoint, start_idx, cluster)
     farthest_point_sample.launches += 1
     return out
+
+
+def pick_probe(smid: torch.Tensor, B: int, cluster: int, iters: int,
+               barrier: bool = False) -> None:
+    """The kernel's pick protocol alone (no distances), `iters` picks on B
+    clusters of `cluster` blocks: its time per pick is the floor of a pick
+    at that cluster size. `barrier`: the same records exchanged through one
+    cluster barrier a pick instead. smid (int32, B * cluster, on the card)
+    receives each block's SM."""
+    from deepvcp_tpu_torch.ops.kernels._build import launch, library
+
+    launch(library().fps_pick_probe, smid, B, cluster, iters, int(barrier), smid.data_ptr())
 
 
 farthest_point_sample.launches = 0

@@ -89,23 +89,6 @@ def _kernel_args(*tensors: torch.Tensor) -> None:
         raise ValueError("the one-hot gather kernels need contiguous inputs")
 
 
-def _launch(fn, t: torch.Tensor, *args) -> None:
-    """fn(*args, stream) on t's card and its current stream. The host's
-    time here is the path's (it waits on the host): the stream is read as
-    a raw handle, and the current card is switched only when t lies on
-    another."""
-    index = t.get_device()
-    if index != torch.cuda.current_device():
-        with torch.cuda.device(index):
-            return _launch(fn, t, *args)
-    rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
-    if rc != 0:
-        from deepvcp_tpu_torch.ops.kernels._build import library
-
-        raise RuntimeError(f"{fn.__name__} launch failed: "
-                           f"{library().band_max_error_string(rc).decode()}")
-
-
 def onehot_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[b, k, q] = table[b, k, idx[b, k, q]]: table [B, K, T, D] float32,
     idx [B, K, Q] int64 -> [B, K, Q, D]. A CPU tensor runs the plain
@@ -120,10 +103,10 @@ def onehot_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     Q = idx.shape[-1]
     if Q > MAX_GATHER_QUERIES:
         raise ValueError(f"Q={Q} exceeds the gather kernel's {MAX_GATHER_QUERIES}")
-    from deepvcp_tpu_torch.ops.kernels._build import library
+    from deepvcp_tpu_torch.ops.kernels._build import launch, library
 
     out = table.new_empty((B, K, Q, D))
-    _launch(library().onehot_gather_f32, table, table.data_ptr(), idx.data_ptr(),
+    launch(library().onehot_gather_f32, table, table.data_ptr(), idx.data_ptr(),
             out.data_ptr(), B * K, T, Q, D)
     onehot_gather.launches += 1
     return out
@@ -150,10 +133,10 @@ def onehot_scatter_add(dout: torch.Tensor, idx: torch.Tensor, T: int) -> torch.T
     B, K, Q, D = dout.shape
     if Q > MAX_SCATTER_QUERIES:
         raise ValueError(f"Q={Q} exceeds the scatter-add kernel's {MAX_SCATTER_QUERIES}")
-    from deepvcp_tpu_torch.ops.kernels._build import library
+    from deepvcp_tpu_torch.ops.kernels._build import launch, library
 
     dtable = dout.new_empty((B, K, T, D))
-    _launch(library().onehot_scatter_add_f32, dout, dout.data_ptr(), idx.data_ptr(),
+    launch(library().onehot_scatter_add_f32, dout, dout.data_ptr(), idx.data_ptr(),
             dtable.data_ptr(), B * K, T, Q, D)
     onehot_scatter_add.launches += 1
     return dtable

@@ -12,6 +12,7 @@ chains Registrars, each warm-started from the previous stage's pose.
 
 from __future__ import annotations
 
+import collections
 import warnings
 from typing import Any, Mapping, NamedTuple, Optional
 
@@ -68,7 +69,11 @@ class Registrar:
         self.use_saliency_weights = use_saliency_weights
         self.refine_iters = refine_iters
         self.guard = guard
-        self._extent_checked = False
+        # the extent monitor: the last extent warned about, and the extents
+        # of earlier calls still on their way to the host
+        self._declared_extent = cfg.resolve().spatial_extent
+        self._warned_extent: Optional[float] = None
+        self._pending_extents = collections.deque()
 
     def score(self, kp, tgt_xyz, R, t) -> torch.Tensor:
         """Trimmed mean 1-NN distance of the posed keypoints into the target
@@ -123,26 +128,45 @@ class Registrar:
             saliency=enc.saliency, scores=torch.stack(scores, dim=-1))
 
     def _check_extent(self, src: torch.Tensor) -> None:
-        """One-time data preflight: warn when the cloud's extent exceeds the
-        declared cfg.spatial_extent, which gates the reduced-precision
-        candidate selection. (The JAX preflight also audits static-window
-        occupancy; the port always scans the exact slab, so that audit has
-        nothing to check.)"""
-        if self._extent_checked:
+        """Extent monitor, as the JAX Registrar's: warn when the cloud's
+        extent exceeds 1.5x the declared cfg.spatial_extent, which gates the
+        reduced-precision candidate selection, and warn again only when it
+        has moved more than 1.5x from the extent last warned about. Without
+        a host sync: on the card the extent is reduced on the device, copied
+        to pinned host memory behind an event, and judged at a later call
+        once the event has completed (so a warning may come one call late);
+        on the CPU it is judged at once. (The JAX preflight also audits
+        static-window occupancy; the port always scans the exact slab, so
+        that audit has nothing to check.)"""
+        lo, hi = torch.aminmax(src[..., :3], dim=-2)
+        extent = torch.amax(hi - lo)
+        if extent.device.type == "cpu":
+            self._judge_extent(float(extent))
             return
-        self._extent_checked = True
-        xyz = src[..., :3]
-        actual = float(torch.amax(torch.amax(xyz, dim=-2) - torch.amin(xyz, dim=-2)))
-        cfg = self.cfg.resolve()
-        if actual > 1.5 * cfg.spatial_extent:
-            warnings.warn(
-                f"cloud extent {actual:.1f} exceeds cfg.spatial_extent="
-                f"{cfg.spatial_extent:g}: candidate-KNN selection precision is "
-                f"sized for the declared extent — set spatial_extent to the "
-                f"real cloud scale (bf16 selection auto-disables above "
-                f"{cfg.knn_select_f32_extent:g})",
-                stacklevel=3,
-            )
+        while self._pending_extents and self._pending_extents[0][0].query():
+            self._judge_extent(float(self._pending_extents.popleft()[1]))
+        host = torch.empty((), dtype=extent.dtype, pin_memory=True)
+        host.copy_(extent, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(extent.device))
+        self._pending_extents.append((done, host))
+
+    def _judge_extent(self, actual: float) -> None:
+        declared = self._declared_extent
+        if actual <= 1.5 * declared:
+            return
+        last = self._warned_extent
+        if last is not None and last / 1.5 < actual < last * 1.5:
+            return
+        self._warned_extent = actual
+        warnings.warn(
+            f"cloud extent {actual:.1f} exceeds cfg.spatial_extent="
+            f"{declared:g}: candidate-KNN selection precision is "
+            f"sized for the declared extent — set spatial_extent to the "
+            f"real cloud scale (bf16 selection auto-disables above "
+            f"{self.cfg.resolve().knn_select_f32_extent:g})",
+            stacklevel=4,
+        )
 
 
 class CascadeRegistrar:

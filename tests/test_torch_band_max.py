@@ -57,6 +57,22 @@ def test_reference_matches_pallas(B, N, C):
         np.testing.assert_array_equal(got.numpy(), want, err_msg=f"radius={radius}")
 
 
+@pytest.mark.parametrize("C", [8, 24, 40])
+def test_any_channel_count_matches_pallas(C):
+    """K1 and K2 take any C (the kernels' windows of 16, 32 and 64 channels
+    at other widths): the plain versions at C outside the SA stages'
+    widths against the Pallas kernels in interpret mode, K1 exactly, K2
+    with integer cotangents exactly."""
+    rng = np.random.default_rng(C)
+    xyz = _sorted_cloud(rng, 2, 300, 2.0)
+    u = rng.integers(0, 4, (2, 300, C)).astype(np.float32)
+    g = rng.integers(-4, 5, (2, 300, C)).astype(np.float32)
+    out = banded_masked_max(torch.from_numpy(xyz), torch.from_numpy(u), 0.5).numpy()
+    np.testing.assert_array_equal(out, _pallas(xyz, u, 0.5))
+    got = banded_masked_max_grad(*map(torch.from_numpy, (xyz, u, out, g)), 0.5).numpy()
+    np.testing.assert_array_equal(got, _pallas_grad(xyz, u, out, g, 0.5))
+
+
 def test_self_neighbor_and_empty_rows():
     """At a radius below every pairwise gap each point pools only itself;
     the value -1e30 is reserved for rows with no point in radius, which the
@@ -229,3 +245,25 @@ def test_grad_kernel_matches_reference_on_card(cuda):
             with reference_path():
                 assert torch.equal(banded_masked_max_grad(x, u, out, g_int, r), want)
             assert banded_masked_max_grad.launches == before + 2
+
+
+@pytest.mark.gpu
+def test_kernels_take_any_channel_count_on_card(cuda):
+    """K1 bit-identical and K2 bit-identical with integer cotangents at C
+    outside the SA stages' widths (a partial window, several windows, and
+    odd widths staged element by element), one launch each."""
+    rng = np.random.default_rng(2)
+    pts = _sorted_cloud(rng, 2, 1500, 2.0)
+    x = torch.from_numpy(pts).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for C in (1, 3, 8, 24, 40, 100, 128):
+        u = torch.randn(2, 1500, C, device=cuda, generator=gen)
+        before = banded_masked_max.launches, banded_masked_max_grad.launches
+        out = banded_masked_max(x, u, 0.3)
+        assert torch.equal(out, banded_masked_max_reference(x, u, 0.3)), C
+        g = torch.randint(-8, 9, u.shape, device=cuda, generator=gen).float()
+        got = banded_masked_max_grad(x, u, out, g, 0.3)
+        torch.cuda.synchronize()
+        assert torch.equal(got, banded_masked_max_grad_reference(x, u, out, g, 0.3)), C
+        assert (banded_masked_max.launches, banded_masked_max_grad.launches) == (
+            before[0] + 1, before[1] + 1)

@@ -117,6 +117,31 @@ def test_registrar_checks_device_and_warns_once_on_extent(tiny):
         reg(big, big)
 
 
+def test_extent_warnings_match_jax(tiny):
+    """The extent monitor against JAX's on one sequence of clouds: in
+    scale, 10x, 10x again (within 1.5x of the extent warned about: no new
+    warning), 100x. Both registrars give the same number of warnings naming
+    spatial_extent. On the CPU the port judges each call at once; on a card
+    it judges a call's extent at a later call (no host sync), so its warning
+    may come at most one call later: the count is taken after the whole
+    sequence."""
+    cfg, variables, src, tgt = tiny
+    scales = (1.0, 10.0, 10.0, 100.0)
+    j_reg = JRegistrar(cfg, variables)
+    t_reg = Registrar(cfg, variables, "cpu")
+    counts = []
+    for call in (lambda s: jax.block_until_ready(j_reg(jnp.asarray(src * s), jnp.asarray(tgt))),
+                 lambda s: t_reg(torch.from_numpy(src * s), torch.from_numpy(tgt))):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for scale in scales:
+                call(np.float32(scale))
+            jax.effects_barrier()
+        counts.append(sum("spatial_extent" in str(w.message) for w in caught
+                          if issubclass(w.category, UserWarning)))
+    assert counts == [2, 2], counts
+
+
 CASCADE_N = 128   # where the JAX CPU static band covers the slab at SA radii 0.1-0.4
 
 

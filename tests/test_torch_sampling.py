@@ -67,6 +67,35 @@ def test_reference_matches_pallas_kernel(name, xyz, npoint, start):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_reference_matches_jax_loop_past_the_old_limit():
+    """The plain FPS at N = 20 000 (past the 16 384 points the kernel once
+    refused) against the JAX package's jnp loop, as the JAX tests run it
+    on the CPU."""
+    from deepvcp_tpu import ops as jops
+
+    xyz = np.random.default_rng(5).uniform(-3, 3, (1, 20000, 3)).astype(np.float32)
+    want = np.asarray(jops.farthest_point_sample(xyz, 64, 0, use_pallas=False))
+    np.testing.assert_array_equal(farthest_point_sample(torch.from_numpy(xyz), 64).numpy(), want)
+
+
+@pytest.mark.parametrize("N", [1, 7, 256, 1024, 1025, 5000, 10000, 16385, 40000, 65536, 65537,
+                               200000])
+def test_cluster_plan_covers_the_cloud(N):
+    """The kernel's plan: a power-of-two cluster of at most 16 blocks, each
+    block taking ceil(N / cluster) points, so the shares cover [0, N) once;
+    salient_fps's 256 points on one block; a block's share in registers
+    (at most 16 points a thread) unless the kernel streams it."""
+    cs = fps.cluster_size(N)
+    assert cs in (1, 2, 4, 8, 16)
+    share = -(-N // cs)
+    owned = [min(max(N - r * share, 0), share) for r in range(cs)]
+    assert sum(owned) == N and all(o > 0 for o in owned[:-(-N // share)])
+    assert fps.streams(N, cs) == (share > fps.REG_POINTS)
+    if cs < fps.MAX_CLUSTER:
+        assert share <= fps.SHARE_PER_THREAD * fps.THREADS
+    assert fps.cluster_size(256) == 1
+
+
 def test_ties_take_the_lowest_index():
     """Duplicates: the first pick's twin has distance 0 and is never taken
     while any distance is positive; once every distance is 0, index 0."""
@@ -142,8 +171,16 @@ def test_kernel_matches_reference_on_card(cuda):
 
 @pytest.mark.gpu
 def test_kernel_refuses_what_it_cannot_take(cuda):
-    x = torch.zeros(1, fps.MAX_POINTS + 1, 3, device=cuda)
-    with pytest.raises(ValueError, match="exceeds"):
-        fps.farthest_point_sample(x, 4)
+    """Any N runs on the kernel: past the 16 384 points it once refused the
+    indices are bit-identical to the plain version's, also where a block's
+    share streams through global scratch; only a strided cloud is refused."""
+    rng = np.random.default_rng(6)
+    for N, npoint in ((16385, 300), (70000, 64)):
+        x = torch.from_numpy(rng.standard_normal((2, N, 3)).astype(np.float32)).to(cuda)
+        before = fps.farthest_point_sample.launches
+        got = fps.farthest_point_sample(x, npoint, 7)
+        torch.cuda.synchronize()
+        assert fps.farthest_point_sample.launches == before + 1
+        assert torch.equal(got, farthest_point_sample_reference(x, npoint, 7)), N
     with pytest.raises(ValueError, match="contiguous"):
         fps.farthest_point_sample(torch.zeros(1, 3, 64, device=cuda).transpose(1, 2), 4)
