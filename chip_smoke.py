@@ -670,7 +670,8 @@ def band_phase(torch, dev) -> dict:
             print(f"K1 banded_masked_max {fam} [{x.shape[0]}, {x.shape[1]}] C={C} r={r}: "
                   f"max_abs_err {err} | kernel {ms:.4f} ms per call, {held:.4f} behind a hold, "
                   f"plain {plain:.4f} ms, bound {bound:.5f} ms ({by}) | slab per {SLAB_TILE}-query "
-                  f"tile max {slab_max} mean {slab_mean:.1f} (max / mean {slab_max / slab_mean:.2f})"
+                  f"tile max {slab_max} mean {slab_mean:.1f} (max / mean "
+                  f"{slab_max / slab_mean:.2f})"
                   f", {pairs_r} in-radius pairs")
             res["k1_err"] = max(res["k1_err"], err)
             ms_sum, held_sum, plain_sum = ms_sum + ms, held_sum + held, plain_sum + plain
@@ -776,8 +777,9 @@ def k3_phase(torch, dev) -> dict:
         # each pick, 3 sub, 3 mul, 2 add, a min and a max-compare per point
         nbytes, ops = B * N * 12 + B * k * 8, B * k * N * 10
         bound, by = bound_ms(nbytes, ops)
+        cs = fps.cluster_size(N)
         print(f"K3 farthest_point_sample {name}: indices identical, {launched} launch, cluster of "
-              f"{fps.cluster_size(N)} blocks{' (streamed)' if fps.streams(N, fps.cluster_size(N)) else ''}"
+              f"{cs} blocks{' (streamed)' if fps.streams(N, cs) else ''}"
               f" | kernel {ms:.4f} ms, plain {plain:.4f} ms (median, CUDA events), bound "
               f"{bound:.4f} ms ({by})")
         if B == GLOBAL_B and N == N_POINTS:

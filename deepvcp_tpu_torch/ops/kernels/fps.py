@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from deepvcp_tpu_torch.ops.kernels import _plain
+from deepvcp_tpu_torch.ops.kernels import _build, _plain
 
 THREADS = 256          # csrc/fps.cu: threads of a block; a cluster of blocks per cloud
 MAX_CLUSTER = 16       # blocks per cluster, at most (16 is non-portable)
@@ -94,15 +94,13 @@ def farthest_point_sample(
         raise ValueError(f"no kernel for device {xyz.device}")
     if not xyz.is_contiguous():
         raise ValueError("the FPS kernel needs a contiguous input")
-    from deepvcp_tpu_torch.ops.kernels._build import launch, library
-
     B, N, _ = xyz.shape
     cluster = cluster_size(N)
     out = torch.empty((B, npoint), dtype=torch.int64, device=xyz.device)
     scratch = torch.empty((B, N), dtype=torch.float32, device=xyz.device) \
         if streams(N, cluster) else None
-    launch(library().fps_f32, xyz, xyz.data_ptr(), out.data_ptr(),
-           0 if scratch is None else scratch.data_ptr(), B, N, npoint, start_idx, cluster)
+    _build.launch(_build.library().fps_f32, xyz, xyz.data_ptr(), out.data_ptr(),
+                  0 if scratch is None else scratch.data_ptr(), B, N, npoint, start_idx, cluster)
     farthest_point_sample.launches += 1
     return out
 
@@ -114,9 +112,8 @@ def pick_probe(smid: torch.Tensor, B: int, cluster: int, iters: int,
     at that cluster size. `barrier`: the same records exchanged through one
     cluster barrier a pick instead. smid (int32, B * cluster, on the card)
     receives each block's SM."""
-    from deepvcp_tpu_torch.ops.kernels._build import launch, library
-
-    launch(library().fps_pick_probe, smid, B, cluster, iters, int(barrier), smid.data_ptr())
+    _build.launch(_build.library().fps_pick_probe, smid, B, cluster, iters, int(barrier),
+                  smid.data_ptr())
 
 
 farthest_point_sample.launches = 0

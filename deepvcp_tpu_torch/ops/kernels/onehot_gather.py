@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from deepvcp_tpu_torch.ops.kernels import _plain
+from deepvcp_tpu_torch.ops.kernels import _build, _plain
 
 # csrc/onehot_gather.cu: K4's grid has at most 65535 blocks of 256 queries
 # per keypoint. K5 holds only a 512-query tile of a keypoint's queries on
@@ -103,11 +103,9 @@ def onehot_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     Q = idx.shape[-1]
     if Q > MAX_GATHER_QUERIES:
         raise ValueError(f"Q={Q} exceeds the gather kernel's {MAX_GATHER_QUERIES}")
-    from deepvcp_tpu_torch.ops.kernels._build import launch, library
-
     out = table.new_empty((B, K, Q, D))
-    launch(library().onehot_gather_f32, table, table.data_ptr(), idx.data_ptr(),
-            out.data_ptr(), B * K, T, Q, D)
+    _build.launch(_build.library().onehot_gather_f32, table, table.data_ptr(), idx.data_ptr(),
+                  out.data_ptr(), B * K, T, Q, D)
     onehot_gather.launches += 1
     return out
 
@@ -133,11 +131,9 @@ def onehot_scatter_add(dout: torch.Tensor, idx: torch.Tensor, T: int) -> torch.T
     B, K, Q, D = dout.shape
     if Q > MAX_SCATTER_QUERIES:
         raise ValueError(f"Q={Q} exceeds the scatter-add kernel's {MAX_SCATTER_QUERIES}")
-    from deepvcp_tpu_torch.ops.kernels._build import launch, library
-
     dtable = dout.new_empty((B, K, T, D))
-    launch(library().onehot_scatter_add_f32, dout, dout.data_ptr(), idx.data_ptr(),
-            dtable.data_ptr(), B * K, T, Q, D)
+    _build.launch(_build.library().onehot_scatter_add_f32, dout, dout.data_ptr(),
+                  idx.data_ptr(), dtable.data_ptr(), B * K, T, Q, D)
     onehot_scatter_add.launches += 1
     return dtable
 

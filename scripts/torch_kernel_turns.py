@@ -90,7 +90,8 @@ def worker(tree: str) -> None:
         for C, r in SA_SHAPES:
             u = torch.randn(x.shape[0], x.shape[1], C, device=dev, generator=gen)
             fn = lambda: banded_masked_max(x, u, r)   # noqa: E731
-            times[f"K1 {name} C={C} r={r}"] = [median_ms(torch, fn, 50, hold) for hold in (False, True)]
+            times[f"K1 {name} C={C} r={r}"] = [median_ms(torch, fn, 50, hold)
+                                               for hold in (False, True)]
     rng = np.random.default_rng(1)
     for B, N, k in INIT_SHAPES:
         x = torch.from_numpy(np.stack([lidar_like_cloud(rng, N, max_range=1.0)
@@ -139,11 +140,11 @@ def main() -> None:
     # per serving FE pass (the three K1 shapes) and per init (the two K3
     # calls): each round's sum, then the median over the rounds
     for what, prefix in (("K1 per serving FE pass", "K1 serving"), ("K3 per init", "K3")):
-        sums = {name: [statistics.median(sum(v[i] for k, v in t.items() if k.startswith(prefix))
-                                         for t in runs[name]) for i in (0, 1)] for name in runs}
-        print(f"  {what}: this {sums['this'][0]:.4f} | {sums['this'][1]:.4f}, other "
-              f"{sums['other'][0]:.4f} | {sums['other'][1]:.4f}, this / other "
-              f"{sums['this'][0] / sums['other'][0]:.3f} | {sums['this'][1] / sums['other'][1]:.3f}")
+        this, other = ([statistics.median(sum(v[i] for k, v in t.items() if k.startswith(prefix))
+                                          for t in runs[name]) for i in (0, 1)]
+                       for name in ("this", "other"))
+        print(f"  {what}: this {this[0]:.4f} | {this[1]:.4f}, other {other[0]:.4f} | "
+              f"{other[1]:.4f}, this / other {this[0] / other[0]:.3f} | {this[1] / other[1]:.3f}")
 
 
 if __name__ == "__main__":
