@@ -29,8 +29,7 @@
 // Any C >= 1: a window's channels past C are staged from nowhere and never
 // written; C % 4 == 0 stages 16-byte rows, other C 4-byte elements.
 // Larger tiles (64-256 queries a block, each staged row read by more
-// queries) and other splits were slower on both shape families (PERF.md,
-// PR 6).
+// queries) and other splits were slower on both shape families (PERF.md §6).
 //
 // What bounds it. At the serving shapes (slabs of 150-800 points, 1-2% of
 // the pairs in radius), latency: the search, the loads and few warps a
@@ -233,7 +232,7 @@ extern "C" int band_max_f32(const float* xyz, const float* u, float* out, int B,
   if (B <= 0 || N <= 0 || C <= 0 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // 4 warps a tile at 16 channels, 8 above (the fastest on the serving and
-  // the cascade's clouds; PERF.md, PR 6)
+  // the cascade's clouds; PERF.md §6)
   if (C <= 16) return launch<16, 4>(xyz, u, out, B, N, C, radius, r2, s);
   if (C <= 32) return launch<32, 8>(xyz, u, out, B, N, C, radius, r2, s);
   return launch<64, 8>(xyz, u, out, B, N, C, radius, r2, s);

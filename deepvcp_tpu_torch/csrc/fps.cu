@@ -35,7 +35,7 @@
 // A record is (key, index), 8 bytes, and the centroid's xyz comes from the
 // block's copy of the cloud in shared memory (N <= 12 800, 16 bytes a
 // point); a larger cloud sends 24-byte records that carry the xyz.
-// Measured against it (PERF.md, PR 6): a cluster barrier per pick, about
+// Measured against it (PERF.md §6): a cluster barrier per pick, about
 // twice as slow; tagged records polled in place with relaxed loads, 1.6x;
 // one record a block after a __syncthreads, spinning on test_wait and 512
 // threads a block, no faster.

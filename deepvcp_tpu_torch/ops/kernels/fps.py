@@ -34,7 +34,7 @@ def cluster_size(N: int) -> int:
     power of two (up to MAX_CLUSTER) whose blocks hold at most
     SHARE_PER_THREAD points a thread, so a small cloud (salient_fps's 256
     points) runs on one block and the path's 10 000 points on 8, the
-    fastest at that size (PERF.md, PR 6)."""
+    fastest at that size (PERF.md §6)."""
     cs = 1
     while cs < MAX_CLUSTER and -(-N // cs) > SHARE_PER_THREAD * THREADS:
         cs *= 2

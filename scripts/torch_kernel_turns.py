@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Kernels K1 (banded_masked_max) and K3 (farthest_point_sample) of the
-PyTorch port, timed per call in turns against another tree's on one CUDA
-card.
+PyTorch port, and the kitti25-rot registrar that runs K1, timed per call in
+turns against another tree's on one CUDA card.
 
     python3 scripts/torch_kernel_turns.py --other DIR [--rounds 4]
 
@@ -16,8 +16,11 @@ events around each call:
       lidar-like clouds of 1 m range and uniform cubes of extent 1, the
       same three (C, r));
   K3  at one so3_global_init's two calls ([2, 10 000, 3] at npoint 4096
-      and 128).
-Each is timed per call (the wrapper's host time included where it outlasts
+      and 128);
+  the registrar, `pretrained.registrar("kitti25-rot")` on chip_smoke.py's
+      first held pair: the median of 20 synced calls (host clock), after
+      the kernels.
+Each kernel is timed per call (the wrapper's host time included where it outlasts
 the kernel, as chip_smoke.py's kernels line) and behind a device hold (the
 device's time alone). Prints every round's numbers, then the medians over
 the rounds and this tree's over the other's. Needs one card.
@@ -31,6 +34,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 HOLD_CYCLES = 20_000_000   # ~10 ms of the card's clock
 SA_SHAPES = ((16, 0.1), (32, 0.2), (64, 0.4))
@@ -62,6 +66,7 @@ def worker(tree: str) -> None:
     import numpy as np
     import torch
 
+    from deepvcp_tpu_torch import pretrained
     from deepvcp_tpu_torch.data import (
         LidarLikeDataset, SyntheticDataset, batch_iterator, lidar_like_cloud)
     from deepvcp_tpu_torch.ops.kernels.band_max import banded_masked_max
@@ -99,6 +104,20 @@ def worker(tree: str) -> None:
         fn = lambda: farthest_point_sample(x, k)   # noqa: E731
         times[f"K3 [{B}, {N}, 3] npoint {k}"] = [median_ms(torch, fn, 10, hold)
                                                  for hold in (False, True)]
+    reg = pretrained.registrar("kitti25-rot", device=dev)
+    held = LidarLikeDataset(num_clouds=1, num_points=10000, max_range=25.0, seed=110,
+                            max_rotation_deg=5.0, max_translation=0.5)
+    src, tgt = (torch.from_numpy(a).to(dev)
+                for a in next(batch_iterator(held, 1, epoch=0, seed=0, shuffle=False))[:2])
+    for _ in range(3):
+        reg(src, tgt)
+    lat = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        reg(src, tgt)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    times["registrar kitti25-rot"] = [statistics.median(lat)] * 2
     print(json.dumps(times))
 
 
@@ -131,7 +150,8 @@ def main() -> None:
                 sys.exit(f"worker of {name} failed:\n{proc.stderr[-4000:]}")
             runs[name].append(json.loads(proc.stdout.strip().splitlines()[-1]))
             print(f"round {r} {name}: " + json.dumps(runs[name][-1]), flush=True)
-    print(f"medians over {args.rounds} rounds (ms per call | behind a hold), {card}:")
+    print(f"medians over {args.rounds} rounds (ms per call | behind a hold; the registrar: "
+          f"synced latency, twice), {card}:")
     for key in runs["this"][0]:
         this = [statistics.median(t[key][i] for t in runs["this"]) for i in (0, 1)]
         other = [statistics.median(t[key][i] for t in runs["other"]) for i in (0, 1)]
