@@ -14,12 +14,14 @@ any rotation, `initializer.so3_global_init` then
   1. device      a CUDA card is present; prints nvidia-smi's name and power limit
   2. build       builds every CUDA kernel of the paths from csrc/ with nvcc
   3. kernels     K1 and K2 against their plain PyTorch versions at the
-                 serving shapes, and K1 at the cascade's (phase 13's clouds,
-                 B = 2) with each shape family's slab per 32-query tile
-                 (max / mean) and in-radius pairs: K1 max abs difference
-                 0.0; K2 0.0 with integer cotangents and <= 1e-5 with
-                 Gaussian ones; both also at C = 8, 24, 40 and 128; median
-                 times per call and behind a device hold
+                 serving shapes and at the cascade's (phase 13's clouds,
+                 B = 2), with each shape family's slab per 32-point tile
+                 (max / mean; K2 also per 64-point tile and the share of a
+                 slab within radius of its tile) and in-radius pairs: K1
+                 max abs difference 0.0; K2 0.0 with integer cotangents
+                 (also with forced ties) and <= 1e-5 with Gaussian ones,
+                 two calls bitwise equal; both also at C = 8, 24, 40 and
+                 128; median times per call and behind a device hold
   4. registrar   16 pairs, GT-free RRE / RTE against the identity-init errors;
                  mean RRE <= 1.0 deg and mean RTE <= 0.05 m
   5. paths       kernel path against plain path on pair 0: same keypoints,
@@ -608,26 +610,50 @@ def in_radius_pairs(torch, x, radius: float) -> int:
     return count
 
 
-def slab_stats(torch, x, radius: float) -> tuple:
-    """(max, mean) over K1's tiles of SLAB_TILE sorted queries of the slab
-    each scans in the x-sorted clouds x [B, N, 3]: the points whose x lies
-    within radius of the tile's x range."""
+def slab_stats(torch, x, radius: float, tile: int = SLAB_TILE) -> tuple:
+    """(max, mean) over the tiles of `tile` sorted queries (K1) or receivers
+    (K2) of the slab each scans in the x-sorted clouds x [B, N, 3]: the
+    points whose x lies within radius of the tile's x range."""
     keys = x[..., 0].contiguous()
     N = keys.shape[1]
-    first = torch.arange(0, N, SLAB_TILE, device=x.device)
-    last = torch.clamp(first + SLAB_TILE - 1, max=N - 1)
+    first = torch.arange(0, N, tile, device=x.device)
+    last = torch.clamp(first + tile - 1, max=N - 1)
     lo = torch.searchsorted(keys, keys[:, first] - radius)
     hi = torch.searchsorted(keys, keys[:, last] + radius, right=True)
     length = (hi - lo).float()
     return int(length.max()), float(length.mean())
 
 
+def rows_touched(torch, x, radius: float, tile: int) -> tuple:
+    """(points within radius of some point of their tile, slab points), each
+    summed over the tiles of `tile` sorted points of the x-sorted clouds x
+    [B, N, 3], under the kernels' f32 test: the share of a K2 tile's slab
+    whose out and g rows it reads."""
+    from deepvcp_tpu_torch.ops.kernels.band_max import radius_squared
+
+    r2, touched = radius_squared(radius), 0
+    B, N = x.shape[:2]
+    span = 32 * tile
+    for s in range(0, N, span):
+        m = min(span, N - s)
+        d = x[:, None, :, :] - x[:, s:s + m, None, :]
+        d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+        hit = d2 <= r2                                          # [B, m, N]
+        pad = (-m) % tile
+        if pad:
+            hit = torch.cat([hit, hit.new_zeros(B, pad, N)], dim=1)
+        touched += int(hit.view(B, -1, tile, N).any(dim=2).sum())
+    _, mean = slab_stats(torch, x, radius, tile)
+    return touched, mean * B * ((N + tile - 1) // tile)
+
+
 def band_phase(torch, dev) -> dict:
     """Phase 3: K1 and K2 against their plain versions at the serving
-    shapes (one FE pass of kitti25-rot on a 25 m lidar-like cloud), K1 at
-    the cascade's (phase 13's first batch of each held set, B = 2), and both
-    at C outside the SA stages' widths; times per call and behind a device
-    hold; bounds. Returns the serving sums for the kernels line."""
+    shapes (one FE pass of kitti25-rot on a 25 m lidar-like cloud) and at
+    the cascade's (phase 13's first batch of each held set, B = 2), K2
+    also with forced ties and run twice, and both at C outside the SA
+    stages' widths; times per call and behind a device hold; slabs and
+    bounds. Returns the serving sums for the kernels line."""
     import numpy as np
 
     from deepvcp_tpu_torch.data import lidar_like_cloud
@@ -682,35 +708,62 @@ def band_phase(torch, dev) -> dict:
         if fam == "serving":
             res.update(k1_ms=ms_sum, k1_plain_ms=plain_sum, k1_bound=(bound, by))
 
-    # K2 at the serving shapes, cotangents of the forward's output
-    x = serving
-    k2_ms = k2_plain = 0.0
-    k2_work = [0, 0]
-    for C, r in SA_SHAPES:
-        u = torch.randn(1, N_POINTS, C, device=dev, generator=gen)
-        out = banded_masked_max(x, u, r)
-        g_int = torch.randint(-8, 9, u.shape, device=dev, generator=gen).float()
-        g = torch.randn(u.shape, device=dev, generator=gen)
-        err_int = (banded_masked_max_grad(x, u, out, g_int, r)
-                   - banded_masked_max_grad_reference(x, u, out, g_int, r)).abs().max().item()
-        got = banded_masked_max_grad(x, u, out, g, r)
-        err = (got - banded_masked_max_grad_reference(x, u, out, g, r)).abs().max().item()
-        if not torch.isfinite(got).all() or err_int != 0.0 or err > K2_GAUSS_LIMIT:
-            fail(f"K2 disagrees with its plain version at C={C}, r={r}: max abs {err_int} "
-                 f"(integer cotangents, must be 0) and {err} (Gaussian, <= {K2_GAUSS_LIMIT})")
-        ms = cuda_median_ms(torch, lambda: banded_masked_max_grad(x, u, out, g, r), reps=50)
-        plain = cuda_median_ms(
-            torch, lambda: banded_masked_max_grad_reference(x, u, out, g, r), reps=20)
-        print(f"K2 banded_masked_max_grad N={N_POINTS} C={C} r={r}: max_abs_err {err_int} "
-              f"(integer g), {err:.3e} (Gaussian g) | kernel {ms:.4f} ms, plain {plain:.4f} ms "
-              f"(median, CUDA events)")
-        res["k2_err"] = max(res["k2_err"], err)
-        k2_ms, k2_plain = k2_ms + ms, k2_plain + plain
-        # bytes: each input read once, the output written once;
-        # operations: per in-radius pair, the test (9), C compares, C adds
-        pairs_r = in_radius_pairs(torch, x, r)
-        k2_work = [k2_work[0] + 4 * N_POINTS * (3 + 4 * C), k2_work[1] + pairs_r * (9 + 2 * C)]
-    res.update(k2_ms=k2_ms, k2_plain_ms=k2_plain, k2_bound=bound_ms(*k2_work))
+    # K2 at the serving and the cascade's shapes, cotangents of the
+    # forward's output: integer ones (every sum exact), Gaussian ones, and
+    # forced ties (u of 3 levels); Gaussian twice for determinism
+    for fam, x in families.items():
+        ms_sum = held_sum = plain_sum = 0.0
+        work = [0, 0]
+        for C, r in SA_SHAPES:
+            shape = (*x.shape[:2], C)
+            u = torch.randn(shape, device=dev, generator=gen)
+            u_tie = torch.randint(0, 3, shape, device=dev, generator=gen).float()
+            out, out_tie = banded_masked_max(x, u, r), banded_masked_max(x, u_tie, r)
+            g_int = torch.randint(-8, 9, shape, device=dev, generator=gen).float()
+            g = torch.randn(shape, device=dev, generator=gen)
+            err_int = max((banded_masked_max_grad(x, uu, oo, g_int, r)
+                           - banded_masked_max_grad_reference(x, uu, oo, g_int, r)).abs().max().item()
+                          for uu, oo in ((u, out), (u_tie, out_tie)))
+            got = banded_masked_max_grad(x, u, out, g, r)
+            again = banded_masked_max_grad(x, u, out, g, r)
+            err = (got - banded_masked_max_grad_reference(x, u, out, g, r)).abs().max().item()
+            if not torch.isfinite(got).all() or err_int != 0.0 or err > K2_GAUSS_LIMIT:
+                fail(f"K2 disagrees with its plain version at {fam} C={C}, r={r}: max abs "
+                     f"{err_int} (integer cotangents, forced ties too, must be 0) and {err} "
+                     f"(Gaussian, <= {K2_GAUSS_LIMIT})")
+            if not torch.equal(got, again):
+                fail(f"K2 is not deterministic at {fam} C={C}, r={r}: two calls differ by "
+                     f"{(got - again).abs().max().item()}")
+            ms = cuda_median_ms(torch, lambda: banded_masked_max_grad(x, u, out, g, r), reps=50)
+            held = cuda_median_ms(torch, lambda: banded_masked_max_grad(x, u, out, g, r),
+                                  reps=50, hold=True)
+            plain = cuda_median_ms(
+                torch, lambda: banded_masked_max_grad_reference(x, u, out, g, r),
+                reps=20 if fam == "serving" else 3)
+            pairs_r = in_radius_pairs(torch, x, r)
+            # bytes: each input read once, the output written once;
+            # operations: per in-radius pair, the test (9), C compares, C adds
+            nbytes, ops = 4 * x.shape[0] * x.shape[1] * (3 + 4 * C), pairs_r * (9 + 2 * C)
+            bound, by = bound_ms(nbytes, ops)
+            tiles = ", ".join(
+                f"per {t}-receiver tile max {m} mean {a:.1f}, rows read {rows / n_slab:.3f}"
+                for t in (32, 64)
+                for (m, a), (rows, n_slab) in [(slab_stats(torch, x, r, t),
+                                                rows_touched(torch, x, r, t))])
+            print(f"K2 banded_masked_max_grad {fam} [{x.shape[0]}, {x.shape[1]}] C={C} r={r}: "
+                  f"max_abs_err {err_int} (integer g, forced ties too), {err:.3e} (Gaussian g), "
+                  f"two calls bitwise equal | kernel {ms:.4f} ms per call, {held:.4f} behind a "
+                  f"hold, plain {plain:.4f} ms, bound {bound:.5f} ms ({by}) | slab {tiles} "
+                  f"(share of the slab's points within radius of a tile's receiver), {pairs_r} "
+                  f"in-radius pairs")
+            res["k2_err"] = max(res["k2_err"], err)
+            ms_sum, held_sum, plain_sum = ms_sum + ms, held_sum + held, plain_sum + plain
+            work = [work[0] + nbytes, work[1] + ops]
+        bound, by = bound_ms(*work)
+        print(f"K2 {fam}, the 3 SA shapes: kernel {ms_sum:.4f} ms per call, {held_sum:.4f} behind "
+              f"a hold, plain {plain_sum:.4f} ms, bound {bound:.5f} ms ({by})")
+        if fam == "serving":
+            res.update(k2_ms=ms_sum, k2_plain_ms=plain_sum, k2_bound=(bound, by))
 
     # K1 and K2 at widths outside the SA stages' (any C): a 3 000-point
     # slice of the cube cloud at r = 0.2

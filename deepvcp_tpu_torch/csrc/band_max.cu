@@ -47,24 +47,6 @@ constexpr int TILE = 32;     // queries per block, a lane each
 constexpr int CHUNK = 128;   // slab points per stage of the ring
 constexpr float NEG = -1e30f;
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
 // A block: SW warps over one tile of 32 queries, each taking every SW-th
 // point of a chunk. Dynamic shared memory holds the ring, then the merge.
 template <int KC, int SW>
@@ -84,30 +66,8 @@ __device__ __forceinline__ void stage(typename Shape<KC, SW>::Ring& ring, int st
                                       const float* bu, int base, int n, int C, int c0, int cw,
                                       bool vec) {
   constexpr int THREADS = Shape<KC, SW>::THREADS;
-  float* sx = reinterpret_cast<float*>(ring.x[st]);
-  for (int i = threadIdx.x; i < n * 3; i += THREADS) {
-    const int r = i / 3;
-    cp_async4(sx + 4 * r + (i - 3 * r), bx + static_cast<size_t>(base) * 3 + i);
-  }
-  if (vec && cw == KC) {  // whole 16-byte rows of the window
-    for (int i = threadIdx.x; i < n * (KC / 4); i += THREADS) {
-      const int r = i / (KC / 4), k = i % (KC / 4);
-      cp_async16(&ring.u[st][i], bu + static_cast<size_t>(base + r) * C + c0 + 4 * k);
-    }
-  } else if (vec) {  // cw % 4 == 0 and 16-byte aligned rows
-    const int per_row = cw / 4;
-    for (int i = threadIdx.x; i < n * per_row; i += THREADS) {
-      const int r = i / per_row, k = i - r * per_row;
-      cp_async16(&ring.u[st][r * (KC / 4) + k],
-                 bu + static_cast<size_t>(base + r) * C + c0 + 4 * k);
-    }
-  } else {
-    float* su = reinterpret_cast<float*>(ring.u[st]);
-    for (int i = threadIdx.x; i < n * cw; i += THREADS) {
-      const int r = i / cw, k = i - r * cw;
-      cp_async4(su + r * KC + k, bu + static_cast<size_t>(base + r) * C + c0 + k);
-    }
-  }
+  band_slab::stage_xyz<THREADS>(ring.x[st], bx, base, n);
+  band_slab::stage_window<KC, THREADS>(ring.u[st], bu, base, n, C, c0, cw, vec);
 }
 
 template <int KC, int SW>
@@ -154,7 +114,7 @@ band_max_kernel(const float* __restrict__ xyz, const float* __restrict__ u,
   const int chunks = (hi - lo + CHUNK - 1) / CHUNK;
 
   if (chunks > 0) stage<KC, SW>(ring, 0, bx, bu, lo, min(CHUNK, hi - lo), C, c0, cw, vec);
-  cp_async_commit();
+  band_slab::cp_async_commit();
   for (int k = 0; k < chunks; ++k) {
     const int st = k & 1;
     const int base = lo + k * CHUNK;
@@ -162,8 +122,8 @@ band_max_kernel(const float* __restrict__ xyz, const float* __restrict__ u,
       stage<KC, SW>(ring, st ^ 1, bx, bu, base + CHUNK, min(CHUNK, hi - base - CHUNK), C, c0, cw,
                     vec);
     }
-    cp_async_commit();
-    cp_async_wait_one();  // this thread's copies of chunk k have landed
+    band_slab::cp_async_commit();
+    band_slab::cp_async_wait_one();  // this thread's copies of chunk k have landed
     __syncthreads();      // and everyone's
     const int n = min(CHUNK, hi - base);
     for (int j = sw; j < n; j += SW) {

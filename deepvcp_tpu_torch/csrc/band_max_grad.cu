@@ -8,30 +8,42 @@
 // deepvcp_tpu/ops/pallas/band_max_kernel.py::banded_masked_max_grad
 // (_band_max_grad_kernel). It ports what that kernel computes, not Mosaic's
 // layout: no [B, C, N] transpose, no (8, 128) padding, no scalar prefetch,
-// and no clamped last chunk, so nothing is re-read and nothing has to be
-// zeroed: each query of the slab is visited exactly once.
+// and no clamped last chunk: each query of the slab is visited exactly once.
 //
-// Design. The transpose of K1: one block per tile of TILE consecutive sorted
-// RECEIVERS n. The in-radius relation is symmetric, so the queries that can
-// see the tile form the same slab K1 would pool for it (band_slab.cuh). The
-// block streams that slab's xyz, out and g through shared memory CHUNK
-// queries at a time. A thread owns one receiver and KPT channels, keeps
-// u[n, k] and the KPT sums in registers, and adds g[q, k] wherever the pair
-// is in radius and u[n, k] == out[q, k]. Threads of one warp share their
-// channel group, so each shared-memory read of a query row is a broadcast.
+// Design. K1's transpose with K1's levers (band_max.cu). One block per tile
+// of 32 consecutive sorted RECEIVERS n and window of KC channels (KC = 16,
+// 32 or 64, a template parameter; a wider C takes several windows,
+// blockIdx.y). The in-radius relation is symmetric, so the queries that can
+// see the tile form the same slab K1 would pool for it (band_slab.cuh).
+//   - A lane owns one receiver and keeps u[n, window] and the window's KC
+//     sums in registers, so each (receiver, query) pair is tested once.
+//   - Slab search: warp 0 finds lo and warp 1 hi by the warp-cooperative
+//     search of band_slab.cuh.
+//   - Only the slab's xyz streams through a two-stage cp.async ring of CHUNK
+//     = 128 points. SW warps take interleaved points of each chunk; for a
+//     point, a ballot over the warp's receivers decides (a warp-uniform
+//     branch) whether its out and g window rows are read at all, straight
+//     from global memory (16-byte loads where C % 4 == 0, a broadcast: every
+//     lane reads the same row). At the serving shapes most slab points lie
+//     within radius of no receiver of the tile, and their rows are never
+//     read; the parent design staged every row of the slab.
+//   - Merge: each warp's sums go to shared memory and the block adds them in
+//     warp order, then writes whole rows.
 //
-// Determinism. Each sum runs over the slab in ascending q, one thread per
-// (n, channel group), with no atomics: the same inputs give the same bits.
+// Determinism. Each warp sums its points in ascending q; the warps' sums are
+// added in a fixed order. No atomics: the same inputs give the same bits.
 //
-// Any C >= 1: a block takes a window of CB channels (CB = 16, 32 or 64, a
-// template parameter; C = 16, 32 and 64 are one window each, and a wider or
-// other C takes ceil(C / CB) windows, blockIdx.z). A window's channels past
-// C are staged as zeros and never written.
+// Any C >= 1: a window's channels past C are read from nowhere (their g is
+// 0) and never written; C % 4 == 0 reads and writes 16-byte pieces, other C
+// 4-byte elements.
 //
-// What bounds it. Like K1, shared-memory reads and compare-and-add on
-// in-radius pairs; each query row (3 + 2 C floats) crosses HBM once per
-// receiver tile. A chunk is CHUNK * (3 + 2 CB) * 4 bytes: 33.5 KB at CB =
-// 64, inside the 48 KB a block may declare statically.
+// What bounds it. At the serving shapes (slabs of 150-800 points, 1-2% of
+// the pairs in radius), latency: the search, the ring, the row loads of the
+// points some lane needs, and few warps a tile. On the object-scale clouds
+// of the cascade (slabs of thousands of points, up to 64% of the pairs in
+// radius, so almost every slab row is read), the loads of those rows from
+// L2 and the 2 KC compare-and-add operations a lane does per in-radius
+// point.
 
 #include <cuda_runtime.h>
 
@@ -39,121 +51,203 @@
 
 namespace {
 
-constexpr int TILE = 64;   // receivers per block
-constexpr int CHUNK = 64;  // queries staged in shared memory per step
-constexpr int KPT = 16;    // channels per thread; C / KPT threads share a receiver
+constexpr int TILE = 32;    // receivers per block, a lane each
+constexpr int CHUNK = 128;  // slab points per stage of the ring
 
-template <int CB>
-__global__ void __launch_bounds__(TILE * (CB / KPT))
-band_max_grad_kernel(const float* __restrict__ xyz, const float* __restrict__ u,
-                     const float* __restrict__ out, const float* __restrict__ g,
-                     float* __restrict__ grad, int N, int C, float radius, float r2) {
-  static_assert(CB % KPT == 0, "CB must be a multiple of KPT");
-  __shared__ float sx[CHUNK * 3];
-  __shared__ __align__(16) float so[CHUNK * CB];
-  __shared__ __align__(16) float sg[CHUNK * CB];
-  __shared__ int bounds[2];
+// A block: SW warps over one tile of 32 receivers, each taking every SW-th
+// point of a chunk. Dynamic shared memory holds the ring, then the merge.
+template <int KC, int SW>
+struct Shape {
+  static constexpr int THREADS = 32 * SW;
+  static constexpr int RING = 2 * CHUNK * 16;  // xyz of a chunk's points as float4, 2 stages
+  static constexpr int MERGE = SW * TILE * (KC + 1) * 4;
+  static constexpr int SMEM = RING > MERGE ? RING : MERGE;
+};
 
-  const int b = blockIdx.y;
-  const int tile0 = blockIdx.x * TILE;
-  const int c0 = blockIdx.z * CB;
-  const int cw = min(CB, C - c0);  // == CB == C on the SA stages' widths
-  const int n = tile0 + threadIdx.x % TILE;
-  const int group = threadIdx.x / TILE;
-  const float* bx = xyz + static_cast<size_t>(b) * N * 3;
-  const float* bo = out + static_cast<size_t>(b) * N * C;
-  const float* bg = g + static_cast<size_t>(b) * N * C;
-
-  if (threadIdx.x == 0) {
-    band_slab::slab(bx, N, tile0, TILE, radius, &bounds[0], &bounds[1]);
-  }
-  __syncthreads();
-  const int lo = bounds[0];
-  const int hi = bounds[1];
-
-  const bool live = n < N;
-  float nx = 0.f, ny = 0.f, nz = 0.f;
-  float un[KPT];
-  float acc[KPT];
+// acc[k] += g[k] wherever the pair is in radius and u[n, k] == out[q, k],
+// for the window's KC channels of one query row.
+template <int KC>
+__device__ __forceinline__ void add_row(float (&acc)[KC], const float (&un)[KC], bool hit,
+                                        const float* orow, const float* grow, int cw, bool vec) {
+  if (vec) {
+    const float4* o4 = reinterpret_cast<const float4*>(orow);
+    const float4* g4 = reinterpret_cast<const float4*>(grow);
 #pragma unroll
-  for (int k = 0; k < KPT; ++k) un[k] = 0.f;
-  if (live) {
-    nx = bx[3 * n];
-    ny = bx[3 * n + 1];
-    nz = bx[3 * n + 2];
-    const float* row = u + (static_cast<size_t>(b) * N + n) * C + c0 + group * KPT;
-    if (C == CB && reinterpret_cast<size_t>(row) % 16 == 0) {
-      const float4* row4 = reinterpret_cast<const float4*>(row);
-#pragma unroll
-      for (int k = 0; k < KPT / 4; ++k) {
-        const float4 v = row4[k];
-        un[4 * k] = v.x;
-        un[4 * k + 1] = v.y;
-        un[4 * k + 2] = v.z;
-        un[4 * k + 3] = v.w;
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < KPT; ++k) {
-        if (group * KPT + k < cw) un[k] = row[k];
-      }
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < KPT; ++k) acc[k] = 0.f;
-
-  for (int base = lo; base < hi; base += CHUNK) {
-    const int m = min(CHUNK, hi - base);
-    __syncthreads();  // every thread is done with the previous chunk
-    for (int i = threadIdx.x; i < m * 3; i += blockDim.x) {
-      sx[i] = bx[static_cast<size_t>(base) * 3 + i];
-    }
-    if (C == CB) {  // the window is the whole row: one contiguous copy
-      for (int i = threadIdx.x; i < m * CB; i += blockDim.x) {
-        so[i] = bo[static_cast<size_t>(base) * C + i];
-        sg[i] = bg[static_cast<size_t>(base) * C + i];
-      }
-    } else {
-      for (int i = threadIdx.x; i < m * CB; i += blockDim.x) {
-        const int r = i / CB, k = i % CB;
-        const size_t at = static_cast<size_t>(base + r) * C + c0 + k;
-        so[i] = k < cw ? bo[at] : 0.f;
-        sg[i] = k < cw ? bg[at] : 0.f;
-      }
-    }
-    __syncthreads();
-    if (!live) continue;
-    for (int j = 0; j < m; ++j) {
-      if (band_slab::in_radius(sx[3 * j], sx[3 * j + 1], sx[3 * j + 2], nx, ny, nz, r2)) {
-        const float4* orow = reinterpret_cast<const float4*>(so + j * CB + group * KPT);
-        const float4* grow = reinterpret_cast<const float4*>(sg + j * CB + group * KPT);
-#pragma unroll
-        for (int k = 0; k < KPT / 4; ++k) {
-          const float4 o = orow[k];
-          const float4 gv = grow[k];
-          if (un[4 * k] == o.x) acc[4 * k] += gv.x;
-          if (un[4 * k + 1] == o.y) acc[4 * k + 1] += gv.y;
-          if (un[4 * k + 2] == o.z) acc[4 * k + 2] += gv.z;
-          if (un[4 * k + 3] == o.w) acc[4 * k + 3] += gv.w;
+    for (int k4 = 0; k4 < KC / 4; ++k4) {
+      if (4 * k4 < cw) {
+        const float4 o = __ldg(o4 + k4);
+        const float4 gv = __ldg(g4 + k4);
+        if (hit) {
+          if (un[4 * k4] == o.x) acc[4 * k4] += gv.x;
+          if (un[4 * k4 + 1] == o.y) acc[4 * k4 + 1] += gv.y;
+          if (un[4 * k4 + 2] == o.z) acc[4 * k4 + 2] += gv.z;
+          if (un[4 * k4 + 3] == o.w) acc[4 * k4 + 3] += gv.w;
         }
       }
     }
-  }
-  if (live) {
-    float* o = grad + (static_cast<size_t>(b) * N + n) * C + c0 + group * KPT;
+  } else {
 #pragma unroll
-    for (int k = 0; k < KPT; ++k) {
-      if (group * KPT + k < cw) o[k] = acc[k];
+    for (int k = 0; k < KC; ++k) {
+      if (k < cw) {
+        const float o = __ldg(orow + k);
+        const float gv = __ldg(grow + k);
+        if (hit && un[k] == o) acc[k] += gv;
+      }
     }
   }
 }
 
-template <int CB>
-int launch(const float* xyz, const float* u, const float* out, const float* g,
-           float* grad, int B, int N, int C, float radius, float r2, cudaStream_t stream) {
-  const dim3 grid((N + TILE - 1) / TILE, B, (C + CB - 1) / CB);
-  band_max_grad_kernel<CB><<<grid, TILE * (CB / KPT), 0, stream>>>(
-      xyz, u, out, g, grad, N, C, radius, r2);
+template <int KC, int SW>
+__global__ void __launch_bounds__(Shape<KC, SW>::THREADS)
+band_max_grad_kernel(const float* __restrict__ xyz, const float* __restrict__ u,
+                     const float* __restrict__ out, const float* __restrict__ g,
+                     float* __restrict__ grad, int N, int C, float radius, float r2) {
+  static_assert(SW >= 2, "warps 0 and 1 search the slab's two ends");
+  using S = Shape<KC, SW>;
+  extern __shared__ float4 smem[];
+  float4(*ring)[CHUNK] = reinterpret_cast<float4(*)[CHUNK]>(smem);
+  __shared__ int bounds[2];
+
+  const int b = blockIdx.z;
+  const int tile0 = blockIdx.x * TILE;
+  const int c0 = blockIdx.y * KC;
+  const int cw = min(KC, C - c0);
+  const bool vec = C % 4 == 0 &&
+      ((reinterpret_cast<size_t>(u) | reinterpret_cast<size_t>(out) |
+        reinterpret_cast<size_t>(g) | reinterpret_cast<size_t>(grad)) % 16) == 0;
+  const int lane = threadIdx.x & 31;
+  const int sw = threadIdx.x >> 5;  // which share of each chunk
+  const int n = tile0 + lane;
+  const float* bx = xyz + static_cast<size_t>(b) * N * 3;
+  const float* bo = out + static_cast<size_t>(b) * N * C + c0;
+  const float* bg = g + static_cast<size_t>(b) * N * C + c0;
+
+  if (sw == 0) {
+    const int lo = band_slab::lower_bound_key_warp(bx, N, band_slab::slab_lo_key(bx, tile0, radius));
+    if (lane == 0) bounds[0] = lo;
+  } else if (sw == 1) {
+    const int last = min(tile0 + TILE, N) - 1;
+    const int hi = band_slab::lower_bound_key_warp(bx, N, band_slab::slab_hi_key(bx, last, radius));
+    if (lane == 0) bounds[1] = hi;
+  }
+  const bool live = n < N;
+  float nx = 0.f, ny = 0.f, nz = 0.f;
+  float un[KC];
+  float acc[KC];
+#pragma unroll
+  for (int k = 0; k < KC; ++k) {
+    un[k] = 0.f;
+    acc[k] = 0.f;
+  }
+  if (live) {
+    nx = bx[3 * n];
+    ny = bx[3 * n + 1];
+    nz = bx[3 * n + 2];
+    const float* row = u + (static_cast<size_t>(b) * N + n) * C + c0;
+    if (vec) {
+#pragma unroll
+      for (int k4 = 0; k4 < KC / 4; ++k4) {
+        if (4 * k4 < cw) {
+          const float4 v = __ldg(reinterpret_cast<const float4*>(row) + k4);
+          un[4 * k4] = v.x;
+          un[4 * k4 + 1] = v.y;
+          un[4 * k4 + 2] = v.z;
+          un[4 * k4 + 3] = v.w;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < KC; ++k) {
+        if (k < cw) un[k] = __ldg(row + k);
+      }
+    }
+  }
+  __syncthreads();
+  const int lo = bounds[0];
+  const int hi = bounds[1];
+  const int chunks = (hi - lo + CHUNK - 1) / CHUNK;
+
+  // stage points [base, base + m) of the slab's xyz into ring stage st
+  auto stage = [&](int st, int base, int m) {
+    float* sx = reinterpret_cast<float*>(ring[st]);
+    for (int i = threadIdx.x; i < m * 3; i += S::THREADS) {
+      const int r = i / 3;
+      band_slab::cp_async4(sx + 4 * r + (i - 3 * r), bx + static_cast<size_t>(base) * 3 + i);
+    }
+  };
+  if (chunks > 0) stage(0, lo, min(CHUNK, hi - lo));
+  band_slab::cp_async_commit();
+  for (int k = 0; k < chunks; ++k) {
+    const int st = k & 1;
+    const int base = lo + k * CHUNK;
+    if (k + 1 < chunks) stage(st ^ 1, base + CHUNK, min(CHUNK, hi - base - CHUNK));
+    band_slab::cp_async_commit();
+    band_slab::cp_async_wait_one();  // this thread's copies of chunk k have landed
+    __syncthreads();                 // and everyone's
+    const int m = min(CHUNK, hi - base);
+    for (int j = sw; j < m; j += SW) {
+      const float4 p = ring[st][j];
+      const bool hit = live && band_slab::in_radius(p.x, p.y, p.z, nx, ny, nz, r2);
+      if (__any_sync(0xffffffffu, hit)) {
+        const size_t q = static_cast<size_t>(base + j) * C;
+        add_row<KC>(acc, un, hit, bo + q, bg + q, cw, vec);
+      }
+    }
+    __syncthreads();  // everyone is done with stage st before it is refilled
+  }
+
+  // merge the shares' sums in warp order (the ring is free now) and write
+  // whole rows
+  float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int k = 0; k < KC; ++k) red[(sw * TILE + lane) * (KC + 1) + k] = acc[k];
+  __syncthreads();
+  const int rows = min(TILE, N - tile0);
+  float* bgrad = grad + (static_cast<size_t>(b) * N + tile0) * C + c0;
+  if (vec) {
+    const int per_row = cw / 4;
+    for (int i = threadIdx.x; i < rows * per_row; i += S::THREADS) {
+      const int r = i / per_row, k = 4 * (i - r * per_row);
+      float4 s;
+      float* sv = reinterpret_cast<float*>(&s);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float v = red[r * (KC + 1) + k + e];
+#pragma unroll
+        for (int w = 1; w < SW; ++w) v += red[(w * TILE + r) * (KC + 1) + k + e];
+        sv[e] = v;
+      }
+      *reinterpret_cast<float4*>(bgrad + static_cast<size_t>(r) * C + k) = s;
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * cw; i += S::THREADS) {
+      const int r = i / cw, k = i - r * cw;
+      float v = red[r * (KC + 1) + k];
+#pragma unroll
+      for (int w = 1; w < SW; ++w) v += red[(w * TILE + r) * (KC + 1) + k];
+      bgrad[static_cast<size_t>(r) * C + k] = v;
+    }
+  }
+}
+
+template <int KC, int SW>
+int launch(const float* xyz, const float* u, const float* out, const float* g, float* grad,
+           int B, int N, int C, float radius, float r2, cudaStream_t stream) {
+  using S = Shape<KC, SW>;
+  auto kernel = band_max_grad_kernel<KC, SW>;
+  if (S::SMEM > 48 * 1024) {  // above 48 KB only once allowed, per card
+    static unsigned allowed = 0;  // a bit per card
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev >= 32 || !(allowed & (1u << dev))) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      if (dev < 32) allowed |= 1u << dev;
+    }
+  }
+  const dim3 grid((N + TILE - 1) / TILE, (C + KC - 1) / KC, B);
+  kernel<<<grid, S::THREADS, S::SMEM, stream>>>(xyz, u, out, g, grad, N, C, radius, r2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -168,7 +262,25 @@ extern "C" int band_max_grad_f32(const float* xyz, const float* u, const float* 
                                  float radius, float r2, void* stream) {
   if (B <= 0 || N <= 0 || C <= 0 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C <= 16) return launch<16>(xyz, u, out, g, grad, B, N, C, radius, r2, s);
-  if (C <= 32) return launch<32>(xyz, u, out, g, grad, B, N, C, radius, r2, s);
-  return launch<64>(xyz, u, out, g, grad, B, N, C, radius, r2, s);
+  if (C <= 16) return launch<16, 4>(xyz, u, out, g, grad, B, N, C, radius, r2, s);
+  if (C <= 32) return launch<32, 8>(xyz, u, out, g, grad, B, N, C, radius, r2, s);
+  return launch<64, 8>(xyz, u, out, g, grad, B, N, C, radius, r2, s);
+}
+
+// The same kernel at a chosen window KC (16, 32 or 64) and SW warps a tile
+// (2, 4 or 8), for timing the launch shapes against each other. Returns
+// cudaErrorInvalidValue for any other shape.
+extern "C" int band_max_grad_f32_shape(const float* xyz, const float* u, const float* out,
+                                       const float* g, float* grad, int B, int N, int C,
+                                       float radius, float r2, int kc, int sw, void* stream) {
+  if (B <= 0 || N <= 0 || C <= 0 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define K2_SHAPE(KC_, SW_)                                                         \
+  if (kc == KC_ && sw == SW_)                                                      \
+    return launch<KC_, SW_>(xyz, u, out, g, grad, B, N, C, radius, r2, s);
+  K2_SHAPE(16, 2) K2_SHAPE(16, 4) K2_SHAPE(16, 8)
+  K2_SHAPE(32, 2) K2_SHAPE(32, 4) K2_SHAPE(32, 8)
+  K2_SHAPE(64, 2) K2_SHAPE(64, 4) K2_SHAPE(64, 8)
+#undef K2_SHAPE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

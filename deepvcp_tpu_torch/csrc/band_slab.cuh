@@ -1,11 +1,13 @@
 // The slab search shared by kernels K1 (band_max.cu) and K2
-// (band_max_grad.cu), and the exact in-radius test both apply inside it.
+// (band_max_grad.cu), the exact in-radius test both apply inside it, and
+// the cp.async copies with which both stream the slab through shared
+// memory.
 //
 // A block owns the tile [tile0, tile_end) of an x-sorted cloud. Every point
 // within `radius` of a tile point has its x within radius of the tile's x
 // range, so the block's candidates form one contiguous slab [lo, hi) of the
-// sorted order, found by two searches over the sort key (K2: one thread's
-// binary searches; K1: lower_bound_key_warp, a warp's). The relation
+// sorted order, found by two searches over the sort key, each by one warp
+// (lower_bound_key_warp). The relation
 // is symmetric, so the same slab serves K1 (the tile holds queries, the slab
 // the points they pool) and K2 (the tile holds gradient receivers, the slab
 // the queries that can see them).
@@ -21,20 +23,6 @@
 
 namespace band_slab {
 
-// First i in [0, n) with xyz[3 i] >= v, or n.
-__device__ inline int lower_bound_key(const float* xyz, int n, float v) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (xyz[3 * mid] < v) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
-
 // The keys that bound the slab of the tile [tile0, last]: lo is the first
 // point with x >= slab_lo_key, hi the first with x >= slab_hi_key (the lower
 // bound of the next float above the widened reach).
@@ -48,19 +36,11 @@ __device__ __forceinline__ float slab_hi_key(const float* bx, int last, float ra
   return nextafterf(x_last + (radius + (fabsf(x_last) + radius) * 0x1p-16f), CUDART_INF_F);
 }
 
-// [lo, hi) of the sorted cloud bx [N, 3] that can lie within radius of a
-// point of the tile [tile0, min(tile0 + tile, N)).
-__device__ inline void slab(const float* bx, int N, int tile0, int tile,
-                            float radius, int* lo, int* hi) {
-  const int last = min(tile0 + tile, N) - 1;
-  *lo = lower_bound_key(bx, N, slab_lo_key(bx, tile0, radius));
-  *hi = lower_bound_key(bx, N, slab_hi_key(bx, last, radius));
-}
-
-// lower_bound_key by one warp: each round 32 lanes probe the remaining
-// range at 32 cut points and a ballot keeps the part that holds the bound,
-// so N = 10 000 takes three rounds of one load each, not ~14 dependent
-// loads. Every lane returns the same index.
+// First i in [0, n) with xyz[3 i] >= v, or n, found by one warp: each
+// round 32 lanes probe the remaining range at 32 cut points and a ballot
+// keeps the part that holds the bound, so N = 10 000 takes three rounds of
+// one load each, not ~14 dependent loads. Every lane returns the same
+// index.
 __device__ inline int lower_bound_key_warp(const float* xyz, int n, float v) {
   const int lane = threadIdx.x & 31;
   int lo = 0, hi = n;  // the bound lies in [lo, hi]; hi == n or xyz[3 hi] >= v
@@ -94,6 +74,65 @@ __device__ __forceinline__ bool in_radius(float ax, float ay, float az, float bx
   const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                              __fmul_rn(dz, dz));
   return d2 <= r2;
+}
+
+// Asynchronous copies of 4 or 16 bytes from global to shared memory, and
+// the group fences of a two-stage ring: commit what was issued, then wait
+// until at most one group (the stage being filled) is still in flight.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Stage the xyz of points [base, base + n) of the sorted cloud bx [N, 3]
+// into dst[0, n) as float4s (w unused); THREADS threads share the copies.
+template <int THREADS>
+__device__ __forceinline__ void stage_xyz(float4* dst, const float* bx, int base, int n) {
+  float* sx = reinterpret_cast<float*>(dst);
+  for (int i = threadIdx.x; i < n * 3; i += THREADS) {
+    const int r = i / 3;
+    cp_async4(sx + 4 * r + (i - 3 * r), bx + static_cast<size_t>(base) * 3 + i);
+  }
+}
+
+// Stage channels [c0, c0 + cw) of rows [base, base + n) of the row-major
+// [N, C] matrix src into dst, KC floats a row (cw <= KC; a row's channels
+// past cw are left as they are). vec: C % 4 == 0 and src 16-byte aligned,
+// so rows go as 16-byte pieces; else as 4-byte elements.
+template <int KC, int THREADS>
+__device__ __forceinline__ void stage_window(float4* dst, const float* src, int base, int n,
+                                             int C, int c0, int cw, bool vec) {
+  if (vec && cw == KC) {  // whole 16-byte rows of the window
+    for (int i = threadIdx.x; i < n * (KC / 4); i += THREADS) {
+      const int r = i / (KC / 4), k = i % (KC / 4);
+      cp_async16(&dst[i], src + static_cast<size_t>(base + r) * C + c0 + 4 * k);
+    }
+  } else if (vec) {  // cw % 4 == 0 and 16-byte aligned rows
+    const int per_row = cw / 4;
+    for (int i = threadIdx.x; i < n * per_row; i += THREADS) {
+      const int r = i / per_row, k = i - r * per_row;
+      cp_async16(&dst[r * (KC / 4) + k], src + static_cast<size_t>(base + r) * C + c0 + 4 * k);
+    }
+  } else {
+    float* sd = reinterpret_cast<float*>(dst);
+    for (int i = threadIdx.x; i < n * cw; i += THREADS) {
+      const int r = i / cw, k = i - r * cw;
+      cp_async4(sd + r * KC + k, src + static_cast<size_t>(base + r) * C + c0 + k);
+    }
+  }
 }
 
 }  // namespace band_slab

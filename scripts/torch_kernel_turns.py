@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Kernels K1 (banded_masked_max) and K3 (farthest_point_sample) of the
-PyTorch port, and the kitti25-rot registrar that runs K1, timed per call in
-turns against another tree's on one CUDA card.
+"""Kernels K1 (banded_masked_max), K2 (banded_masked_max_grad) and K3
+(farthest_point_sample) of the PyTorch port, the kitti25-rot registrar that
+runs K1 and its train step that runs K1 and K2, timed in turns against
+another tree's on one CUDA card.
 
     python3 scripts/torch_kernel_turns.py --other DIR [--rounds 4]
 
@@ -15,11 +16,17 @@ events around each call:
       and at the cascade's (phase 13's held sets of chip_smoke.py, B = 2:
       lidar-like clouds of 1 m range and uniform cubes of extent 1, the
       same three (C, r));
+  K2  at the same shapes, with the forward's output and Gaussian
+      cotangents;
   K3  at one so3_global_init's two calls ([2, 10 000, 3] at npoint 4096
       and 128);
   the registrar, `pretrained.registrar("kitti25-rot")` on chip_smoke.py's
       first held pair: the median of 20 synced calls (host clock), after
-      the kernels.
+      the kernels;
+  the train step, kitti25-rot fine-tuned under the recipe that trained it
+      (B = 1, chip_smoke.py's phase 8): the median of 10 synced steps and
+      the device's busy time per step (torch.profiler, the union of the
+      kernels' intervals over 3 steps).
 Each kernel is timed per call (the wrapper's host time included where it outlasts
 the kernel, as chip_smoke.py's kernels line) and behind a device hold (the
 device's time alone). Prints every round's numbers, then the medians over
@@ -29,6 +36,7 @@ the rounds and this tree's over the other's. Needs one card.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import statistics
@@ -61,6 +69,71 @@ def median_ms(torch, fn, reps: int, hold: bool) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def synced_median_ms(torch, fn, reps: int) -> float:
+    """Median wall time of fn() followed by a device synchronize, after 3
+    warm-up calls."""
+    for _ in range(3):
+        fn()
+    lat = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(lat)
+
+
+def busy_ms(torch, fn, calls: int) -> float:
+    """Device busy time per call of fn(): the union of the intervals of
+    every kernel, copy and fill that torch.profiler saw on the card
+    (user-annotation ranges, which enclose kernels counted already, left
+    out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    busy_us, reached = 0.0, float("-inf")
+    for start, end in sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                             if e.device_type == DeviceType.CUDA and not e.is_user_annotation):
+        if end > reached:
+            busy_us += end - max(start, reached)
+            reached = end
+    return busy_us / 1e3 / calls
+
+
+def train_step_fn(torch, dev):
+    """One fine-tuning step of kitti25-rot under the recipe that trained it
+    (chip_smoke.py's kitti25_recipe), cycling over 4 clouds of phase 8's
+    data, as a function of no arguments."""
+    from deepvcp_tpu_torch import convert, pretrained
+    from deepvcp_tpu_torch.data import LidarLikeDataset, batch_iterator
+    from deepvcp_tpu_torch.train import MetricsLogger, TrainConfig, Trainer, build_train_step
+    from deepvcp_tpu_torch.train.optim import learning_rate_schedule
+
+    cfg, variables = pretrained.load("kitti25-rot", num_points=10000)
+    tcfg = TrainConfig(batch_size=1, learning_rate=1e-3, grad_clip_norm=10.0,
+                       lr_schedule="cosine", warmup_steps=100, total_steps=21760,
+                       vcp_loss_weight=1.0, rot_loss_weight=3.0, use_saliency_weights=True,
+                       init_translation="gt", init_rot_jitter_deg=6.0, init_trans_jitter=0.5,
+                       log_every=1)
+    trainer = Trainer(cfg, tcfg, device=dev, metrics=MetricsLogger(None, echo=False))
+    trainer.setup()
+    trainer.model.load_state_dict(convert.flax_to_torch(variables), strict=True)
+    data = LidarLikeDataset(num_clouds=4, num_points=10000, max_range=25.0, seed=10)
+    feed = itertools.cycle([tuple(torch.from_numpy(a).to(dev) for a in b)
+                            for b in batch_iterator(data, 1, epoch=0, seed=0)])
+    step_fn = build_train_step(trainer.model, learning_rate_schedule(tcfg), tcfg)
+
+    def step():
+        trainer.state, _ = step_fn(trainer.state, *next(feed))
+    return step
+
+
 def worker(tree: str) -> None:
     sys.path.insert(0, tree)
     import numpy as np
@@ -69,7 +142,7 @@ def worker(tree: str) -> None:
     from deepvcp_tpu_torch import pretrained
     from deepvcp_tpu_torch.data import (
         LidarLikeDataset, SyntheticDataset, batch_iterator, lidar_like_cloud)
-    from deepvcp_tpu_torch.ops.kernels.band_max import banded_masked_max
+    from deepvcp_tpu_torch.ops.kernels.band_max import banded_masked_max, banded_masked_max_grad
     from deepvcp_tpu_torch.ops.kernels.fps import farthest_point_sample
 
     dev = torch.device("cuda", 0)
@@ -97,6 +170,11 @@ def worker(tree: str) -> None:
             fn = lambda: banded_masked_max(x, u, r)   # noqa: E731
             times[f"K1 {name} C={C} r={r}"] = [median_ms(torch, fn, 50, hold)
                                                for hold in (False, True)]
+            out = banded_masked_max(x, u, r)
+            g = torch.randn(u.shape, device=dev, generator=gen)
+            fn = lambda: banded_masked_max_grad(x, u, out, g, r)   # noqa: E731
+            times[f"K2 {name} C={C} r={r}"] = [median_ms(torch, fn, 50, hold)
+                                               for hold in (False, True)]
     rng = np.random.default_rng(1)
     for B, N, k in INIT_SHAPES:
         x = torch.from_numpy(np.stack([lidar_like_cloud(rng, N, max_range=1.0)
@@ -109,15 +187,9 @@ def worker(tree: str) -> None:
                             max_rotation_deg=5.0, max_translation=0.5)
     src, tgt = (torch.from_numpy(a).to(dev)
                 for a in next(batch_iterator(held, 1, epoch=0, seed=0, shuffle=False))[:2])
-    for _ in range(3):
-        reg(src, tgt)
-    lat = []
-    for _ in range(20):
-        t0 = time.perf_counter()
-        reg(src, tgt)
-        torch.cuda.synchronize()
-        lat.append((time.perf_counter() - t0) * 1e3)
-    times["registrar kitti25-rot"] = [statistics.median(lat)] * 2
+    times["registrar kitti25-rot"] = [synced_median_ms(torch, lambda: reg(src, tgt), 20)] * 2
+    step = train_step_fn(torch, dev)
+    times["train step kitti25-rot"] = [synced_median_ms(torch, step, 10), busy_ms(torch, step, 3)]
     print(json.dumps(times))
 
 
@@ -151,15 +223,17 @@ def main() -> None:
             runs[name].append(json.loads(proc.stdout.strip().splitlines()[-1]))
             print(f"round {r} {name}: " + json.dumps(runs[name][-1]), flush=True)
     print(f"medians over {args.rounds} rounds (ms per call | behind a hold; the registrar: "
-          f"synced latency, twice), {card}:")
+          f"synced latency, twice; the train step: synced time | device busy time), {card}:")
     for key in runs["this"][0]:
         this = [statistics.median(t[key][i] for t in runs["this"]) for i in (0, 1)]
         other = [statistics.median(t[key][i] for t in runs["other"]) for i in (0, 1)]
         print(f"  {key}: this {this[0]:.4f} | {this[1]:.4f}, other {other[0]:.4f} | "
               f"{other[1]:.4f}, this / other {this[0] / other[0]:.3f} | {this[1] / other[1]:.3f}")
-    # per serving FE pass (the three K1 shapes) and per init (the two K3
-    # calls): each round's sum, then the median over the rounds
-    for what, prefix in (("K1 per serving FE pass", "K1 serving"), ("K3 per init", "K3")):
+    # per serving FE pass (the three K1 shapes), per serving backward pass
+    # (the three K2 shapes) and per init (the two K3 calls): each round's
+    # sum, then the median over the rounds
+    for what, prefix in (("K1 per serving FE pass", "K1 serving"),
+                         ("K2 per serving backward pass", "K2 serving"), ("K3 per init", "K3")):
         this, other = ([statistics.median(sum(v[i] for k, v in t.items() if k.startswith(prefix))
                                           for t in runs[name]) for i in (0, 1)]
                        for name in ("this", "other"))

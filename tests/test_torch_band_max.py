@@ -267,3 +267,52 @@ def test_kernels_take_any_channel_count_on_card(cuda):
         assert torch.equal(got, banded_masked_max_grad_reference(x, u, out, g, 0.3)), C
         assert (banded_masked_max.launches, banded_masked_max_grad.launches) == (
             before[0] + 1, before[1] + 1)
+
+
+def _grad_cases_on_card(cuda, pts, C, r, gen):
+    """K2 at one cloud: bit-identical to the plain version with integer
+    cotangents, with Gaussian ones and with forced ties (u of 3 levels), one
+    launch a call, and two calls with Gaussian cotangents bitwise equal."""
+    x = torch.from_numpy(pts).to(cuda)
+    shape = (pts.shape[0], pts.shape[1], C)
+    for u in (torch.randn(shape, device=cuda, generator=gen),
+              torch.randint(0, 3, shape, device=cuda, generator=gen).float()):
+        out = banded_masked_max(x, u, r)
+        g_int = torch.randint(-8, 9, shape, device=cuda, generator=gen).float()
+        before = banded_masked_max_grad.launches
+        got = banded_masked_max_grad(x, u, out, g_int, r)
+        torch.cuda.synchronize()
+        assert banded_masked_max_grad.launches == before + 1
+        want = banded_masked_max_grad_reference(x, u, out, g_int, r)
+        assert torch.equal(got, want), (shape, r, (got - want).abs().max().item())
+    g = torch.randn(shape, device=cuda, generator=gen)
+    first = banded_masked_max_grad(x, u, out, g, r)
+    assert torch.equal(first, banded_masked_max_grad(x, u, out, g, r)), (shape, r)
+
+
+@pytest.mark.gpu
+def test_grad_kernel_on_dense_object_clouds_on_card(cuda):
+    """K2 on object-scale clouds (unit cubes, N = 10 000, B = 2), where a
+    32-receiver tile's slab holds thousands of points and nearly every slab
+    point lies within radius of some receiver, at the SA stages' (C, r)."""
+    rng = np.random.default_rng(3)
+    pts = _sorted_cloud(rng, 2, 10000, 0.5)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for C, r in ((16, 0.1), (32, 0.2), (64, 0.4)):
+        _grad_cases_on_card(cuda, pts, C, r, gen)
+
+
+@pytest.mark.gpu
+def test_grad_kernel_long_slabs_and_ragged_tiles_on_card(cuda):
+    """K2 where each warp's share of a slab spans several 128-point ring
+    stages (a cloud thin in x, so a slab holds most of it) and where N is
+    not a multiple of the 32-receiver tile, at odd and partial windows."""
+    rng = np.random.default_rng(4)
+    thin = _sorted_cloud(rng, 1, 3000, 1.0)
+    thin[..., 0] *= 0.05
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    for C in (3, 16, 40, 64):
+        _grad_cases_on_card(cuda, thin, C, 0.3, gen)
+    for N in (1, 31, 33, 1001, 10001):
+        for C in (5, 16, 64):
+            _grad_cases_on_card(cuda, _sorted_cloud(rng, 2, N, 2.0), C, 0.4, gen)
