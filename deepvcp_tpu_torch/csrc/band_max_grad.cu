@@ -51,61 +51,58 @@
 
 namespace {
 
-constexpr int TILE = 32;    // receivers per block, a lane each
-constexpr int CHUNK = 128;  // slab points per stage of the ring
+constexpr int TILE = 32;  // receivers per block, a lane each
 
 // A block: SW warps over one tile of 32 receivers, each taking every SW-th
-// point of a chunk. Dynamic shared memory holds the ring, then the merge.
-template <int KC, int SW>
+// point of a CHUNK-point stage. Dynamic shared memory holds the ring, then
+// the merge.
+template <int KC, int SW, int CHUNK>
 struct Shape {
   static constexpr int THREADS = 32 * SW;
-  static constexpr int RING = 2 * CHUNK * 16;  // xyz of a chunk's points as float4, 2 stages
+  struct Ring {
+    float4 x[2][CHUNK];           // xyz of a chunk's points (w unused)
+    float4 o[2][CHUNK * KC / 4];  // their out rows' window, row-major
+    float4 g[2][CHUNK * KC / 4];  // their g rows' window
+  };
   static constexpr int MERGE = SW * TILE * (KC + 1) * 4;
-  static constexpr int SMEM = RING > MERGE ? RING : MERGE;
+  static constexpr int SMEM = sizeof(Ring) > MERGE ? sizeof(Ring) : MERGE;
 };
 
-// acc[k] += g[k] wherever the pair is in radius and u[n, k] == out[q, k],
-// for the window's KC channels of one query row.
+// acc += g where hit and un == o, as a predicated add. In PTX so that no
+// branch on the lane's hit appears: nvcc otherwise branches per 4 channels
+// and each branch waits on its own shared-memory loads.
+__device__ __forceinline__ void add_if(float& acc, float un, float o, float g, unsigned hit) {
+  asm("{\n\t.reg .pred h, p;\n\t"
+      "setp.ne.u32 h, %4, 0;\n\t"
+      "setp.eq.and.f32 p, %1, %2, h;\n\t"
+      "@p add.rn.f32 %0, %0, %3;\n\t}"
+      : "+f"(acc) : "f"(un), "f"(o), "f"(g), "r"(hit));
+}
+
+// add_if over the window's KC channels of one staged query row.
 template <int KC>
-__device__ __forceinline__ void add_row(float (&acc)[KC], const float (&un)[KC], bool hit,
-                                        const float* orow, const float* grow, int cw, bool vec) {
-  if (vec) {
-    const float4* o4 = reinterpret_cast<const float4*>(orow);
-    const float4* g4 = reinterpret_cast<const float4*>(grow);
+__device__ __forceinline__ void add_row(float (&acc)[KC], const float (&un)[KC], unsigned hit,
+                                        const float4* orow, const float4* grow) {
 #pragma unroll
-    for (int k4 = 0; k4 < KC / 4; ++k4) {
-      if (4 * k4 < cw) {
-        const float4 o = __ldg(o4 + k4);
-        const float4 gv = __ldg(g4 + k4);
-        if (hit) {
-          if (un[4 * k4] == o.x) acc[4 * k4] += gv.x;
-          if (un[4 * k4 + 1] == o.y) acc[4 * k4 + 1] += gv.y;
-          if (un[4 * k4 + 2] == o.z) acc[4 * k4 + 2] += gv.z;
-          if (un[4 * k4 + 3] == o.w) acc[4 * k4 + 3] += gv.w;
-        }
-      }
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < KC; ++k) {
-      if (k < cw) {
-        const float o = __ldg(orow + k);
-        const float gv = __ldg(grow + k);
-        if (hit && un[k] == o) acc[k] += gv;
-      }
-    }
+  for (int k4 = 0; k4 < KC / 4; ++k4) {
+    const float4 o = orow[k4];
+    const float4 gv = grow[k4];
+    add_if(acc[4 * k4], un[4 * k4], o.x, gv.x, hit);
+    add_if(acc[4 * k4 + 1], un[4 * k4 + 1], o.y, gv.y, hit);
+    add_if(acc[4 * k4 + 2], un[4 * k4 + 2], o.z, gv.z, hit);
+    add_if(acc[4 * k4 + 3], un[4 * k4 + 3], o.w, gv.w, hit);
   }
 }
 
-template <int KC, int SW>
-__global__ void __launch_bounds__(Shape<KC, SW>::THREADS)
+template <int KC, int SW, int CHUNK, int STEP>
+__global__ void __launch_bounds__(Shape<KC, SW, CHUNK>::THREADS)
 band_max_grad_kernel(const float* __restrict__ xyz, const float* __restrict__ u,
                      const float* __restrict__ out, const float* __restrict__ g,
                      float* __restrict__ grad, int N, int C, float radius, float r2) {
   static_assert(SW >= 2, "warps 0 and 1 search the slab's two ends");
-  using S = Shape<KC, SW>;
+  using S = Shape<KC, SW, CHUNK>;
   extern __shared__ float4 smem[];
-  float4(*ring)[CHUNK] = reinterpret_cast<float4(*)[CHUNK]>(smem);
+  typename S::Ring& ring = *reinterpret_cast<typename S::Ring*>(smem);
   __shared__ int bounds[2];
 
   const int b = blockIdx.z;
@@ -119,8 +116,8 @@ band_max_grad_kernel(const float* __restrict__ xyz, const float* __restrict__ u,
   const int sw = threadIdx.x >> 5;  // which share of each chunk
   const int n = tile0 + lane;
   const float* bx = xyz + static_cast<size_t>(b) * N * 3;
-  const float* bo = out + static_cast<size_t>(b) * N * C + c0;
-  const float* bg = g + static_cast<size_t>(b) * N * C + c0;
+  const float* bo = out + static_cast<size_t>(b) * N * C;
+  const float* bg = g + static_cast<size_t>(b) * N * C;
 
   if (sw == 0) {
     const int lo = band_slab::lower_bound_key_warp(bx, N, band_slab::slab_lo_key(bx, tile0, radius));
@@ -167,13 +164,11 @@ band_max_grad_kernel(const float* __restrict__ xyz, const float* __restrict__ u,
   const int hi = bounds[1];
   const int chunks = (hi - lo + CHUNK - 1) / CHUNK;
 
-  // stage points [base, base + m) of the slab's xyz into ring stage st
+  // stage points [base, base + m) of the slab into ring stage st
   auto stage = [&](int st, int base, int m) {
-    float* sx = reinterpret_cast<float*>(ring[st]);
-    for (int i = threadIdx.x; i < m * 3; i += S::THREADS) {
-      const int r = i / 3;
-      band_slab::cp_async4(sx + 4 * r + (i - 3 * r), bx + static_cast<size_t>(base) * 3 + i);
-    }
+    band_slab::stage_xyz<S::THREADS>(ring.x[st], bx, base, m);
+    band_slab::stage_window<KC, S::THREADS>(ring.o[st], bo, base, m, C, c0, cw, vec);
+    band_slab::stage_window<KC, S::THREADS>(ring.g[st], bg, base, m, C, c0, cw, vec);
   };
   if (chunks > 0) stage(0, lo, min(CHUNK, hi - lo));
   band_slab::cp_async_commit();
@@ -185,12 +180,29 @@ band_max_grad_kernel(const float* __restrict__ xyz, const float* __restrict__ u,
     band_slab::cp_async_wait_one();  // this thread's copies of chunk k have landed
     __syncthreads();                 // and everyone's
     const int m = min(CHUNK, hi - base);
-    for (int j = sw; j < m; j += SW) {
-      const float4 p = ring[st][j];
-      const bool hit = live && band_slab::in_radius(p.x, p.y, p.z, nx, ny, nz, r2);
-      if (__any_sync(0xffffffffu, hit)) {
-        const size_t q = static_cast<size_t>(base + j) * C;
-        add_row<KC>(acc, un, hit, bo + q, bg + q, cw, vec);
+    const float4* xs = ring.x[st];
+    const float4* os = ring.o[st];
+    const float4* gs = ring.g[st];
+    if (STEP == 1) {
+      for (int j = sw; j < m; j += SW) {
+        const float4 p = xs[j];
+        const bool hit = live && band_slab::in_radius(p.x, p.y, p.z, nx, ny, nz, r2);
+        if (__any_sync(0xffffffffu, hit)) {
+          add_row<KC>(acc, un, hit, os + j * (KC / 4), gs + j * (KC / 4));
+        }
+      }
+    } else {
+      // two points a step, j and j + SW, added in that order
+      for (int j = sw; j < m; j += 2 * SW) {
+        const int j1 = j + SW < m ? j + SW : j;
+        const float4 p0 = xs[j];
+        const float4 p1 = xs[j1];
+        const bool hit0 = live && band_slab::in_radius(p0.x, p0.y, p0.z, nx, ny, nz, r2);
+        const bool hit1 = live && j1 != j && band_slab::in_radius(p1.x, p1.y, p1.z, nx, ny, nz, r2);
+        if (__any_sync(0xffffffffu, hit0 || hit1)) {
+          add_row<KC>(acc, un, hit0, os + j * (KC / 4), gs + j * (KC / 4));
+          add_row<KC>(acc, un, hit1, os + j1 * (KC / 4), gs + j1 * (KC / 4));
+        }
       }
     }
     __syncthreads();  // everyone is done with stage st before it is refilled
@@ -208,16 +220,15 @@ band_max_grad_kernel(const float* __restrict__ xyz, const float* __restrict__ u,
     const int per_row = cw / 4;
     for (int i = threadIdx.x; i < rows * per_row; i += S::THREADS) {
       const int r = i / per_row, k = 4 * (i - r * per_row);
-      float4 s;
-      float* sv = reinterpret_cast<float*>(&s);
+      float v[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float v = red[r * (KC + 1) + k + e];
+        v[e] = red[r * (KC + 1) + k + e];
 #pragma unroll
-        for (int w = 1; w < SW; ++w) v += red[(w * TILE + r) * (KC + 1) + k + e];
-        sv[e] = v;
+        for (int w = 1; w < SW; ++w) v[e] += red[(w * TILE + r) * (KC + 1) + k + e];
       }
-      *reinterpret_cast<float4*>(bgrad + static_cast<size_t>(r) * C + k) = s;
+      *reinterpret_cast<float4*>(bgrad + static_cast<size_t>(r) * C + k) =
+          make_float4(v[0], v[1], v[2], v[3]);
     }
   } else {
     for (int i = threadIdx.x; i < rows * cw; i += S::THREADS) {
@@ -230,11 +241,11 @@ band_max_grad_kernel(const float* __restrict__ xyz, const float* __restrict__ u,
   }
 }
 
-template <int KC, int SW>
+template <int KC, int SW, int CHUNK, int STEP = 1>
 int launch(const float* xyz, const float* u, const float* out, const float* g, float* grad,
            int B, int N, int C, float radius, float r2, cudaStream_t stream) {
-  using S = Shape<KC, SW>;
-  auto kernel = band_max_grad_kernel<KC, SW>;
+  using S = Shape<KC, SW, CHUNK>;
+  auto kernel = band_max_grad_kernel<KC, SW, CHUNK, STEP>;
   if (S::SMEM > 48 * 1024) {  // above 48 KB only once allowed, per card
     static unsigned allowed = 0;  // a bit per card
     int dev = 0;
@@ -262,25 +273,27 @@ extern "C" int band_max_grad_f32(const float* xyz, const float* u, const float* 
                                  float radius, float r2, void* stream) {
   if (B <= 0 || N <= 0 || C <= 0 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C <= 16) return launch<16, 4>(xyz, u, out, g, grad, B, N, C, radius, r2, s);
-  if (C <= 32) return launch<32, 8>(xyz, u, out, g, grad, B, N, C, radius, r2, s);
-  return launch<64, 8>(xyz, u, out, g, grad, B, N, C, radius, r2, s);
+  if (C <= 16) return launch<16, 4, 128>(xyz, u, out, g, grad, B, N, C, radius, r2, s);
+  if (C <= 32) return launch<32, 8, 128>(xyz, u, out, g, grad, B, N, C, radius, r2, s);
+  return launch<64, 8, 64>(xyz, u, out, g, grad, B, N, C, radius, r2, s);
 }
 
-// The same kernel at a chosen window KC (16, 32 or 64) and SW warps a tile
-// (2, 4 or 8), for timing the launch shapes against each other. Returns
-// cudaErrorInvalidValue for any other shape.
+// The same kernel at a chosen window KC, SW warps a tile and CHUNK points
+// a ring stage, for timing the launch shapes against each other. Returns
+// cudaErrorInvalidValue for a shape not built here.
 extern "C" int band_max_grad_f32_shape(const float* xyz, const float* u, const float* out,
                                        const float* g, float* grad, int B, int N, int C,
-                                       float radius, float r2, int kc, int sw, void* stream) {
+                                       float radius, float r2, int kc, int sw, int chunk,
+                                       int step, void* stream) {
   if (B <= 0 || N <= 0 || C <= 0 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define K2_SHAPE(KC_, SW_)                                                         \
-  if (kc == KC_ && sw == SW_)                                                      \
-    return launch<KC_, SW_>(xyz, u, out, g, grad, B, N, C, radius, r2, s);
-  K2_SHAPE(16, 2) K2_SHAPE(16, 4) K2_SHAPE(16, 8)
-  K2_SHAPE(32, 2) K2_SHAPE(32, 4) K2_SHAPE(32, 8)
-  K2_SHAPE(64, 2) K2_SHAPE(64, 4) K2_SHAPE(64, 8)
+#define K2_SHAPE(KC_, SW_, CHUNK_, STEP_)                                          \
+  if (kc == KC_ && sw == SW_ && chunk == CHUNK_ && step == STEP_)                  \
+    return launch<KC_, SW_, CHUNK_, STEP_>(xyz, u, out, g, grad, B, N, C, radius, r2, s);
+  K2_SHAPE(16, 4, 128, 1) K2_SHAPE(16, 8, 128, 1) K2_SHAPE(32, 8, 128, 1)
+  K2_SHAPE(64, 8, 128, 1)
+  K2_SHAPE(16, 4, 128, 2) K2_SHAPE(16, 8, 128, 2) K2_SHAPE(32, 8, 128, 2)
+  K2_SHAPE(32, 4, 128, 2) K2_SHAPE(64, 8, 128, 2)
 #undef K2_SHAPE
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -26,7 +26,11 @@ sys.path.insert(0, ROOT)
 
 HOLD_CYCLES = 20_000_000
 SA_SHAPES = ((16, 0.1), (32, 0.2), (64, 0.4))
-WARPS = (2, 4, 8)
+# (KC, SW, CHUNK, STEP): channel window, warps a tile, points a ring stage,
+# points a warp takes a step
+LAUNCH_SHAPES = ((16, 4, 128, 1), (16, 8, 128, 1), (32, 8, 128, 1), (64, 8, 128, 1),
+                 (16, 4, 128, 2), (16, 8, 128, 2), (32, 4, 128, 2), (32, 8, 128, 2),
+                 (64, 8, 128, 2))
 
 
 def median_ms(torch, fn, reps: int, hold: bool) -> float:
@@ -93,30 +97,29 @@ def main() -> None:
             ref64 = banded_masked_max_grad_reference(x, u, out, g.double(), r)
             print(f"K2 {name} C={C} r={r}: plain f32 vs f64 sums {(ref32 - ref64).abs().max().item():.3e}, "
                   f"max |grad| {ref64.abs().max().item():.3f}", flush=True)
-            for kc in (16, 32, 64):
+            for kc, sw, chunk, step in LAUNCH_SHAPES:
                 if kc > 16 and kc > C:
                     continue
-                for sw in WARPS:
-                    def call(gg, res):
-                        _build.launch(lib.band_max_grad_f32_shape, u, x.data_ptr(), u.data_ptr(),
-                                      out.data_ptr(), gg.data_ptr(), res.data_ptr(), *u.shape,
-                                      r, radius_squared(r), kc, sw)
-                    res = torch.empty_like(u)
-                    call(g_int, res)
-                    err = (res - want).abs().max().item()
-                    res2 = torch.empty_like(u)
-                    call(g, res)
-                    call(g, res2)
-                    same = torch.equal(res, res2)
-                    gauss = (f"Gaussian g vs plain {(res - ref32).abs().max().item():.3e}, vs f64 "
-                             f"{(res - ref64).abs().max().item():.3e}")
-                    ms, held = (median_ms(torch, lambda: call(g, res), 50, hold)
-                                for hold in (False, True))
-                    print(f"K2 {name} C={C} r={r} KC={kc} SW={sw}: max_abs_err {err} (integer g), "
-                          f"{gauss}, deterministic {same} | {ms:.4f} ms per call, {held:.4f} held",
-                          flush=True)
-                    if err != 0.0 or not same:
-                        sys.exit(f"K2 at KC={kc} SW={sw} is wrong")
+                def call(gg, res):
+                    _build.launch(lib.band_max_grad_f32_shape, u, x.data_ptr(), u.data_ptr(),
+                                  out.data_ptr(), gg.data_ptr(), res.data_ptr(), *u.shape,
+                                  r, radius_squared(r), kc, sw, chunk, step)
+                res = torch.empty_like(u)
+                call(g_int, res)
+                err = (res - want).abs().max().item()
+                res2 = torch.empty_like(u)
+                call(g, res)
+                call(g, res2)
+                same = torch.equal(res, res2)
+                gauss = (f"Gaussian g vs plain {(res - ref32).abs().max().item():.3e}, vs f64 "
+                         f"{(res - ref64).abs().max().item():.3e}")
+                ms, held = (median_ms(torch, lambda: call(g, res), 50, hold)
+                            for hold in (False, True))
+                print(f"K2 {name} C={C} r={r} KC={kc} SW={sw} CHUNK={chunk} STEP={step}: max_abs_err {err} (integer g), "
+                      f"{gauss}, deterministic {same} | {ms:.4f} ms per call, {held:.4f} held",
+                      flush=True)
+                if err != 0.0 or not same:
+                    sys.exit(f"K2 at KC={kc} SW={sw} CHUNK={chunk} STEP={step} is wrong")
 
 
 if __name__ == "__main__":
