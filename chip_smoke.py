@@ -709,8 +709,14 @@ def band_phase(torch, dev) -> dict:
             res.update(k1_ms=ms_sum, k1_plain_ms=plain_sum, k1_bound=(bound, by))
 
     # K2 at the serving and the cascade's shapes, cotangents of the
-    # forward's output: integer ones (every sum exact), Gaussian ones, and
-    # forced ties (u of 3 levels); Gaussian twice for determinism
+    # forward's output: integer ones (every sum exact), forced ties (u of 3
+    # levels), Gaussian ones, and Gaussian twice for determinism. Gaussian
+    # sums are also taken in float64 (rounded once): the cascade's run over
+    # hundreds of terms up to ~235 in size, where the plain version's own
+    # f32 sums are ~2e-5 from them, so K2_GAUSS_LIMIT holds at the serving
+    # shapes and the cascade's are held to the bound of any f32 order of
+    # summation instead: gamma(m - 1) * sum |g_i| over an element's m terms,
+    # plus the rounding of the exact sum
     for fam, x in families.items():
         ms_sum = held_sum = plain_sum = 0.0
         work = [0, 0]
@@ -721,23 +727,41 @@ def band_phase(torch, dev) -> dict:
             out, out_tie = banded_masked_max(x, u, r), banded_masked_max(x, u_tie, r)
             g_int = torch.randint(-8, 9, shape, device=dev, generator=gen).float()
             g = torch.randn(shape, device=dev, generator=gen)
-            err_int = max((banded_masked_max_grad(x, uu, oo, g_int, r)
-                           - banded_masked_max_grad_reference(x, uu, oo, g_int, r)).abs().max().item()
-                          for uu, oo in ((u, out), (u_tie, out_tie)))
+            err_int = max(
+                (banded_masked_max_grad(x, uu, oo, g_int, r)
+                 - banded_masked_max_grad_reference(x, uu, oo, g_int, r)).abs().max().item()
+                for uu, oo in ((u, out), (u_tie, out_tie)))
             got = banded_masked_max_grad(x, u, out, g, r)
             again = banded_masked_max_grad(x, u, out, g, r)
-            err = (got - banded_masked_max_grad_reference(x, u, out, g, r)).abs().max().item()
-            if not torch.isfinite(got).all() or err_int != 0.0 or err > K2_GAUSS_LIMIT:
+            plain = banded_masked_max_grad_reference(x, u, out, g, r)
+            exact = banded_masked_max_grad_reference(x, u, out, g.double(), r)
+            err, err_exact = ((got - plain).abs().max().item(),
+                              (got - exact).abs().max().item())
+            if fam == "serving":
+                ok_gauss, held_to = err <= K2_GAUSS_LIMIT, f"<= {K2_GAUSS_LIMIT}"
+            else:
+                terms = banded_masked_max_grad_reference(x, u, out, torch.ones_like(g), r)
+                mag = banded_masked_max_grad_reference(x, u, out, g.abs().double(), r)
+                um = (terms - 1).clamp(min=0) * 2.0**-24
+                limit = um / (1 - um) * mag + 2.0**-23 * exact.abs()
+                ratio = ((got - exact).abs() / limit.clamp(min=1e-30)).max().item()
+                ok_gauss = ratio <= 1.0
+                held_to = (f"{ratio:.3f} of its summation bound (up to {int(terms.max())} terms, "
+                           f"bound max {limit.max().item():.3e})")
+            print(f"K2 {fam} C={C} r={r}: Gaussian g, kernel vs plain {err:.3e}, vs exact sums "
+                  f"{err_exact:.3e}, plain vs exact sums "
+                  f"{(plain - exact).abs().max().item():.3e}; held to {held_to}")
+            if not torch.isfinite(got).all() or err_int != 0.0 or not ok_gauss:
                 fail(f"K2 disagrees with its plain version at {fam} C={C}, r={r}: max abs "
-                     f"{err_int} (integer cotangents, forced ties too, must be 0) and {err} "
-                     f"(Gaussian, <= {K2_GAUSS_LIMIT})")
+                     f"{err_int} (integer cotangents, forced ties too, must be 0), Gaussian "
+                     f"{err} (held to {held_to})")
             if not torch.equal(got, again):
                 fail(f"K2 is not deterministic at {fam} C={C}, r={r}: two calls differ by "
                      f"{(got - again).abs().max().item()}")
             ms = cuda_median_ms(torch, lambda: banded_masked_max_grad(x, u, out, g, r), reps=50)
             held = cuda_median_ms(torch, lambda: banded_masked_max_grad(x, u, out, g, r),
                                   reps=50, hold=True)
-            plain = cuda_median_ms(
+            plain_ms = cuda_median_ms(
                 torch, lambda: banded_masked_max_grad_reference(x, u, out, g, r),
                 reps=20 if fam == "serving" else 3)
             pairs_r = in_radius_pairs(torch, x, r)
@@ -753,11 +777,12 @@ def band_phase(torch, dev) -> dict:
             print(f"K2 banded_masked_max_grad {fam} [{x.shape[0]}, {x.shape[1]}] C={C} r={r}: "
                   f"max_abs_err {err_int} (integer g, forced ties too), {err:.3e} (Gaussian g), "
                   f"two calls bitwise equal | kernel {ms:.4f} ms per call, {held:.4f} behind a "
-                  f"hold, plain {plain:.4f} ms, bound {bound:.5f} ms ({by}) | slab {tiles} "
+                  f"hold, plain {plain_ms:.4f} ms, bound {bound:.5f} ms ({by}) | slab {tiles} "
                   f"(share of the slab's points within radius of a tile's receiver), {pairs_r} "
                   f"in-radius pairs")
-            res["k2_err"] = max(res["k2_err"], err)
-            ms_sum, held_sum, plain_sum = ms_sum + ms, held_sum + held, plain_sum + plain
+            if fam == "serving":
+                res["k2_err"] = max(res["k2_err"], err)
+            ms_sum, held_sum, plain_sum = ms_sum + ms, held_sum + held, plain_sum + plain_ms
             work = [work[0] + nbytes, work[1] + ops]
         bound, by = bound_ms(*work)
         print(f"K2 {fam}, the 3 SA shapes: kernel {ms_sum:.4f} ms per call, {held_sum:.4f} behind "

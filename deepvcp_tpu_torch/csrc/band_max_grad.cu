@@ -10,40 +10,43 @@
 // layout: no [B, C, N] transpose, no (8, 128) padding, no scalar prefetch,
 // and no clamped last chunk: each query of the slab is visited exactly once.
 //
-// Design. K1's transpose with K1's levers (band_max.cu). One block per tile
-// of 32 consecutive sorted RECEIVERS n and window of KC channels (KC = 16,
-// 32 or 64, a template parameter; a wider C takes several windows,
-// blockIdx.y). The in-radius relation is symmetric, so the queries that can
-// see the tile form the same slab K1 would pool for it (band_slab.cuh).
+// Design. K1's transpose, with K1's levers (band_max.cu). One block per tile
+// of 32 consecutive sorted RECEIVERS n and window of KC channels (KC = 16
+// for C <= 16, else 32; a wider C takes several windows, blockIdx.y). The
+// in-radius relation is symmetric, so the queries that can see the tile
+// form the same slab K1 would pool for it (band_slab.cuh).
 //   - A lane owns one receiver and keeps u[n, window] and the window's KC
 //     sums in registers, so each (receiver, query) pair is tested once.
 //   - Slab search: warp 0 finds lo and warp 1 hi by the warp-cooperative
 //     search of band_slab.cuh.
-//   - Only the slab's xyz streams through a two-stage cp.async ring of CHUNK
-//     = 128 points. SW warps take interleaved points of each chunk; for a
-//     point, a ballot over the warp's receivers decides (a warp-uniform
-//     branch) whether its out and g window rows are read at all, straight
-//     from global memory (16-byte loads where C % 4 == 0, a broadcast: every
-//     lane reads the same row). At the serving shapes most slab points lie
-//     within radius of no receiver of the tile, and their rows are never
-//     read; the parent design staged every row of the slab.
+//   - Staging: the slab's xyz and its out and g window rows stream through a
+//     two-stage cp.async ring of CHUNK = 128 points, so the next chunk loads
+//     while the current one is tested.
+//   - Split: SW = 8 warps take interleaved points of each chunk. A point's
+//     rows are read (broadcasts) only where a ballot finds some lane in
+//     radius, a warp-uniform branch; inside it each channel's compare and
+//     add is one predicated PTX add, with no per-lane branch (nvcc's
+//     branches there made every 4 channels wait on their own shared-memory
+//     loads).
 //   - Merge: each warp's sums go to shared memory and the block adds them in
 //     warp order, then writes whole rows.
+// Reading only the rows a ballot asks for, straight from global memory, and
+// windows of 64 channels were slower on every shape (PERF.md, section 6).
 //
-// Determinism. Each warp sums its points in ascending q; the warps' sums are
-// added in a fixed order. No atomics: the same inputs give the same bits.
+// Determinism. Each warp sums its points in ascending q and the warps' sums
+// are added in a fixed order, with no atomics: the same inputs give the same
+// bits. Integer-valued cotangents sum exactly, as in the plain version.
 //
-// Any C >= 1: a window's channels past C are read from nowhere (their g is
-// 0) and never written; C % 4 == 0 reads and writes 16-byte pieces, other C
-// 4-byte elements.
+// Any C >= 1: a window's channels past C are staged from nowhere and never
+// written; C % 4 == 0 stages and writes 16-byte pieces, other C 4-byte
+// elements.
 //
-// What bounds it. At the serving shapes (slabs of 150-800 points, 1-2% of
-// the pairs in radius), latency: the search, the ring, the row loads of the
-// points some lane needs, and few warps a tile. On the object-scale clouds
-// of the cascade (slabs of thousands of points, up to 64% of the pairs in
-// radius, so almost every slab row is read), the loads of those rows from
-// L2 and the 2 KC compare-and-add operations a lane does per in-radius
-// point.
+// What bounds it. At the serving shapes (slabs of 120-385 points a tile,
+// 1-2% of the tested pairs in radius), latency: the search, the ring's first
+// chunk and few points a warp. On the object-scale clouds of the cascade
+// (slabs of thousands of points, up to 64% of the pairs in radius), issue:
+// two instructions per channel for every tested pair of a point that some
+// lane of the warp has in radius.
 
 #include <cuda_runtime.h>
 
@@ -51,12 +54,13 @@
 
 namespace {
 
-constexpr int TILE = 32;  // receivers per block, a lane each
+constexpr int TILE = 32;    // receivers per block, a lane each
+constexpr int CHUNK = 128;  // slab points per stage of the ring
+constexpr int SW = 8;       // warps a block, each taking every SW-th point of a chunk
 
-// A block: SW warps over one tile of 32 receivers, each taking every SW-th
-// point of a CHUNK-point stage. Dynamic shared memory holds the ring, then
-// the merge.
-template <int KC, int SW, int CHUNK>
+// A block over one tile of 32 receivers and a window of KC channels.
+// Dynamic shared memory holds the ring, then the merge.
+template <int KC>
 struct Shape {
   static constexpr int THREADS = 32 * SW;
   struct Ring {
@@ -94,13 +98,12 @@ __device__ __forceinline__ void add_row(float (&acc)[KC], const float (&un)[KC],
   }
 }
 
-template <int KC, int SW, int CHUNK, int STEP>
-__global__ void __launch_bounds__(Shape<KC, SW, CHUNK>::THREADS)
+template <int KC>
+__global__ void __launch_bounds__(Shape<KC>::THREADS)
 band_max_grad_kernel(const float* __restrict__ xyz, const float* __restrict__ u,
                      const float* __restrict__ out, const float* __restrict__ g,
                      float* __restrict__ grad, int N, int C, float radius, float r2) {
-  static_assert(SW >= 2, "warps 0 and 1 search the slab's two ends");
-  using S = Shape<KC, SW, CHUNK>;
+  using S = Shape<KC>;
   extern __shared__ float4 smem[];
   typename S::Ring& ring = *reinterpret_cast<typename S::Ring*>(smem);
   __shared__ int bounds[2];
@@ -183,26 +186,11 @@ band_max_grad_kernel(const float* __restrict__ xyz, const float* __restrict__ u,
     const float4* xs = ring.x[st];
     const float4* os = ring.o[st];
     const float4* gs = ring.g[st];
-    if (STEP == 1) {
-      for (int j = sw; j < m; j += SW) {
-        const float4 p = xs[j];
-        const bool hit = live && band_slab::in_radius(p.x, p.y, p.z, nx, ny, nz, r2);
-        if (__any_sync(0xffffffffu, hit)) {
-          add_row<KC>(acc, un, hit, os + j * (KC / 4), gs + j * (KC / 4));
-        }
-      }
-    } else {
-      // two points a step, j and j + SW, added in that order
-      for (int j = sw; j < m; j += 2 * SW) {
-        const int j1 = j + SW < m ? j + SW : j;
-        const float4 p0 = xs[j];
-        const float4 p1 = xs[j1];
-        const bool hit0 = live && band_slab::in_radius(p0.x, p0.y, p0.z, nx, ny, nz, r2);
-        const bool hit1 = live && j1 != j && band_slab::in_radius(p1.x, p1.y, p1.z, nx, ny, nz, r2);
-        if (__any_sync(0xffffffffu, hit0 || hit1)) {
-          add_row<KC>(acc, un, hit0, os + j * (KC / 4), gs + j * (KC / 4));
-          add_row<KC>(acc, un, hit1, os + j1 * (KC / 4), gs + j1 * (KC / 4));
-        }
+    for (int j = sw; j < m; j += SW) {
+      const float4 p = xs[j];
+      const bool hit = live && band_slab::in_radius(p.x, p.y, p.z, nx, ny, nz, r2);
+      if (__any_sync(0xffffffffu, hit)) {
+        add_row<KC>(acc, un, hit, os + j * (KC / 4), gs + j * (KC / 4));
       }
     }
     __syncthreads();  // everyone is done with stage st before it is refilled
@@ -241,11 +229,11 @@ band_max_grad_kernel(const float* __restrict__ xyz, const float* __restrict__ u,
   }
 }
 
-template <int KC, int SW, int CHUNK, int STEP = 1>
+template <int KC>
 int launch(const float* xyz, const float* u, const float* out, const float* g, float* grad,
            int B, int N, int C, float radius, float r2, cudaStream_t stream) {
-  using S = Shape<KC, SW, CHUNK>;
-  auto kernel = band_max_grad_kernel<KC, SW, CHUNK, STEP>;
+  using S = Shape<KC>;
+  auto kernel = band_max_grad_kernel<KC>;
   if (S::SMEM > 48 * 1024) {  // above 48 KB only once allowed, per card
     static unsigned allowed = 0;  // a bit per card
     int dev = 0;
@@ -273,27 +261,8 @@ extern "C" int band_max_grad_f32(const float* xyz, const float* u, const float* 
                                  float radius, float r2, void* stream) {
   if (B <= 0 || N <= 0 || C <= 0 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C <= 16) return launch<16, 4, 128>(xyz, u, out, g, grad, B, N, C, radius, r2, s);
-  if (C <= 32) return launch<32, 8, 128>(xyz, u, out, g, grad, B, N, C, radius, r2, s);
-  return launch<64, 8, 64>(xyz, u, out, g, grad, B, N, C, radius, r2, s);
-}
-
-// The same kernel at a chosen window KC, SW warps a tile and CHUNK points
-// a ring stage, for timing the launch shapes against each other. Returns
-// cudaErrorInvalidValue for a shape not built here.
-extern "C" int band_max_grad_f32_shape(const float* xyz, const float* u, const float* out,
-                                       const float* g, float* grad, int B, int N, int C,
-                                       float radius, float r2, int kc, int sw, int chunk,
-                                       int step, void* stream) {
-  if (B <= 0 || N <= 0 || C <= 0 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define K2_SHAPE(KC_, SW_, CHUNK_, STEP_)                                          \
-  if (kc == KC_ && sw == SW_ && chunk == CHUNK_ && step == STEP_)                  \
-    return launch<KC_, SW_, CHUNK_, STEP_>(xyz, u, out, g, grad, B, N, C, radius, r2, s);
-  K2_SHAPE(16, 4, 128, 1) K2_SHAPE(16, 8, 128, 1) K2_SHAPE(32, 8, 128, 1)
-  K2_SHAPE(64, 8, 128, 1)
-  K2_SHAPE(16, 4, 128, 2) K2_SHAPE(16, 8, 128, 2) K2_SHAPE(32, 8, 128, 2)
-  K2_SHAPE(32, 4, 128, 2) K2_SHAPE(64, 8, 128, 2)
-#undef K2_SHAPE
-  return static_cast<int>(cudaErrorInvalidValue);
+  // windows of 16 channels at C <= 16, of 32 above (at C = 64 two windows
+  // of 32 beat one of 64: PERF.md, section 6)
+  if (C <= 16) return launch<16>(xyz, u, out, g, grad, B, N, C, radius, r2, s);
+  return launch<32>(xyz, u, out, g, grad, B, N, C, radius, r2, s);
 }

@@ -109,8 +109,6 @@ def library() -> ctypes.CDLL:
             lib.band_max_f32.restype = i
             lib.band_max_grad_f32.argtypes = [p, p, p, p, p, i, i, i, f, f, p]
             lib.band_max_grad_f32.restype = i
-            lib.band_max_grad_f32_shape.argtypes = [p, p, p, p, p, i, i, i, f, f, i, i, i, i, p]
-            lib.band_max_grad_f32_shape.restype = i
             lib.fps_f32.argtypes = [p, p, p, i, i, i, i, i, p]
             lib.fps_f32.restype = i
             lib.fps_pick_probe.argtypes = [i, i, i, i, p, p]
