@@ -19,9 +19,12 @@ any rotation, `initializer.so3_global_init` then
                  (max / mean; K2 also per 64-point tile and the share of a
                  slab within radius of its tile) and in-radius pairs: K1
                  max abs difference 0.0; K2 0.0 with integer cotangents
-                 (also with forced ties) and <= 1e-5 with Gaussian ones,
-                 two calls bitwise equal; both also at C = 8, 24, 40 and
-                 128; median times per call and behind a device hold
+                 (also with forced ties), two calls bitwise equal, and with
+                 Gaussian ones <= 1e-5 at the serving shapes and, at the
+                 cascade's (sums of thousands of terms), within the bound
+                 of any f32 order of summation of float64 sums; both also
+                 at C = 8, 24, 40 and 128; median times per call and
+                 behind a device hold
   4. registrar   16 pairs, GT-free RRE / RTE against the identity-init errors;
                  mean RRE <= 1.0 deg and mean RTE <= 0.05 m
   5. paths       kernel path against plain path on pair 0: same keypoints,

@@ -124,7 +124,7 @@ band_max_kernel(const float* __restrict__ xyz, const float* __restrict__ u,
     }
     band_slab::cp_async_commit();
     band_slab::cp_async_wait_one();  // this thread's copies of chunk k have landed
-    __syncthreads();      // and everyone's
+    __syncthreads();                 // and everyone's
     const int n = min(CHUNK, hi - base);
     for (int j = sw; j < n; j += SW) {
       const float4 p = ring.x[st][j];

@@ -7,10 +7,10 @@
 // within `radius` of a tile point has its x within radius of the tile's x
 // range, so the block's candidates form one contiguous slab [lo, hi) of the
 // sorted order, found by two searches over the sort key, each by one warp
-// (lower_bound_key_warp). The relation
-// is symmetric, so the same slab serves K1 (the tile holds queries, the slab
-// the points they pool) and K2 (the tile holds gradient receivers, the slab
-// the queries that can see them).
+// (lower_bound_key_warp). The relation is symmetric, so the same slab
+// serves K1 (the tile holds queries, the slab the points they pool) and K2
+// (the tile holds gradient receivers, the slab the queries that can see
+// them).
 //
 // The bounds are widened by 2^-16 of the coordinate magnitude so that f32
 // rounding in the bound can never drop a point the mask accepts: the mask

@@ -26,7 +26,7 @@ events around each call:
   the train step, kitti25-rot fine-tuned under the recipe that trained it
       (B = 1, chip_smoke.py's phase 8): the median of 10 synced steps and
       the device's busy time per step (torch.profiler, the union of the
-      kernels' intervals over 3 steps).
+      kernels' intervals over 3 steps), with chip_smoke.py's timers.
 Each kernel is timed per call (the wrapper's host time included where it outlasts
 the kernel, as chip_smoke.py's kernels line) and behind a device hold (the
 device's time alone). Prints every round's numbers, then the medians over
@@ -36,13 +36,13 @@ the rounds and this tree's over the other's. Needs one card.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import itertools
 import json
 import os
 import statistics
 import subprocess
 import sys
-import time
 
 HOLD_CYCLES = 20_000_000   # ~10 ms of the card's clock
 SA_SHAPES = ((16, 0.1), (32, 0.2), (64, 0.4))
@@ -69,58 +69,27 @@ def median_ms(torch, fn, reps: int, hold: bool) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def synced_median_ms(torch, fn, reps: int) -> float:
-    """Median wall time of fn() followed by a device synchronize, after 3
-    warm-up calls."""
-    for _ in range(3):
-        fn()
-    lat = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        lat.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(lat)
+def smoke():
+    """chip_smoke.py of this script's own tree, for its train recipe and
+    timers (the worker's sys.path leads to the tree under test)."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
-def busy_ms(torch, fn, calls: int) -> float:
-    """Device busy time per call of fn(): the union of the intervals of
-    every kernel, copy and fill that torch.profiler saw on the card
-    (user-annotation ranges, which enclose kernels counted already, left
-    out)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    busy_us, reached = 0.0, float("-inf")
-    for start, end in sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                             if e.device_type == DeviceType.CUDA and not e.is_user_annotation):
-        if end > reached:
-            busy_us += end - max(start, reached)
-            reached = end
-    return busy_us / 1e3 / calls
-
-
-def train_step_fn(torch, dev):
-    """One fine-tuning step of kitti25-rot under the recipe that trained it
-    (chip_smoke.py's kitti25_recipe), cycling over 4 clouds of phase 8's
-    data, as a function of no arguments."""
+def train_step_fn(torch, dev, tcfg):
+    """One fine-tuning step of kitti25-rot under the recipe tcfg, cycling
+    over 4 clouds of chip_smoke.py's phase 8 data, as a function of no
+    arguments."""
     from deepvcp_tpu_torch import convert, pretrained
     from deepvcp_tpu_torch.data import LidarLikeDataset, batch_iterator
-    from deepvcp_tpu_torch.train import MetricsLogger, TrainConfig, Trainer, build_train_step
+    from deepvcp_tpu_torch.train import MetricsLogger, Trainer, build_train_step
     from deepvcp_tpu_torch.train.optim import learning_rate_schedule
 
     cfg, variables = pretrained.load("kitti25-rot", num_points=10000)
-    tcfg = TrainConfig(batch_size=1, learning_rate=1e-3, grad_clip_norm=10.0,
-                       lr_schedule="cosine", warmup_steps=100, total_steps=21760,
-                       vcp_loss_weight=1.0, rot_loss_weight=3.0, use_saliency_weights=True,
-                       init_translation="gt", init_rot_jitter_deg=6.0, init_trans_jitter=0.5,
-                       log_every=1)
     trainer = Trainer(cfg, tcfg, device=dev, metrics=MetricsLogger(None, echo=False))
     trainer.setup()
     trainer.model.load_state_dict(convert.flax_to_torch(variables), strict=True)
@@ -187,9 +156,15 @@ def worker(tree: str) -> None:
                             max_rotation_deg=5.0, max_translation=0.5)
     src, tgt = (torch.from_numpy(a).to(dev)
                 for a in next(batch_iterator(held, 1, epoch=0, seed=0, shuffle=False))[:2])
-    times["registrar kitti25-rot"] = [synced_median_ms(torch, lambda: reg(src, tgt), 20)] * 2
-    step = train_step_fn(torch, dev)
-    times["train step kitti25-rot"] = [synced_median_ms(torch, step, 10), busy_ms(torch, step, 3)]
+    cs = smoke()
+    for _ in range(3):
+        reg(src, tgt)
+    times["registrar kitti25-rot"] = [cs.host_median_ms(torch, lambda: reg(src, tgt), 20)] * 2
+    step = train_step_fn(torch, dev, cs.kitti25_recipe())
+    for _ in range(3):
+        step()
+    times["train step kitti25-rot"] = [cs.host_median_ms(torch, step, 10),
+                                       cs.device_time_per_call(torch, step, 3)[0]]
     print(json.dumps(times))
 
 

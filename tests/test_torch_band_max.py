@@ -271,7 +271,7 @@ def test_kernels_take_any_channel_count_on_card(cuda):
 
 def _grad_cases_on_card(cuda, pts, C, r, gen):
     """K2 at one cloud: bit-identical to the plain version with integer
-    cotangents, with Gaussian ones and with forced ties (u of 3 levels), one
+    cotangents, for Gaussian u and for forced ties (u of 3 levels), one
     launch a call, and two calls with Gaussian cotangents bitwise equal."""
     x = torch.from_numpy(pts).to(cuda)
     shape = (pts.shape[0], pts.shape[1], C)
