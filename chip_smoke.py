@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (deepvcp_tpu_torch) on one CUDA card.
 
-Drives the port's four paths at full width (N = 10 000 points, 64
+Drives the port's five paths at full width (N = 10 000 points, 64
 keypoints, 216 candidates, 32 neighbours): serving,
 `pretrained.registrar("kitti25-rot")` on 16 held-out synthetic lidar pairs;
 training, 12 fine-tuning steps of `kitti25-rot` through `train.Trainer`
 under the recipe that trained it; global registration of pairs with
 any rotation, `initializer.so3_global_init` then
 `pretrained.cascade("modelnet-cascade")`, on two held sets of 16 pairs
-(B = 2); and the two-level candidate grouping, serving and fine-tuning
-`kitti25` through kernels K4/K5. It checks on the way:
+(B = 2); the two-level candidate grouping, serving and fine-tuning
+`kitti25` through kernels K4/K5; and LiDAR odometry, campaign_r5h's
+12-frame sequence written as KITTI files, through
+`pretrained.cascade("kitti-cascade")` and `kitti25-rot`, the pose graph,
+the odometry CLI, `Registrar.stream` and `pretrained.routed_registrar`.
+It checks on the way:
 
   1. device      a CUDA card is present; prints nvidia-smi's name and power limit
   2. build       builds every CUDA kernel of the paths from csrc/ with nvcc
@@ -88,6 +92,25 @@ any rotation, `initializer.so3_global_init` then
                  norm, 1 K4, 1 K5, 6 K1 and 6 K2 launches per step; one step
                  kernel path against plain path with phase 9's check; step
                  time and split (printed only)
+ 20. odometry    campaign_r5h's sequence (one 25 m lidar-like scene, seed
+                 11, 12 frames yawing 1.5 deg and moving 0.8 + 0.15 i m a
+                 frame) written as KITTI .bin scans and poses/00.txt, read
+                 back identical through load_sequence_scans /
+                 load_kitti_poses; warm-started register_sequence with O1
+                 (kitti-cascade) and O2 (kitti25-rot, refine_iters 2): mean
+                 t error <= 0.03 m and r error <= 2.5 deg for both; O1's
+                 pose graph with skip edges (30 GN iterations) on the card
+                 within 1e-4 of the same call on the CPU; run_odometry on 4
+                 frames through the kernels within 1e-4 of the plain path;
+                 the odometry CLI (a Trainer checkpoint of kitti25-rot's
+                 weights): 12 frames, a finite ATE; stream(depth=4) on
+                 phase 4's pairs bit-identical to per-call; the routed
+                 registrar on campaign_r5d G3's held sets (N = 10 000):
+                 every uniform batch voted low and every lidar-like one
+                 high, each pose equal to its expert's Registrar within
+                 1e-5; 6 K1 launches per stage call in every run; per-frame
+                 latency, stream vs per call, the pose-graph solve and the
+                 routing's cost (printed only)
  11. no jax      neither jax nor the JAX package deepvcp_tpu was imported
                  (checked last)
 
@@ -137,6 +160,14 @@ RECALL_LIMIT = 0.95
 # float32 (non-tensor-core) operations/s, for the kernels' bounds
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 HOLD_CYCLES = 20_000_000   # ~10 ms of the card's clock: see hold_device
+# odometry: campaign_r5h O1 / O2 (scripts/campaign_r5h.py:47-185) and the
+# routed registrar on campaign_r5d G3's held sets (scripts/campaign_r5d.py:74-81)
+ODO_FRAMES, ODO_SEED, ODO_RANGE = 12, 11, 25.0
+ODO_T_LIMIT_M, ODO_R_LIMIT_DEG = 0.03, 2.5     # loose: they catch a broken path
+ODO_GN_ITERS = 30
+ODO_PATH_ATOL = GRAPH_ATOL = 1e-4              # kernel vs plain path; card vs CPU
+ROUTE_B, ROUTE_BATCHES = 2, 8                  # 16 clouds per held set
+ROUTE_ATOL = 1e-5                              # routed pose vs the chosen expert's
 
 
 def fail(msg: str) -> None:
@@ -196,14 +227,18 @@ def issue_ms(torch, fn, reps: int) -> float:
     return ms
 
 
-def turns_ms(torch, fns: dict, reps: int, rounds: int = 4, hold: bool = False) -> dict:
-    """CUDA-event times of each of `fns` ({name: fn}), taken in turns (a, b,
-    b, a, ...) over `rounds` rounds of `reps` runs each: {name: the rounds'
-    medians}."""
+def turns_ms(torch, fns: dict, reps: int, rounds: int = 4, hold: bool = False,
+             timer=None) -> dict:
+    """Times of each of `fns` ({name: fn}), taken in turns (a, b, b, a, ...)
+    over `rounds` rounds of `reps` runs each: {name: the rounds' medians}.
+    A round is timed by timer(torch, fn, reps) where given (host_median_ms:
+    synced wall time), else by CUDA events (cuda_median_ms, behind a device
+    hold with `hold`)."""
     times = {name: [] for name in fns}
     for r in range(rounds):
         for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
-            times[name].append(cuda_median_ms(torch, fns[name], reps=reps, hold=hold))
+            times[name].append(timer(torch, fns[name], reps) if timer else
+                               cuda_median_ms(torch, fns[name], reps=reps, hold=hold))
     return times
 
 
@@ -1482,7 +1517,310 @@ def two_level_training(torch, dev) -> dict:
     return counts
 
 
+def odometry_sequence():
+    """campaign_r5h's sequence (scripts/campaign_r5h.py:57-79): one 25 m
+    lidar-like scene (seed 11) seen from ODO_FRAMES frames that yaw 1.5 deg
+    and move 0.8 + 0.15 i m a frame. Returns (scans [F, N, 3], the true
+    relative poses R [F - 1, 3, 3], t [F - 1, 3]), numpy float32."""
+    import numpy as np
+
+    from deepvcp_tpu_torch.data import lidar_like_cloud
+    from deepvcp_tpu_torch.utils import axis_angle_to_matrix
+
+    cloud = lidar_like_cloud(np.random.default_rng(ODO_SEED), N_POINTS,
+                             max_range=ODO_RANGE).astype(np.float32)
+    R_abs, t_abs = [np.eye(3, dtype=np.float32)], [np.zeros(3, dtype=np.float32)]
+    R_rel, t_rel = [], []
+    for i in range(ODO_FRAMES - 1):
+        Rr = axis_angle_to_matrix(np.array([0.0, 0.0, 1.0]), np.radians(1.5)).astype(np.float32)
+        tr = np.array([0.8 + 0.15 * i, 0.05, 0.0], np.float32)
+        R_rel.append(Rr)
+        t_rel.append(tr)
+        R_abs.append(Rr @ R_abs[-1])
+        t_abs.append(Rr @ t_abs[-1] + tr)
+    scans = np.stack([cloud @ R.T + t for R, t in zip(R_abs, t_abs)]).astype(np.float32)
+    return scans, np.stack(R_rel), np.stack(t_rel)
+
+
+def write_kitti_sequence(root: str, scans, R_rel, t_rel) -> None:
+    """The sequence in KITTI's layout under root: sequences/00/velodyne/
+    NNNNNN.bin (float32 x, y, z, reflectance 0) and poses/00.txt (the
+    chained true poses, frame i into frame 0, as 3x4 rows)."""
+    import numpy as np
+    import torch
+
+    from deepvcp_tpu_torch.odometry import chain_poses
+
+    vdir = os.path.join(root, "sequences", "00", "velodyne")
+    os.makedirs(vdir)
+    for i, scan in enumerate(scans):
+        np.concatenate([scan, np.zeros((len(scan), 1), np.float32)], axis=-1).tofile(
+            os.path.join(vdir, f"{i:06d}.bin"))
+    R, t = (a.numpy() for a in chain_poses(torch.from_numpy(R_rel), torch.from_numpy(t_rel)))
+    os.makedirs(os.path.join(root, "poses"))
+    np.savetxt(os.path.join(root, "poses", "00.txt"),
+               np.concatenate([R, t[:, :, None]], axis=-1).reshape(len(R), 12))
+
+
+def counted(torch, fn):
+    """(fn(), K1 launches during it): the count is set to 0 just before fn
+    and read just after it, the device synchronised on both sides."""
+    from deepvcp_tpu_torch.ops.kernels import band_max
+
+    torch.cuda.synchronize()
+    band_max.banded_masked_max.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, band_max.banded_masked_max.launches
+
+
+def check_k1(what: str, launches: int, stage_calls: int) -> int:
+    """Gate a run's K1 launches at LAUNCHES_PER_CALL a stage call (one FE
+    pass on each cloud); returns the count."""
+    print(f"K1 launches in {what}: {launches} over {stage_calls} stage calls "
+          f"({launches / stage_calls:g} per stage call)")
+    if launches != LAUNCHES_PER_CALL * stage_calls:
+        fail(f"{what}: expected {LAUNCHES_PER_CALL} K1 launches per stage call, got "
+             f"{launches / stage_calls:g}")
+    return launches
+
+
+def odometry_errors(R_est, t_est, R_true, t_true, what: str) -> tuple:
+    """Print campaign_r5h's per-frame translation and rotation errors of the
+    relative poses (numpy); returns (mean t error m, mean r error deg). The
+    rotation error is rotation_geodesic_deg in float64, resolved below the
+    0.03 deg at which the campaign's arccos of the trace rounds to 0."""
+    import numpy as np
+    import torch
+
+    from deepvcp_tpu_torch.data import rotation_geodesic_deg
+
+    terr = np.linalg.norm(t_est - t_true, axis=-1)
+    rerr = rotation_geodesic_deg(torch.from_numpy(R_est).double(),
+                                 torch.from_numpy(R_true).double()).numpy()
+    print(f"{what} per-frame t error (m): " + " ".join(f"{x:.4f}" for x in terr))
+    print(f"{what} per-frame r error (deg): " + " ".join(f"{x:.3f}" for x in rerr))
+    return float(terr.mean()), float(rerr.mean())
+
+
+def odometry_phase(torch, dev, reg, pairs, card: str) -> dict:
+    """Phase 20: LiDAR odometry (campaign_r5h O1 and O2) on a sequence
+    written as KITTI files and read back through the port's loaders,
+    the pose graph on the card against the CPU, the odometry CLI, stream
+    against per-call, and the routed registrar on campaign_r5d G3's held
+    sets. Returns the K1 launch count of its gated runs."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from deepvcp_tpu_torch import convert, pretrained
+    from deepvcp_tpu_torch.config import TrainConfig
+    from deepvcp_tpu_torch.data import (
+        LidarLikeDataset, SyntheticDataset, batch_iterator, rotation_geodesic_deg,
+        translation_error)
+    from deepvcp_tpu_torch.odometry import (
+        absolute_trajectory_error, build_graph, chain_poses, load_kitti_poses,
+        load_sequence_scans, optimize_pose_graph, register_sequence, run_odometry)
+    from deepvcp_tpu_torch.odometry.__main__ import main as odometry_cli
+    from deepvcp_tpu_torch.ops.kernels import reference_path
+    from deepvcp_tpu_torch.train import Trainer
+
+    k1 = 0
+    scans_true, R_true, t_true = odometry_sequence()
+    F = ODO_FRAMES
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "kitti")
+        write_kitti_sequence(root, scans_true, R_true, t_true)
+        scans = load_sequence_scans(root, "00", N_POINTS)
+        R_gt, t_gt = load_kitti_poses(os.path.join(root, "poses", "00.txt"))
+        if not np.array_equal(scans, scans_true):
+            fail("the velodyne scans read back differ from the ones written")
+        print(f"odometry sequence: {F} frames of {N_POINTS} points written as KITTI files and "
+              f"read back identical; ground truth from poses/00.txt")
+        R_gt_t, t_gt_t = (torch.as_tensor(a, dtype=torch.float32) for a in (R_gt, t_gt))
+
+        # O1: kitti-cascade, warm-started frame to frame
+        casc = pretrained.cascade("kitti-cascade", device=dev, num_points=N_POINTS)
+        (R1, t1), n = counted(torch, lambda: register_sequence(casc, scans, warm_start=True))
+        k1 += check_k1("O1's sequence", n, len(casc.stages) * (F - 1))
+        o1 = odometry_errors(R1, t1, R_true, t_true, "O1 kitti-cascade")
+        R_ch, t_ch = chain_poses(torch.from_numpy(R1), torch.from_numpy(t1))
+        ate1 = float(absolute_trajectory_error(t_ch, t_gt_t))
+
+        def skip_edges():
+            edges = []
+            for i in range(F - 2):
+                Ra, ta, Rb, tb = R1[i], t1[i], R1[i + 1], t1[i + 1]
+                o = casc(*(torch.from_numpy(a).to(dev) for a in (
+                    scans[i:i + 1], scans[i + 2:i + 3], (Rb @ Ra)[None], (Rb @ ta + tb)[None])))
+                edges.append((i, i + 2, o.R[0].cpu().numpy(), o.t[0].cpu().numpy()))
+            return edges
+        extra, n = counted(torch, skip_edges)
+        k1 += check_k1("O1's skip edges", n, len(casc.stages) * (F - 2))
+        graph_cpu = build_graph(torch.from_numpy(R1), torch.from_numpy(t1), extra_edges=extra)
+        graph_dev = graph_cpu._replace(**{k: v.to(dev) for k, v in graph_cpu._asdict().items()})
+        R_opt, t_opt = optimize_pose_graph(graph_dev, R_ch.to(dev), t_ch.to(dev),
+                                           num_iters=ODO_GN_ITERS)
+        R_opt_c, t_opt_c = optimize_pose_graph(graph_cpu, R_ch, t_ch, num_iters=ODO_GN_ITERS)
+        ate1_opt = float(absolute_trajectory_error(t_opt.cpu(), t_gt_t))
+        d_graph = max((R_opt.cpu() - R_opt_c).abs().max().item(),
+                      (t_opt.cpu() - t_opt_c).abs().max().item())
+        print(f"O1 kitti-cascade: mean t error {o1[0]:.4f} m, mean r error {o1[1]:.3f} deg, "
+              f"raw-chain ATE {ate1:.4f}, pose-graph ATE {ate1_opt:.4f} ({len(extra)} skip "
+              f"edges, {ODO_GN_ITERS} GN iterations) | the JAX campaign's (TPU, approx_min_k "
+              f"selection): 0.0063 m, 1.038 deg, 0.0226, 0.0302")
+        print(f"pose graph on the card vs the CPU, {F} nodes, {F - 1 + len(extra)} edges: "
+              f"max|d| {d_graph:.3e}")
+        if d_graph > GRAPH_ATOL:
+            fail(f"optimize_pose_graph on the card and on the CPU differ by {d_graph}")
+
+        # O2: kitti25-rot at refine_iters 2
+        rot = pretrained.registrar("kitti25-rot", device=dev, num_points=N_POINTS,
+                                  refine_iters=2)
+        (R2, t2), n = counted(torch, lambda: register_sequence(rot, scans, warm_start=True))
+        k1 += check_k1("O2's sequence", n, F - 1)
+        o2 = odometry_errors(R2, t2, R_true, t_true, "O2 kitti25-rot")
+        ate2 = float(absolute_trajectory_error(
+            chain_poses(torch.from_numpy(R2), torch.from_numpy(t2))[1], t_gt_t))
+        print(f"O2 kitti25-rot: mean t error {o2[0]:.4f} m, mean r error {o2[1]:.3f} deg, "
+              f"raw-chain ATE {ate2:.4f} | the JAX campaign's (TPU, approx_min_k selection): "
+              f"0.0071 m, 0.488 deg, 0.055")
+        for what, (te, re) in (("O1", o1), ("O2", o2)):
+            if not (te <= ODO_T_LIMIT_M and re <= ODO_R_LIMIT_DEG):
+                fail(f"{what}: mean t error {te} m > {ODO_T_LIMIT_M} or mean r error {re} deg "
+                     f"> {ODO_R_LIMIT_DEG}")
+
+        # run_odometry through the kernels against the plain path, 4 frames
+        short = scans[:4]
+        got, n = counted(torch, lambda: run_odometry(rot, short, gt_poses=(R_gt, t_gt)))
+        k1 += check_k1("run_odometry on 4 frames", n, 3)
+        with reference_path():
+            want = run_odometry(rot, short, gt_poses=(R_gt, t_gt))
+        d_rel = max(np.abs(got[k] - want[k]).max() for k in ("R_rel", "t_rel"))
+        print(f"run_odometry on 4 frames, kernel vs plain path: relative poses max|d| "
+              f"{d_rel:.3e}; ATE {got['ate_rmse']:.5f} vs {want['ate_rmse']:.5f}")
+        if d_rel > ODO_PATH_ATOL:
+            fail(f"run_odometry's kernel and plain paths differ by {d_rel}")
+
+        # the CLI on the written sequence, with a checkpoint the Trainer saves
+        trainer = Trainer(pretrained.config("kitti25-rot", N_POINTS),
+                          TrainConfig(checkpoint_dir=os.path.join(tmp, "ck"),
+                                      metrics_path=os.path.join(tmp, "m.jsonl")), device=dev)
+        trainer.setup()
+        trainer.model.load_state_dict(
+            convert.flax_to_torch(pretrained.load_variables("kitti25-rot")))
+        ckpt = trainer.save_checkpoint("kitti25-rot")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            _, n = counted(torch, lambda: odometry_cli([
+                "--device", dev.type, "--root", root, "--sequence", "00", "--checkpoint", ckpt,
+                "--num-points", str(N_POINTS), "--out", os.path.join(tmp, "trajectory.npz")]))
+        k1 += check_k1("the odometry CLI", n, F - 1)
+        line = [l for l in out.getvalue().splitlines() if l.startswith("{")][-1]
+        print(f"odometry CLI: {line}")
+        metrics = json.loads(line)
+        if metrics.get("frames") != F or not np.isfinite(metrics.get("ate_rmse", np.nan)):
+            fail(f"the odometry CLI printed {metrics}")
+        traj = np.load(os.path.join(tmp, "trajectory.npz"))
+        if sorted(traj.files) != sorted(["R_rel", "t_rel", "R_abs", "t_abs", "R_opt", "t_opt"]):
+            fail(f"the odometry CLI wrote {traj.files}")
+
+    # stream against per-call on phase 4's pairs
+    held = [(src, tgt) for src, tgt, _, _ in pairs]
+    per_call, n = counted(torch, lambda: [reg(*p) for p in held])
+    k1 += check_k1("the per-call run", n, len(held))
+    streamed, n = counted(torch, lambda: list(reg.stream(iter(held), depth=4)))
+    k1 += check_k1("the stream run", n, len(held))
+    for i, (a, b) in enumerate(zip(per_call, streamed)):
+        if not all(torch.equal(getattr(a, f), getattr(b, f)) for f in a._fields):
+            fail(f"stream's output {i} differs from the per-call output")
+    if len(streamed) != len(held):
+        fail(f"stream yielded {len(streamed)} outputs for {len(held)} pairs")
+    print(f"stream(depth=4) on {len(held)} pairs: every output bit-identical to the per-call "
+          f"one, in order")
+
+    # the routed registrar on campaign_r5d G3's held sets
+    routed = pretrained.routed_registrar(device=dev, num_points=N_POINTS)
+    experts = {False: pretrained.registrar("modelnet-fine", device=dev, num_points=N_POINTS),
+               True: pretrained.registrar("lidar-fine", device=dev, num_points=N_POINTS)}
+    kw = dict(num_clouds=ROUTE_B * ROUTE_BATCHES, num_points=N_POINTS, max_rotation_deg=10.0,
+              max_translation=0.5)
+    sets = {"uniform_small": SyntheticDataset(extent=1.0, seed=100, **kw),
+            "lidar_small": LidarLikeDataset(max_range=1.0, seed=101, **kw)}
+    batches = {name: [tuple(torch.from_numpy(a).to(dev) for a in b)
+                      for b in batch_iterator(ds, ROUTE_B, epoch=0, seed=777, shuffle=False)]
+               for name, ds in sets.items()}
+    routed_out, n = counted(torch, lambda: {name: [routed(src, tgt) for src, tgt, _, _ in bs]
+                                            for name, bs in batches.items()})
+    k1 += check_k1("the routed run", n, ROUTE_BATCHES * len(sets))
+    g3 = {"uniform_small": (0.80, 0.026), "lidar_small": (2.12, 0.041)}
+    worst = 0.0
+    for name, bs in batches.items():
+        rre, rte = [], []
+        for (src, tgt, R_gt_b, t_gt_b), out in zip(bs, routed_out[name]):
+            high = bool(routed.route(src))
+            stat = routed.route_statistic(src).tolist()
+            if high != (name == "lidar_small"):
+                fail(f"{name}: the vote sent a batch {'high' if high else 'low'} (statistic "
+                     f"{stat})")
+            alone = experts[high](src, tgt)
+            worst = max(worst, (out.R - alone.R).abs().max().item(),
+                        (out.t - alone.t).abs().max().item())
+            rre.append(rotation_geodesic_deg(out.R, R_gt_b).mean().item())
+            rte.append(translation_error(out.t, t_gt_b).mean().item())
+        print(f"routed {name}: every vote {'high' if name == 'lidar_small' else 'low'}; GT-free "
+              f"RRE {statistics.mean(rre):.4f} deg, RTE {statistics.mean(rte):.5f} over "
+              f"{len(bs)} batches of {ROUTE_B} | the JAX campaign's G3 (TPU, approx_min_k "
+              f"selection): {g3[name][0]} deg, {g3[name][1]}")
+    print(f"routed pose against the chosen expert's Registrar: max|d| {worst:.3e}")
+    if worst > ROUTE_ATOL:
+        fail(f"the routed pose differs from its expert's by {worst}")
+
+    # timing (not gated)
+    print(f"odometry timing on {card}:")
+    frame = [torch.from_numpy(a).to(dev) for a in (scans[5:6], scans[6:7], R2[4:5], t2[4:5])]
+    for what, r in (("O1 kitti-cascade", casc), ("O2 kitti25-rot", rot)):
+        ms = host_median_ms(torch, lambda: register_sequence(r, scans, warm_start=True),
+                            reps=3) / (F - 1)
+        busy, _ = device_time_per_call(torch, lambda: r(*frame), calls=5)
+        print(f"  {what}: {ms:.3f} ms per frame (warm-started register_sequence over {F} "
+              f"frames, median of 3 synced runs); one warm-started frame's device busy time "
+              f"{busy:.3f} ms, idle share {1 - busy / ms:.3f}")
+    def per_call_run():
+        for p in held:
+            reg(*p).R.cpu()
+
+    def stream_run():
+        for _ in reg.stream(iter(held), depth=4):
+            pass
+    ms = turns_ms(torch, {"per call": per_call_run, "stream(depth=4)": stream_run}, reps=1,
+                  timer=host_median_ms)
+    print(f"  kitti25-rot on phase 4's {len(held)} pairs, ms per pair in 4 turns: " + "; ".join(
+        f"{k} {statistics.median(v) / len(held):.3f} (rounds {min(v) / len(held):.3f}-"
+        f"{max(v) / len(held):.3f})" for k, v in ms.items()))
+    g_ms = host_median_ms(torch, lambda: optimize_pose_graph(
+        graph_dev, R_ch.to(dev), t_ch.to(dev), num_iters=ODO_GN_ITERS), reps=3)
+    busy, _ = device_time_per_call(torch, lambda: optimize_pose_graph(
+        graph_dev, R_ch.to(dev), t_ch.to(dev), num_iters=ODO_GN_ITERS), calls=2)
+    print(f"  optimize_pose_graph, {F} nodes, {graph_dev.edges_i.numel()} edges, "
+          f"{ODO_GN_ITERS} iterations: {g_ms:.3f} ms ({g_ms / ODO_GN_ITERS:.3f} per "
+          f"iteration), device busy {busy:.3f} ms")
+    src, tgt = batches["lidar_small"][0][:2]
+    sel_ms = cuda_median_ms(torch, lambda: routed.weights(routed.route(src)), reps=50)
+    sel_held = cuda_median_ms(torch, lambda: routed.weights(routed.route(src)), reps=50, hold=True)
+    ms = turns_ms(torch, {"routed": lambda: routed(src, tgt),
+                          "expert": lambda: experts[True](src, tgt)}, reps=5, timer=host_median_ms)
+    r_ms, e_ms = (statistics.median(ms[k]) for k in ("routed", "expert"))
+    print(f"  routed registrar, B={ROUTE_B}: vote + weight selection {sel_ms:.4f} ms per call "
+          f"({sel_held:.4f} behind a device hold); routed call {r_ms:.3f} ms against its "
+          f"expert's {e_ms:.3f} ms (medians of synced calls, 4 turns of 5)")
+    return {"k1": k1}
+
+
 def main() -> None:
+    started = time.perf_counter()
     # cuBLAS reads this when it starts; the train-path comparison (phase 9)
     # runs under deterministic algorithms, which need it
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -1565,6 +1903,9 @@ def main() -> None:
     two = two_level_phase(torch, dev, pairs)
     two_train = two_level_training(torch, dev)
 
+    # 20. odometry, the CLI, stream and routing
+    odo = odometry_phase(torch, dev, reg, pairs, card)
+
     (k1_bound, k1_by), (k2_bound, k2_by) = band["k1_bound"], band["k2_bound"]
     print(f"bounds at the 3 serving SA shapes: K1 {k1_bound:.5f} ms ({k1_by}), K2 {k2_bound:.5f} "
           f"ms ({k2_by}); K3 at one init call's 2 shapes {k3['bound_ms']:.5f} ms "
@@ -1575,19 +1916,21 @@ def main() -> None:
     if imported:
         fail(f"jax or the JAX package was imported: {imported[:8]}")
     print("jax imported: no; deepvcp_tpu imported: no")
+    print(f"smoke run: {time.perf_counter() - started:.1f} s")
 
     print(card)
     # ms / plain_ms / bound_ms: K1 and K2 sums at the 3 SA shapes (one FE
     # pass, or one FE backward), K3 sums at the 2 shapes of one init call,
     # K4 and K5 at the two-level path's shapes (library_ms: torch.gather,
     # torch.scatter_add); launches: the main-path runs' (serving, training,
-    # global, two-level serving and training)
+    # global, two-level serving and training, odometry)
     print(json.dumps({"kernels": [{
         "name": "banded_masked_max",
         "route": "cuda",
         "source": "deepvcp_tpu_torch/csrc/band_max.cu",
         "replaces": "deepvcp_tpu/ops/pallas/band_max_kernel.py:148",
-        "launches": launches + train["k1"] + glob["k1"] + two["k1"] + two_train["k1"],
+        "launches": (launches + train["k1"] + glob["k1"] + two["k1"] + two_train["k1"]
+                     + odo["k1"]),
         "max_abs_err": band["k1_err"],
         "ms": band["k1_ms"],
         "plain_ms": band["k1_plain_ms"],

@@ -14,13 +14,17 @@ Layout:
     models/       banded set abstraction, FE, heads, DeepVCP forward
     loss/         the trimmed Kabsch pose solve and the training loss
     config        DeepVCPConfig, TrainConfig (copies of the JAX package's)
-    registration  Registrar and CascadeRegistrar, the inference contract
+    registration  Registrar, CascadeRegistrar, RoutedRegistrar: the inference
+                  contract, with stream() for pipelined calls
     initializer   so3_global_init, the coarse pose for any rotation
     pretrained    registry checkpoints exported to weights/*.npz
     convert       flax variables (and optax Adam state) -> torch
-    data/         JAX-free synthetic datasets and pose metrics
+    data/         synthetic, KITTI and ModelNet40 datasets, pair construction
+    native        ctypes binding of native/pointcloud.cc (velodyne reading)
+    odometry/     sequence odometry, pose graph, bundle adjustment, CLI
+                  (python -m deepvcp_tpu_torch.odometry)
     train/        train and eval steps, Trainer, CLI (python -m deepvcp_tpu_torch.train)
-    utils/        warm-start jitter
+    utils/        rotations, pose metrics, warm-start jitter
 """
 
 import torch

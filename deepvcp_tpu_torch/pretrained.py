@@ -6,14 +6,15 @@ The registry is the port's own copy of the JAX package's (`REGISTRY`,
 equal). The checkpoints are the JAX package's checkpoint directories, which
 the port does not read; their parameters are exported once to
 `deepvcp_tpu_torch/weights/<name>.npz` by scripts/export_torch_weights.py,
-keyed by flax path ("params/fe/sa1/proj_xyz/kernel"). Only the exported
-names load; the configs read each checkpoint's `.arch.json` beside it.
+keyed by flax path ("params/fe/sa1/proj_xyz/kernel"); every registry name
+is exported. The configs read each checkpoint's `.arch.json` beside it.
 
     from deepvcp_tpu_torch import pretrained
     reg = pretrained.registrar("kitti25-rot", device="cuda")
     out = reg(src, tgt)
     casc = pretrained.cascade("modelnet-cascade", device="cuda")
     out = casc(src, tgt, init.R, init.t)   # init = so3_global_init(src, tgt)
+    routed = pretrained.routed_registrar(device="cuda")   # modelnet-fine / lidar-fine
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from deepvcp_tpu_torch.config import DeepVCPConfig
-from deepvcp_tpu_torch.registration import CascadeRegistrar, Registrar
+from deepvcp_tpu_torch.registration import CascadeRegistrar, Registrar, RoutedRegistrar
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WEIGHTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "weights")
@@ -40,11 +41,13 @@ _ARCH_FIELDS = (
     "voxel_len", "num_keypoints", "num_neighbors", "keypoint_pool_mult",
 )
 
-# name -> checkpoint directory (the `.arch.json` beside it is read), config
-# fields, the GT-free (RRE deg, RTE) the JAX package measured for it on its
-# held sets, and a note
+# name -> the Registrar's default refine_iters (the JAX pretrained.registrar
+# special-cases it: 2 for kitti25, 3 otherwise), checkpoint directory (the
+# `.arch.json` beside it is read), config fields, the GT-free (RRE deg, RTE)
+# the JAX package measured for it on its held sets, and a note
 REGISTRY: Dict[str, Dict[str, Any]] = {
     "modelnet-coarse": {
+        "refine_iters": 3,
         "path": "artifacts/campaign_r4/model_r1/final",
         "cfg": {"spatial_extent": 2.5},
         "gt_free": {"uniform_small": (2.43, 0.058)},
@@ -52,6 +55,7 @@ REGISTRY: Dict[str, Dict[str, Any]] = {
                  "(r=1.0, s=0.4); best with refine_iters>=2",
     },
     "modelnet-fine": {
+        "refine_iters": 3,
         "path": "artifacts/campaign_r4/model_fine/final",
         "cfg": {"spatial_extent": 2.5},
         "gt_free": {"uniform_small": (0.80, 0.026),
@@ -61,6 +65,7 @@ REGISTRY: Dict[str, Dict[str, Any]] = {
                  "refine_iters=3",
     },
     "lidar-fine": {
+        "refine_iters": 3,
         "path": "artifacts/campaign_r4c/model_lfine/final",
         "cfg": {"spatial_extent": 2.5},
         "gt_free": {"lidar_small": (2.12, 0.041),
@@ -69,6 +74,7 @@ REGISTRY: Dict[str, Dict[str, Any]] = {
                  "mix — the lidar specialist; see README 'lidar gap'",
     },
     "kitti25": {
+        "refine_iters": 2,
         "path": "artifacts/campaign_r4b/model_k1/final",
         "cfg": {"spatial_extent": 55.0},
         "gt_free": {"lidar25_small": (0.27, 0.0097)},
@@ -76,6 +82,7 @@ REGISTRY: Dict[str, Dict[str, Any]] = {
                  "selection gate); use for odometry, refine_iters=2",
     },
     "kitti25-rot": {
+        "refine_iters": 3,
         "path": "artifacts/campaign_r5g/model_k7_w3/final",
         "cfg": {"spatial_extent": 55.0},
         "gt_free": {"lidar25_small": (0.2365, 0.0071)},
@@ -89,6 +96,7 @@ REGISTRY: Dict[str, Dict[str, Any]] = {
                  "under-supervised",
     },
     "kitti25-fine": {
+        "refine_iters": 3,
         "path": "artifacts/campaign_r5/model_k5/final",
         "cfg": {"spatial_extent": 55.0},
         "gt_free": {"lidar25_small_cascade": (0.384, 0.0064)},
@@ -98,6 +106,7 @@ REGISTRY: Dict[str, Dict[str, Any]] = {
                  "stage of kitti-cascade, not for identity-init use",
     },
     "kitti25-ultra": {
+        "refine_iters": 3,
         "path": "artifacts/campaign_r5/model_k6/final",
         "cfg": {"spatial_extent": 55.0},
         "gt_free": {"lidar25_small_cascade": (0.447, 0.0027)},
@@ -133,8 +142,7 @@ CASCADES: Dict[str, Dict[str, Any]] = {
 
 
 def available() -> Dict[str, str]:
-    """Name -> one-line description of each registry checkpoint (only the
-    names with a weights/<name>.npz load)."""
+    """Name -> one-line description of each registry checkpoint."""
     return {k: v["notes"] for k, v in REGISTRY.items()}
 
 
@@ -201,11 +209,10 @@ def load(name: str, num_points: int = 10000, use_normal: bool = False
 def registrar(name: str, *, device: torch.device, num_points: int = 10000,
               use_normal: bool = False, **registrar_kwargs) -> Registrar:
     """A ready Registrar on a named checkpoint, on `device`, with the JAX
-    package's defaults: saliency weights on, refine_iters 2 for "kitti25"
-    and 3 otherwise."""
+    package's defaults: saliency weights on, the entry's refine_iters."""
     cfg, variables = load(name, num_points=num_points, use_normal=use_normal)
     registrar_kwargs.setdefault("use_saliency_weights", True)
-    registrar_kwargs.setdefault("refine_iters", 2 if name == "kitti25" else 3)
+    registrar_kwargs.setdefault("refine_iters", REGISTRY[name]["refine_iters"])
     return Registrar(cfg, variables, device, **registrar_kwargs)
 
 
@@ -224,3 +231,21 @@ def cascade(name: str, *, device: torch.device, num_points: int = 10000,
         stages.append(Registrar(cfg, variables, device, refine_iters=iters,
                                 **registrar_kwargs))
     return CascadeRegistrar(stages)
+
+
+def routed_registrar(low: str = "modelnet-fine", high: str = "lidar-fine", *,
+                     device: torch.device, num_points: int = 10000, use_normal: bool = False,
+                     **registrar_kwargs) -> RoutedRegistrar:
+    """A ready RoutedRegistrar on `device`: each batch goes to `low`
+    (uniform-density clouds) or `high` (lidar-like clouds) by the router
+    statistic, with the JAX package's defaults (saliency weights on,
+    refine_iters 3). The experts must share one config."""
+    cfg_l, v_l = load(low, num_points=num_points, use_normal=use_normal)
+    cfg_h, v_h = load(high, num_points=num_points, use_normal=use_normal)
+    if cfg_l != cfg_h:
+        raise ValueError(
+            f"experts {low!r} and {high!r} have different architectures: routing "
+            f"swaps the weights of one model")
+    registrar_kwargs.setdefault("use_saliency_weights", True)
+    registrar_kwargs.setdefault("refine_iters", 3)
+    return RoutedRegistrar(cfg_l, {"low": v_l, "high": v_h}, device, **registrar_kwargs)

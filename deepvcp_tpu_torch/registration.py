@@ -1,5 +1,5 @@
-"""The inference contract (port of deepvcp_tpu/registration.py: Registrar
-and CascadeRegistrar):
+"""The inference contract (port of deepvcp_tpu/registration.py: Registrar,
+CascadeRegistrar and RoutedRegistrar):
 
     register(src_cloud, tgt_cloud, init_pose) -> (R, t, keypoints, vcps, ...)
 
@@ -7,14 +7,16 @@ Ground-truth-free: the pose comes from the two-pass trimmed Kabsch solve
 (loss/registration.py::svd_refine), refined `refine_iters` times from the
 best pose so far, with a guard that accepts an iteration's pose only where it
 lowers the trimmed keypoint-to-target 1-NN distance. A CascadeRegistrar
-chains Registrars, each warm-started from the previous stage's pose.
+chains Registrars, each warm-started from the previous stage's pose; a
+RoutedRegistrar sends each batch to one of two experts' weights. `stream`
+pipelines calls over an iterable of pairs.
 """
 
 from __future__ import annotations
 
 import collections
 import warnings
-from typing import Any, Mapping, NamedTuple, Optional
+from typing import Any, Iterable, Iterator, Mapping, NamedTuple, Optional
 
 import torch
 
@@ -41,7 +43,8 @@ class Registrar:
     """End-to-end registration with a trained model, on one device.
 
     `variables` are flax-layout {"params", "batch_stats"} arrays (what
-    pretrained.load returns); they are converted and loaded strictly.
+    pretrained.load returns), converted, or the model's own state dict (what
+    the port's Trainer saves under "model"); either loads strictly.
     See the JAX Registrar for the meaning of inlier_ratio,
     use_saliency_weights, refine_iters and guard."""
 
@@ -63,7 +66,8 @@ class Registrar:
             # "cuda" means the current card; tensors on it report its index
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.model = DeepVCP(cfg)
-        self.model.load_state_dict(convert.flax_to_torch(variables), strict=True)
+        state = convert.flax_to_torch(variables) if "params" in variables else variables
+        self.model.load_state_dict(state, strict=True)
         self.model.to(self.device).eval().requires_grad_(False)
         self.inlier_ratio = inlier_ratio
         self.use_saliency_weights = use_saliency_weights
@@ -168,6 +172,35 @@ class Registrar:
             stacklevel=4,
         )
 
+    def stream(self, pairs: Iterable, depth: int = 4) -> Iterator[RegistrationOutput]:
+        """Pipelined registration over an iterable of (src, tgt[, R_init,
+        t_init]) tuples on the registrar's device: outputs in input order,
+        with at most `depth` calls in flight. Each call's own host syncs
+        (the Kabsch solve's SVD) bound what the pipeline can overlap."""
+        return _stream(self, pairs, depth)
+
+
+def _stream(register, pairs: Iterable, depth: int) -> Iterator[RegistrationOutput]:
+    """Yield register(*pair) for each pair, in input order, with at most
+    `depth` calls issued and not yet drained. A call is drained by copying
+    its R to the host, which waits for the device's work on it: on the card
+    the later calls are issued while the earlier ones run."""
+    if depth < 1:
+        raise ValueError(f"depth must be >= 1, got {depth}")
+    inflight = collections.deque()
+
+    def drain():
+        out = inflight.popleft()
+        out.R.cpu()
+        return out
+
+    for pair in pairs:
+        inflight.append(register(*pair))
+        if len(inflight) >= depth:
+            yield drain()
+    while inflight:
+        yield drain()
+
 
 class CascadeRegistrar:
     """Coarse-to-fine registration: a sequence of Registrar stages on one
@@ -196,6 +229,10 @@ class CascadeRegistrar:
         """The last stage's config, under which the output pose was solved."""
         return self.stages[-1].cfg
 
+    @property
+    def device(self) -> torch.device:
+        return self.stages[0].device
+
     def __call__(
         self,
         src: torch.Tensor,
@@ -209,3 +246,97 @@ class CascadeRegistrar:
             R_init, t_init = out.R, out.t
             blocks.append(out.scores)
         return out._replace(scores=torch.cat(blocks, dim=-1))
+
+    def stream(self, pairs: Iterable, depth: int = 4) -> Iterator[RegistrationOutput]:
+        """Pipelined cascade (see Registrar.stream): every stage of up to
+        `depth` pairs is issued before the oldest pair is drained."""
+        return _stream(self, pairs, depth)
+
+
+class _Call(torch.nn.Module):
+    """The Registrar's call as a module around its model, so that
+    torch.func.functional_call can run it under other weights."""
+
+    def __init__(self, registrar: Registrar):
+        super().__init__()
+        self.model = registrar.model
+        self._registrar = [registrar]   # in a list: not a submodule
+
+    def forward(self, src, tgt, R_init, t_init):
+        return self._registrar[0](src, tgt, R_init, t_init)
+
+
+class RoutedRegistrar:
+    """Mixture of experts: each batch goes to the weights of the expert
+    trained on its distribution (counterpart of the JAX RoutedRegistrar).
+
+    The router statistic is the coefficient of variation of 1-NN distances
+    over a strided 512-point subsample of each source cloud (uniform clouds
+    measure 0.51-0.58, lidar-like ones 0.92-1.15); the batch's mean against
+    `threshold` is one vote per batch: above it, the "high" weights.
+
+    Both experts' weights stay on the device as one flat buffer each. A
+    call selects between them with one torch.where on the vote, which stays
+    on the device (no host sync, as JAX selects in-graph), and runs the one
+    model under the selected weights through torch.func.functional_call."""
+
+    def __init__(self, cfg: DeepVCPConfig, variants: Mapping[str, Any], device: torch.device,
+                 threshold: float = 0.75, **registrar_kwargs):
+        """variants: {"low": variables, "high": variables}, flax layout."""
+        if set(variants) != {"low", "high"}:
+            raise ValueError(f"variants must have keys 'low'/'high', got {sorted(variants)}")
+        self._reg = Registrar(cfg, variants["low"], device, **registrar_kwargs)
+        self._call = _Call(self._reg)
+        self.threshold = threshold
+        low, high = (convert.flax_to_torch(variants[k]) for k in ("low", "high"))
+        self._names = [k for k, v in low.items() if v.is_floating_point()]
+        self._shapes = [low[k].shape for k in self._names]
+        self._sizes = [low[k].numel() for k in self._names]
+        self._experts = torch.stack([
+            torch.cat([state[k].reshape(-1) for k in self._names]) for state in (low, high)
+        ]).to(self._reg.device)                           # [2, P]: low, high
+
+    @property
+    def cfg(self) -> DeepVCPConfig:
+        return self._reg.cfg
+
+    @property
+    def device(self) -> torch.device:
+        return self._reg.device
+
+    def route_statistic(self, src: torch.Tensor) -> torch.Tensor:
+        """The router statistic of each cloud, [B]."""
+        xyz = src[..., :3]
+        step = max(xyz.shape[-2] // 512, 1)
+        sub = xyz[:, ::step][:, :512]
+        d2 = square_distance(sub, sub)
+        d2 = torch.where(d2 <= 1e-12, torch.inf, d2)   # drop the self-match
+        nn = torch.sqrt(torch.amin(d2, dim=-1))
+        return torch.std(nn, dim=-1, correction=0) / (torch.mean(nn, dim=-1) + 1e-12)
+
+    def route(self, src: torch.Tensor) -> torch.Tensor:
+        """The batch's vote, a bool scalar tensor on the device: True sends
+        it to the "high" expert."""
+        return torch.mean(self.route_statistic(src)) > self.threshold
+
+    def weights(self, is_high: torch.Tensor) -> dict:
+        """The model's floating-point parameters and buffers of the expert
+        the vote picks, by name, as views of one selected buffer."""
+        flat = torch.where(is_high, self._experts[1], self._experts[0])
+        return {f"model.{name}": part.view(shape) for name, shape, part in
+                zip(self._names, self._shapes, torch.split(flat, self._sizes))}
+
+    @torch.no_grad()
+    def __call__(
+        self,
+        src: torch.Tensor,
+        tgt: torch.Tensor,
+        R_init: Optional[torch.Tensor] = None,
+        t_init: Optional[torch.Tensor] = None,
+    ) -> RegistrationOutput:
+        return torch.func.functional_call(
+            self._call, self.weights(self.route(src)), (src, tgt, R_init, t_init))
+
+    def stream(self, pairs: Iterable, depth: int = 4) -> Iterator[RegistrationOutput]:
+        """Pipelined routed registration (see Registrar.stream)."""
+        return _stream(self, pairs, depth)

@@ -4,8 +4,8 @@ required --device).
     python -m deepvcp_tpu_torch.train --device cuda -d synthetic --recipe residual
     python -m deepvcp_tpu_torch.train --device cpu --tiny -d synthetic --num-points 128 --epochs 1
 
-Only the synthetic dataset is ported: the ModelNet40 and KITTI file loaders
-and --save-vis raise NotImplementedError (ROADMAP M13).
+--dataset modelnet and kitti read their files under --root (data/datasets.py);
+--save-vis raises NotImplementedError until utils/vis.py is ported (ROADMAP).
 """
 
 from __future__ import annotations
@@ -15,16 +15,13 @@ import dataclasses
 
 from deepvcp_tpu_torch.config import DeepVCPConfig, TrainConfig
 
-_FILE_LOADERS = "the ModelNet40 / KITTI file loaders are not ported yet: ROADMAP M13"
-
-
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Train DeepVCP (PyTorch port)")
     p.add_argument("--device", required=True,
                    help="torch device to train on, e.g. cuda, cuda:1 or cpu")
     p.add_argument("-d", "--dataset", default="modelnet",
                    choices=["modelnet", "kitti", "synthetic"],
-                   help="dataset (only synthetic is ported)")
+                   help="dataset (modelnet, kitti, or synthetic)")
     p.add_argument("-f", "--full_dataset", default="full",
                    help="train on 'full' or 'partial' dataset")
     p.add_argument("-r", "--retrain_path", type=str, default=None,
@@ -89,10 +86,19 @@ def configs_from_args(args) -> tuple[DeepVCPConfig, TrainConfig]:
 
 
 def make_dataset(args, model_cfg: DeepVCPConfig, split: str):
-    from deepvcp_tpu_torch.data import SyntheticDataset
+    from deepvcp_tpu_torch.data import KITTIDataset, ModelNet40Dataset, SyntheticDataset
 
-    if args.dataset in ("modelnet", "kitti"):
-        raise NotImplementedError(f"--dataset {args.dataset}: {_FILE_LOADERS}")
+    if args.dataset == "modelnet":
+        if not args.root:
+            raise SystemExit("--root is required for modelnet")
+        return ModelNet40Dataset(args.root, split=split,
+                                 full_dataset=args.full_dataset == "full",
+                                 num_points=model_cfg.num_points,
+                                 use_normal=model_cfg.use_normal)
+    if args.dataset == "kitti":
+        if not args.root:
+            raise SystemExit("--root is required for kitti")
+        return KITTIDataset(args.root, split=split, num_points=model_cfg.num_points)
     return SyntheticDataset(num_clouds=16 if split == "train" else 4,
                             num_points=model_cfg.num_points, use_normal=model_cfg.use_normal,
                             seed=0 if split == "train" else 1)
@@ -101,7 +107,7 @@ def make_dataset(args, model_cfg: DeepVCPConfig, split: str):
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     if args.save_vis:
-        raise NotImplementedError("--save-vis needs utils/vis.py, not ported yet: ROADMAP M13")
+        raise NotImplementedError("--save-vis needs utils/vis.py, not ported yet: see ROADMAP")
     model_cfg, train_cfg = configs_from_args(args)
 
     from deepvcp_tpu_torch.data import batch_iterator

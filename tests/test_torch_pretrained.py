@@ -49,6 +49,14 @@ def test_exported_kitti25_weights_equal_checkpoint():
     _assert_exported_equals_checkpoint("kitti25")
 
 
+@pytest.mark.parametrize("name", ["lidar-fine", "kitti25-fine", "kitti25-ultra"])
+def test_exported_odometry_and_routing_weights_equal_checkpoint(name):
+    """The two fine stages of kitti-cascade and the routed registrar's lidar
+    expert, likewise (the fine stages' grids reach the config through their
+    .arch.json)."""
+    _assert_exported_equals_checkpoint(name)
+
+
 def _assert_exported_equals_checkpoint(name):
     cfg_j, want = jpretrained.load(name)
     cfg_t, got = pretrained.load(name)
@@ -87,11 +95,50 @@ def test_strict_load_and_registrar_defaults():
     assert n == 35506
 
 
-def test_unexported_checkpoint_is_reported():
+def test_unexported_checkpoint_is_reported(monkeypatch, tmp_path):
+    """Every registry name is exported now, so the weights directory is
+    pointed at an empty one: a name without its file is reported."""
+    monkeypatch.setattr(pretrained, "WEIGHTS_DIR", str(tmp_path))
     with pytest.raises(FileNotFoundError, match="export_torch_weights"):
         pretrained.load("lidar-fine")
     with pytest.raises(KeyError):
         pretrained.config("no-such-model")
+
+
+def test_every_registry_name_loads():
+    """Each registry name has its exported weights, which load strictly into
+    a Registrar with the JAX package's defaults, and both cascades and the
+    routed registrar build."""
+    for name in sorted(jpretrained.REGISTRY):
+        reg = pretrained.registrar(name, device="cpu", num_points=256)
+        assert reg.refine_iters == pretrained.REGISTRY[name]["refine_iters"]
+        n = sum(p.numel() for p in reg.model.parameters()) + sum(
+            b.numel() for key, b in reg.model.named_buffers() if "running" in key)
+        assert n == 35506, name
+    kitti = pretrained.cascade("kitti-cascade", device="cpu", num_points=256)
+    assert [r.refine_iters for r in kitti.stages] == [2, 1, 2]
+    assert [(r.cfg.search_radius, r.cfg.voxel_len) for r in kitti.stages] == \
+        [(1.0, 0.4), (0.6, 0.2), (0.3, 0.1)]
+    assert len(pretrained.cascade("modelnet-cascade", device="cpu", num_points=256).stages) == 2
+    routed = pretrained.routed_registrar(device="cpu", num_points=256)
+    assert (routed._reg.refine_iters, routed.threshold) == (3, 0.75)
+
+
+@pytest.mark.parametrize("name", sorted(jpretrained.REGISTRY))
+def test_registry_refine_iters_is_the_jax_default(monkeypatch, name):
+    """Each name's refine_iters, an entry of the port's registry, is the
+    default the JAX pretrained.registrar gives it (its special case for
+    kitti25). The JAX Registrar is stubbed out: only its kwargs are read."""
+    import deepvcp_tpu.registration as jregistration
+
+    seen = {}
+    monkeypatch.setattr(jpretrained, "load_variables", lambda path: None)
+    monkeypatch.setattr(jregistration, "Registrar",
+                        lambda cfg, variables, **kw: seen.update(kw))
+    jpretrained.registrar(name)
+    assert pretrained.REGISTRY[name]["refine_iters"] == seen["refine_iters"]
+    assert pretrained.registrar(name, device="cpu", num_points=256).refine_iters == \
+        seen["refine_iters"]
 
 
 @pytest.mark.parametrize("seed,max_rotation_deg", [(110, 5.0), (7, None)])

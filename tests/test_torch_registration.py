@@ -265,3 +265,132 @@ def test_pretrained_cascade_defaults():
     assert set(pretrained.available_cascades()) == {"kitti-cascade", "modelnet-cascade"}
     with pytest.raises(KeyError):
         pretrained.cascade("no-such-cascade", device="cpu")
+
+
+def _pairs(src, tgt, n):
+    """n (src, tgt) tensor pairs: the batch rolled by one point a pair."""
+    return [(torch.from_numpy(np.roll(src, i, axis=1)), torch.from_numpy(tgt)) for i in range(n)]
+
+
+@pytest.mark.parametrize("kind", ["registrar", "cascade"])
+@pytest.mark.parametrize("depth", [1, 3])
+def test_stream_order_and_depth(tiny, kind, depth):
+    """stream yields each pair's output in input order, equal to the call's
+    own, and has at most `depth` calls issued but not yet yielded."""
+    from deepvcp_tpu_torch.registration import CascadeRegistrar
+
+    cfg, variables, src, tgt = tiny
+    reg = Registrar(cfg, variables, "cpu", refine_iters=2)
+    if kind == "cascade":
+        reg = CascadeRegistrar([reg, Registrar(cfg, variables, "cpu", refine_iters=1)])
+    pairs = _pairs(src, tgt, 5)
+    issued = []
+
+    def feed():
+        for i, pair in enumerate(pairs):
+            issued.append(i)
+            yield pair
+
+    for k, out in enumerate(reg.stream(feed(), depth=depth)):
+        assert len(issued) <= k + depth, (k, len(issued))
+        want = reg(*pairs[k])
+        for field in ("R", "t", "keypoints", "vcps", "scores"):
+            assert torch.equal(getattr(out, field), getattr(want, field)), (k, field)
+    assert k == len(pairs) - 1
+    with pytest.raises(ValueError, match="depth"):
+        next(reg.stream(iter(pairs), depth=0))
+
+
+ROUTE_N = 128   # where the JAX CPU static band covers the slab
+
+
+def _route_batch(kind, n):
+    """A batch of 2 of campaign_r5d G3's held sets (extent 1): uniform
+    (seed 100) or lidar-like (seed 101)."""
+    from deepvcp_tpu_torch.data import SyntheticDataset
+
+    kw = dict(num_clouds=2, num_points=n, max_rotation_deg=10.0, max_translation=0.5)
+    ds = (SyntheticDataset(extent=1.0, seed=100, **kw) if kind == "uniform"
+          else LidarLikeDataset(max_range=1.0, seed=101, **kw))
+    return next(batch_iterator(ds, 2, epoch=0, seed=777, shuffle=False))
+
+
+@pytest.mark.parametrize("n", [ROUTE_N, 1024])
+def test_route_statistic_matches_jax(n):
+    """The router statistic against JAX's evaluated op by op, within 1e-6
+    relative. Under jax.jit, XLA rounds the self-distances |a|^2 + |a|^2 -
+    2 a.a of some points to exactly 0 and others not, so which self-matches
+    the <= 1e-12 test drops (and the statistic: 0.38 jitted against 0.58
+    op by op on one uniform cloud) depends on its fusion; the port's eager
+    ops give JAX's op-by-op values."""
+    from deepvcp_tpu.registration import RoutedRegistrar as JRoutedRegistrar
+    from deepvcp_tpu_torch import pretrained
+
+    routed = pretrained.routed_registrar(device="cpu", num_points=n)
+    cfg, low = jpretrained.load("modelnet-fine", num_points=n)
+    _, high = jpretrained.load("lidar-fine", num_points=n)
+    jrouted = JRoutedRegistrar(cfg, {"low": low, "high": high})
+    for kind in ("uniform", "lidar"):
+        src = _route_batch(kind, n)[0]
+        got = routed.route_statistic(torch.from_numpy(src)).numpy()
+        with jax.disable_jit():
+            want = np.asarray(jrouted.route_statistic(jnp.asarray(src)))
+        np.testing.assert_allclose(got, want, rtol=1e-6)
+        assert bool(routed.route(torch.from_numpy(src))) == (kind == "lidar")
+
+
+def test_routed_pose_matches_jax():
+    """pretrained.routed_registrar's experts (modelnet-fine low, lidar-fine
+    high, refine_iters 3) with f32 candidate selection, on one uniform and
+    one lidar-like batch: each votes as JAX's routed registrar does, and the
+    pose equals JAX's within POSE_ATOL and the chosen expert's own
+    Registrar's exactly."""
+    from deepvcp_tpu.registration import RoutedRegistrar as JRoutedRegistrar
+    from deepvcp_tpu_torch.registration import RoutedRegistrar
+
+    cfg_j, low = jpretrained.load("modelnet-fine", num_points=ROUTE_N)
+    _, high = jpretrained.load("lidar-fine", num_points=ROUTE_N)
+    cfg_j = dataclasses.replace(cfg_j, knn_select_dtype=None)
+    from deepvcp_tpu_torch import pretrained
+
+    cfg_t = dataclasses.replace(pretrained.config("modelnet-fine", ROUTE_N), knn_select_dtype=None)
+    kw = dict(refine_iters=3, use_saliency_weights=True)
+    jrouted = JRoutedRegistrar(cfg_j, {"low": low, "high": high}, **kw)
+    routed = RoutedRegistrar(cfg_t, {"low": low, "high": high}, "cpu", **kw)
+    for kind, expert in (("uniform", low), ("lidar", high)):
+        src, tgt, _, _ = _route_batch(kind, ROUTE_N)
+        assert (float(jnp.mean(jrouted.route_statistic(jnp.asarray(src)))) > 0.75) == \
+            (kind == "lidar")
+        out_j = jrouted(jnp.asarray(src), jnp.asarray(tgt))
+        out_t = routed(torch.from_numpy(src), torch.from_numpy(tgt))
+        np.testing.assert_allclose(out_t.R.numpy(), np.asarray(out_j.R), atol=POSE_ATOL)
+        np.testing.assert_allclose(out_t.t.numpy(), np.asarray(out_j.t), atol=POSE_ATOL)
+        np.testing.assert_allclose(out_t.scores.numpy(), np.asarray(out_j.scores),
+                                   atol=SCORE_ATOL)
+        alone = Registrar(cfg_t, expert, "cpu", **kw)(torch.from_numpy(src), torch.from_numpy(tgt))
+        assert torch.equal(out_t.R, alone.R) and torch.equal(out_t.t, alone.t)
+    with pytest.raises(ValueError, match="low"):
+        RoutedRegistrar(cfg_t, {"low": low}, "cpu")
+
+
+def test_kitti_cascade_matches_jax():
+    """kitti-cascade (kitti25 @2, kitti25-fine @1, kitti25-ultra @2; f32
+    selection at spatial_extent 55) on a 128-point 1 m lidar-like pair,
+    where the static band covers the slab: the pose, every stage's scores
+    and the last stage's keypoints as in JAX."""
+    from deepvcp_tpu_torch import pretrained
+
+    ds = LidarLikeDataset(num_clouds=1, num_points=CASCADE_N, max_range=1.0, seed=110,
+                          max_rotation_deg=5.0, max_translation=0.2)
+    src, tgt, _, _ = next(batch_iterator(ds, 1, shuffle=False))
+    out_j = jpretrained.cascade("kitti-cascade", num_points=CASCADE_N)(
+        jnp.asarray(src), jnp.asarray(tgt))
+    casc = pretrained.cascade("kitti-cascade", device="cpu", num_points=CASCADE_N)
+    out_t = casc(torch.from_numpy(src), torch.from_numpy(tgt))
+    assert out_t.scores.shape == (1, 3 + 2 + 3)
+    assert casc.cfg.search_radius == 0.3 and casc.cfg.voxel_len == 0.1
+    np.testing.assert_allclose(out_t.R.numpy(), np.asarray(out_j.R), atol=POSE_ATOL)
+    np.testing.assert_allclose(out_t.t.numpy(), np.asarray(out_j.t), atol=POSE_ATOL)
+    np.testing.assert_allclose(out_t.scores.numpy(), np.asarray(out_j.scores), atol=SCORE_ATOL)
+    assert sorted(map(tuple, out_t.keypoints[0].tolist())) == \
+        sorted(map(tuple, np.asarray(out_j.keypoints[0]).tolist()))
