@@ -12,8 +12,12 @@ any rotation, `initializer.so3_global_init` then
 `kitti25` through kernels K4/K5; and LiDAR odometry, campaign_r5h's
 12-frame sequence written as KITTI files, through
 `pretrained.cascade("kitti-cascade")` and `kitti25-rot`, the pose graph,
-the odometry CLI, `Registrar.stream` and `pretrained.routed_registrar`.
-It checks on the way:
+the odometry CLI, `Registrar.stream` and `pretrained.routed_registrar`; and
+the non-default engines: campaign_r4b's model_q5w under the windowed and
+the dense engine (N = 2048), campaign_r4's model_r1c (keypoints branch),
+`kitti25-rot` on the static band and in bf16, the plain two-level gather,
+SetAbstractionMSG / FeaturePropagation, windowed training and the training
+CLI's --save-vis. It checks on the way:
 
   1. device      a CUDA card is present; prints nvidia-smi's name and power limit
   2. build       builds every CUDA kernel of the paths from csrc/ with nvcc
@@ -111,6 +115,36 @@ It checks on the way:
                  1e-5; 6 K1 launches per stage call in every run; per-frame
                  latency, stream vs per call, the pose-graph solve and the
                  routing's cost (printed only)
+ 21. engines     model_q5w (campaign_r4b, windowed engine) on campaign_r4's 16
+                 held uniform_small pairs at N = 2048, under the windowed and
+                 the dense engine: finite poses; pair 0 on the card against
+                 the CPU (TF32 off): the first SA stage's neighbour sets
+                 identical but for queries with a point within 1e-5 of r^2
+                 (counted), FE features and saliency within 1e-4 of their
+                 max, keypoint sets equal (or swapped only at a saliency
+                 near-tie), then the pose within 1e-4 under f32 candidate
+                 selection (the model's bf16 selection tile swaps near-tied
+                 neighbours between devices: printed only); the preflight's
+                 occupancy verdict and the GT-free RRE / RTE beside the
+                 campaign's (printed). model_r1c (campaign_r4, keypoints
+                 branch) at N = 10 000 on uniform_small: 6 K1 launches a
+                 call, kernel vs plain path as phase 5. kitti25-rot with
+                 use_pallas_band_max=False on phase 4's pairs: 0 K1
+                 launches, each SA stage's static band on pair 0's inputs
+                 bit-identical on the card and the CPU, and the card-vs-CPU
+                 checks above (features and saliency at 1e-3 of their max on
+                 these 25 m clouds). kitti25-rot in bf16: 6 K1 launches a call,
+                 kernel vs plain path bit-identical. kitti25 two-level with
+                 the plain gather: 0 K4 / K5 launches, pose bit-identical to
+                 the K4 path's. SetAbstractionMSG [2, 10 000, 3] -> 1024 and
+                 FeaturePropagation back: 1 K3 launch, kernel vs plain path
+                 identical. 2 windowed Trainer steps of model_q5w: finite
+                 loss and grad norm, step 0 (warmup lr 0) leaves the
+                 parameters, step 1 moves them. The training CLI
+                 --eval-only --save-vis on a kitti25-rot checkpoint: a .npy
+                 pair per test pair and vis.pcd, pair 0 the registrar's
+                 transformed source. Latency, busy time and idle share per
+                 engine (printed)
  11. no jax      neither jax nor the JAX package deepvcp_tpu was imported
                  (checked last)
 
@@ -168,6 +202,18 @@ ODO_GN_ITERS = 30
 ODO_PATH_ATOL = GRAPH_ATOL = 1e-4              # kernel vs plain path; card vs CPU
 ROUTE_B, ROUTE_BATCHES = 2, 8                  # 16 clouds per held set
 ROUTE_ATOL = 1e-5                              # routed pose vs the chosen expert's
+# phase 21, the engines: campaign_r4's held uniform_small pairs
+# (scripts/campaign_r4_common.py:142-144); card vs CPU with TF32 off
+ENGINE_PAIRS = 16
+NEAR_TIE_D2 = 1e-5         # |d^2 - r^2| within which f32 rounding may flip a neighbour
+CARD_CPU_RTOL = 1e-4       # FE features and saliency, of their max (unit-scale clouds)
+# the same on 25 m clouds: a banded stage's first layer subtracts per-point
+# projections of coordinates up to 25 m (max_u - p), which amplifies the
+# matmuls' rounding; cuBLAS against the CPU moves kitti25-rot's saliency by
+# ~1.1e-4 of its max on phase 4's pair 0 (PERF.md, Findings)
+CARD_CPU_RTOL_25M = 1e-3
+CARD_CPU_POSE = 1e-4       # R and t where the keypoint sets are equal
+MSG_NPOINT = 1024
 
 
 def fail(msg: str) -> None:
@@ -343,7 +389,7 @@ def stage_split(torch, reg, src, tgt) -> dict:
                 l_idx = table_neighbors(table[..., :3], kp_warm, cand, cfg.num_neighbors,
                                         args["select_dtype"])
                 mark("level2_select")
-                tnb = gather_table_rows(table, l_idx)
+                tnb = gather_table_rows(table, l_idx, args["use_kernel"])
                 tnb = tnb.reshape(B, -1, cfg.num_neighbors, tnb.shape[-1])
                 mark("k4_gather")
             else:
@@ -1563,15 +1609,9 @@ def write_kitti_sequence(root: str, scans, R_rel, t_rel) -> None:
 
 
 def counted(torch, fn):
-    """(fn(), K1 launches during it): the count is set to 0 just before fn
-    and read just after it, the device synchronised on both sides."""
-    from deepvcp_tpu_torch.ops.kernels import band_max
-
-    torch.cuda.synchronize()
-    band_max.banded_masked_max.launches = 0
-    out = fn()
-    torch.cuda.synchronize()
-    return out, band_max.banded_masked_max.launches
+    """(fn(), K1 launches during it), as counted_all counts them."""
+    out, counts = counted_all(torch, fn)
+    return out, counts["k1"]
 
 
 def check_k1(what: str, launches: int, stage_calls: int) -> int:
@@ -1819,6 +1859,511 @@ def odometry_phase(torch, dev, reg, pairs, card: str) -> dict:
     return {"k1": k1}
 
 
+def kernel_counters() -> dict:
+    """Each kernel's wrapper, whose `launches` attribute counts its launches."""
+    from deepvcp_tpu_torch.ops.kernels import band_max, fps
+    from deepvcp_tpu_torch.ops.kernels import onehot_gather as og
+
+    return {"k1": band_max.banded_masked_max, "k2": band_max.banded_masked_max_grad,
+            "k3": fps.farthest_point_sample, "k4": og.onehot_gather,
+            "k5": og.onehot_scatter_add}
+
+
+def counted_all(torch, fn):
+    """(fn(), {kernel: launches during it}): every count set to 0 just before
+    fn and read just after it, the device synchronised on both sides."""
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    for f in counters.values():
+        f.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: f.launches for k, f in counters.items()}
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def uniform_small_pairs(torch, dev, n_points: int) -> list:
+    """campaign_r4's held uniform_small set (scripts/campaign_r4_common.py:
+    142-144) at n_points, drawn as the campaign's eval batches draw it (seed
+    777, in order), B = 1, on dev."""
+    from deepvcp_tpu_torch.data import SyntheticDataset, batch_iterator
+
+    held = SyntheticDataset(num_clouds=ENGINE_PAIRS, num_points=n_points, extent=1.0, seed=100,
+                            max_rotation_deg=10.0, max_translation=0.5)
+    return [tuple(torch.from_numpy(a.astype("float32")).to(dev) for a in b)
+            for b in batch_iterator(held, 1, epoch=0, seed=777, shuffle=False)]
+
+
+def gt_free_errors(torch, outs, pairs, what: str) -> tuple:
+    """Check each Registrar output's pose is finite and a rotation; return
+    the mean GT-free RRE (deg) and RTE."""
+    from deepvcp_tpu_torch.data import rotation_geodesic_deg, translation_error
+
+    rre, rte = [], []
+    eye = torch.eye(3, device=outs[0].R.device)
+    for i, (out, (_, _, R_gt, t_gt)) in enumerate(zip(outs, pairs)):
+        if not (torch.isfinite(out.R).all() and torch.isfinite(out.t).all()):
+            fail(f"{what} pair {i}: a non-finite pose")
+        if (out.R[0] @ out.R[0].T - eye).abs().max() > 1e-4:
+            fail(f"{what} pair {i}: R is not a rotation")
+        rre.append(rotation_geodesic_deg(out.R.double(), R_gt.double()).item())
+        rte.append(translation_error(out.t, t_gt).item())
+    return statistics.mean(rre), statistics.mean(rte)
+
+
+def run_engine(torch, reg, pairs, what: str, total: dict, k1_per_call=None) -> tuple:
+    """The main path of one engine: reg on every pair, its launches counted
+    (and K1's gated at k1_per_call a call where given). Returns (outputs,
+    mean RRE, mean RTE, counts)."""
+    outs, counts = counted_all(torch, lambda: [reg(src, tgt) for src, tgt, _, _ in pairs])
+    add_counts(total, counts)
+    rre, rte = gt_free_errors(torch, outs, pairs, what)
+    print(f"{what}: {len(pairs)} pairs, launches " + ", ".join(
+        f"{k.upper()} {v}" for k, v in counts.items()) + f"; GT-free mean RRE {rre:.4f} deg, "
+        f"mean RTE {rte:.5f}")
+    if k1_per_call is not None and counts["k1"] != k1_per_call * len(pairs):
+        fail(f"{what}: expected {k1_per_call} K1 launches a call, got "
+             f"{counts['k1'] / len(pairs):g}")
+    return outs, rre, rte, counts
+
+
+def engine_timing(torch, reg, src, tgt, what: str) -> float:
+    """Print a Registrar's synced latency, device busy time and idle share
+    (not gated); returns the latency."""
+    lat = host_median_ms(torch, lambda: reg(src, tgt), reps=10)
+    busy, top = device_time_per_call(torch, lambda: reg(src, tgt), calls=3)
+    idle = f"{1 - busy / lat:.3f}" if busy > 0 else "not measured"
+    print(f"{what} per call: {lat:.3f} ms (median of 10 synced calls), device busy "
+          f"{busy:.3f} ms, idle share {idle}; top kernels: "
+          + "; ".join(f"{k} {v:.3f}" for k, v in top[:4]))
+    return lat
+
+
+def near_tie_rows(xyz, queries, rows, radius: float) -> list:
+    """For each query row in `rows`, whether some point of xyz lies within
+    NEAR_TIE_D2 of radius^2 from it (float64 squared distances)."""
+    import numpy as np
+
+    x = xyz.double().cpu().numpy()
+    q = queries.double().cpu().numpy()
+    out = []
+    for b, s in rows:
+        d2 = ((x[b] - q[b, s]) ** 2).sum(-1)
+        out.append(bool(np.any(np.abs(d2 - radius * radius) < NEAR_TIE_D2)))
+    return out
+
+
+def neighbours_agree(torch, fn, xyz_dev, radius: float, what: str) -> None:
+    """fn(xyz) -> (idx, count) of the first SA stage's neighbour query, run
+    on the card and on the CPU: identical, or different only in queries with
+    a point within NEAR_TIE_D2 of the radius (counted and printed)."""
+    idx_d, cnt_d = fn(xyz_dev)
+    idx_c, cnt_c = fn(xyz_dev.cpu())
+    differ = ((idx_d.cpu() != idx_c).any(-1) | (cnt_d.cpu() != cnt_c)).nonzero().tolist()
+    ties = near_tie_rows(xyz_dev, xyz_dev, differ, radius)
+    print(f"{what}: first SA stage's neighbour sets, card vs CPU: {idx_d.shape[1]} queries, "
+          f"{len(differ)} differ, {sum(ties)} of them with a point within {NEAR_TIE_D2:g} of "
+          f"r^2 = {radius * radius:g}")
+    if not all(ties):
+        fail(f"{what}: neighbour sets differ away from the radius")
+
+
+def model_card_vs_cpu(torch, reg, reg_cpu, src, tgt, what: str,
+                      rtol: float = CARD_CPU_RTOL) -> None:
+    """Pair 0 through the model on the card and on the CPU (TF32 off): FE
+    features and saliency within rtol of their max; the keypoint sets
+    equal, or different only at saliency near-ties (within rtol of the
+    K-th); where equal, the pose within CARD_CPU_POSE."""
+    with torch.no_grad():
+        enc_d, enc_c = reg.model.encode(src, tgt), reg_cpu.model.encode(src.cpu(), tgt.cpu())
+    # the target cloud's FE features (tgt_table is xyz ++ features) and the
+    # source cloud's saliency
+    f_d, f_c = enc_d.tgt_table[..., 3:].float().cpu(), enc_c.tgt_table[..., 3:].float()
+    s_d, s_c = enc_d.saliency.float().cpu(), enc_c.saliency.float()
+    df = ((f_d - f_c).abs().max() / f_c.abs().max()).item()
+    ds = ((s_d - s_c).abs().max() / s_c.abs().max()).item()
+    kd = set(enc_d.keypoint_idx[0].tolist())
+    kc = set(enc_c.keypoint_idx[0].tolist())
+    print(f"{what} pair 0, card vs CPU: FE features max|d| {df:.3e} of their max, saliency "
+          f"{ds:.3e}; keypoint sets {'equal' if kd == kc else 'differ'}")
+    if df > rtol or ds > rtol:
+        fail(f"{what}: FE features or saliency differ between the card and the CPU by more "
+             f"than {rtol:g} of their max")
+    if kd != kc:
+        sal = s_c[0].double()
+        kth = torch.sort(sal, descending=True).values[len(kd) - 1].item()
+        swapped = sorted(kd ^ kc)
+        gaps = [abs(sal[i].item() - kth) / kth for i in swapped]
+        print(f"{what}: {len(swapped)} keypoints swapped, saliency within "
+              f"{max(gaps):.3e} of the K-th (relative)")
+        if max(gaps) > rtol:
+            fail(f"{what}: keypoints differ away from a saliency near-tie")
+        return
+    out_d, out_c = reg(src, tgt), reg_cpu(src.cpu(), tgt.cpu())
+    dR = (out_d.R.cpu() - out_c.R).abs().max().item()
+    dt = (out_d.t.cpu() - out_c.t).abs().max().item()
+    print(f"{what} pair 0, card vs CPU: max|dR| {dR:.3e}, max|dt| {dt:.3e}")
+    if dR > CARD_CPU_POSE or dt > CARD_CPU_POSE:
+        fail(f"{what}: the pose differs between the card and the CPU")
+
+
+def gather_engines(torch, dev, total: dict) -> dict:
+    """Phase 21, windowed and dense: campaign_r4b's model_q5w (trained on
+    the windowed engine) at N = 2048 on campaign_r4's held uniform_small
+    pairs, under its engine and under the dense one."""
+    from deepvcp_tpu_torch import pretrained
+    from deepvcp_tpu_torch.ops import query_ball_point
+    from deepvcp_tpu_torch.ops.neighbors import (
+        slab_occupancy_stats, sort_cloud, window_for, windowed_ball_query)
+
+    name = "campaign_r4b-q5w"
+    entry = pretrained.CAMPAIGN[name]
+    pairs = uniform_small_pairs(torch, dev, entry["num_points"])
+    lat = {}
+    for engine in ("windowed", "dense"):
+        what = f"model_q5w {engine}"
+        kw = dict(cfg_changes={"neighbor_method": engine}, guard=False)
+        reg = pretrained.campaign_registrar(name, device=dev, **kw)
+        cfg = reg.cfg.resolve()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            _, rre, rte, _ = run_engine(torch, reg, pairs, what, total)
+        audit = [str(w.message) for w in caught if "window" in str(w.message)]
+        ref = entry["gt_free"]["uniform_small" if engine == "windowed" else "uniform_small_dense"]
+        print(f"{what}: GT-free RRE {rre:.4f} deg / RTE {rte:.5f} beside the campaign's "
+              f"{ref[0]} deg / {ref[1]} (TPU, approx_min_k selection; the port selects exactly)")
+        src, tgt = pairs[0][0], pairs[0][1]
+        layer = cfg.sa_layers[0]
+        if engine == "windowed":
+            N = cfg.num_points
+            occ = [(l.radius, window_for(N, l.radius, cfg.spatial_extent, cfg.window_safety),
+                    slab_occupancy_stats(src[..., :3], l.radius)["max"]) for l in cfg.sa_layers]
+            print(f"{what}: preflight (first call): {audit[0] if audit else 'no warning'}; per SA "
+                  "radius (window, max slab on pair 0): " + ", ".join(
+                      f"r {r}: ({w}, {m})" for r, w, m in occ))
+            w0 = occ[0][1]
+
+            def first_stage(x):
+                cloud = sort_cloud(x[..., :3])
+                return windowed_ball_query(cloud, cloud.xyz, layer.radius, layer.nsample, w0,
+                                           return_count=True)
+            xyz0 = sort_cloud(src[..., :3]).xyz
+        else:
+            def first_stage(x):
+                return query_ball_point(layer.radius, layer.nsample, x, x,
+                                        chunk=cfg.query_chunk, return_count=True)
+            xyz0 = src[..., :3]
+        neighbours_agree(torch, first_stage, xyz0, layer.radius, what)
+        # the model's candidate selection rounds d^2 to bf16 (extent 2.5):
+        # near-ties there swap neighbours between the card and the CPU and
+        # move the pose by ~1e-3 (ROADMAP Queue 3), so the pose is held
+        # card vs CPU with f32 selection, and the bf16 one only printed
+        with torch.no_grad():
+            dR = (reg(src, tgt).R.cpu() - pretrained.campaign_registrar(
+                name, device="cpu", **kw)(src.cpu(), tgt.cpu()).R).abs().max().item()
+        print(f"{what} pair 0, card vs CPU with the model's bf16 candidate selection: max|dR| "
+              f"{dR:.3e} (not gated)")
+        f32 = dict(cfg_changes={"neighbor_method": engine, "knn_select_dtype": None},
+                   guard=False)
+        model_card_vs_cpu(torch, pretrained.campaign_registrar(name, device=dev, **f32),
+                          pretrained.campaign_registrar(name, device="cpu", **f32), src, tgt,
+                          what + " (f32 selection)")
+        lat[engine] = engine_timing(torch, reg, src, tgt, what)
+    return {"latency": lat}
+
+
+def keypoints_branch(torch, dev, total: dict) -> dict:
+    """Phase 21, keypoints branch: campaign_r4's model_r1c (banded engine,
+    dfe_src_neighbors="keypoints", uncentred grid, no derotation) at
+    N = 10 000 on uniform_small; K1 in every FE pass."""
+    from deepvcp_tpu_torch import pretrained
+
+    name = "campaign_r4-r1c"
+    pairs = uniform_small_pairs(torch, dev, N_POINTS)
+    reg = pretrained.campaign_registrar(name, device=dev, guard=False)
+    _, rre, rte, _ = run_engine(torch, reg, pairs, "model_r1c keypoints branch", total,
+                                k1_per_call=LAUNCHES_PER_CALL)
+    ref = pretrained.CAMPAIGN[name]["gt_free"]["uniform_small"]
+    print(f"model_r1c: GT-free RRE {rre:.4f} deg / RTE {rte:.5f} beside the campaign's "
+          f"{ref[0]} deg / {ref[1]} (TPU, approx_min_k selection)")
+    src, tgt = pairs[0][0], pairs[0][1]
+    registrar_paths_agree(torch, reg, src, tgt, "model_r1c")
+    return {"pairs": pairs, "latency": engine_timing(torch, reg, src, tgt, "model_r1c")}
+
+
+def static_band(torch, dev, pairs, total: dict, exact: dict) -> dict:
+    """Phase 21, static band: kitti25-rot with use_pallas_band_max=False on
+    phase 4's pairs. No kernel: plain PyTorch on the card."""
+    import dataclasses
+
+    from deepvcp_tpu_torch import pretrained
+    from deepvcp_tpu_torch.models import fused_sa
+    from deepvcp_tpu_torch.registration import Registrar
+
+    cfg, variables = pretrained.load("kitti25-rot", num_points=N_POINTS)
+    cfg = dataclasses.replace(cfg, use_pallas_band_max=False)
+    kw = dict(use_saliency_weights=True, refine_iters=pretrained.REGISTRY["kitti25-rot"]
+              ["refine_iters"])
+    reg = Registrar(cfg, variables, dev, **kw)
+    _, rre, rte, counts = run_engine(torch, reg, pairs, "kitti25-rot static band", total,
+                                     k1_per_call=0)
+    src, tgt = pairs[0][0], pairs[0][1]
+    # the static band of each SA stage on pair 0's inputs, card vs CPU
+    seen, pool = [], fused_sa.static_band_max_pool
+
+    def record(xyz, u, radius, window, tile):
+        seen.append((xyz, u, radius, window, tile))
+        return pool(xyz, u, radius, window, tile)
+
+    fused_sa.static_band_max_pool = record
+    try:
+        with torch.no_grad():
+            reg.model.features(src)
+    finally:
+        fused_sa.static_band_max_pool = pool
+    for i, (xyz, u, radius, window, tile) in enumerate(seen):
+        d = fused_sa.static_band_max(xyz, u, radius, window, tile)
+        c = fused_sa.static_band_max(xyz.cpu(), u.cpu(), radius, window, tile)
+        same = torch.equal(d.cpu(), c)
+        print(f"static band, SA stage {i + 1} (C = {u.shape[-1]}, r = {radius}, window "
+              f"{window}, tile {tile}): card vs CPU {'bit-identical' if same else 'DIFFERENT'}")
+        if not same:
+            fail("the static band differs between the card and the CPU")
+    model_card_vs_cpu(torch, reg, Registrar(cfg, variables, "cpu", **kw), src, tgt,
+                      "kitti25-rot static band", rtol=CARD_CPU_RTOL_25M)
+    lat = engine_timing(torch, reg, src, tgt, "kitti25-rot static band")
+    print(f"kitti25-rot static band vs exact slab (phase 4): mean RRE {rre:.4f} vs "
+          f"{exact['rre']:.4f} deg, RTE {rte:.5f} vs {exact['rte']:.5f} m; latency {lat:.3f} "
+          f"vs {exact['latency']:.3f} ms")
+    return {"latency": lat}
+
+
+def bf16_path(torch, dev, pairs, total: dict, exact: dict) -> dict:
+    """Phase 21, bf16: kitti25-rot under compute_dtype="bfloat16" on phase
+    4's pairs; K1 on f32 copies of the bf16 values."""
+    import dataclasses
+
+    from deepvcp_tpu_torch import pretrained
+    from deepvcp_tpu_torch.ops.kernels import reference_path
+    from deepvcp_tpu_torch.registration import Registrar
+
+    cfg, variables = pretrained.load("kitti25-rot", num_points=N_POINTS)
+    reg = Registrar(dataclasses.replace(cfg, compute_dtype="bfloat16"), variables, dev,
+                    use_saliency_weights=True,
+                    refine_iters=pretrained.REGISTRY["kitti25-rot"]["refine_iters"])
+    _, rre, rte, _ = run_engine(torch, reg, pairs, "kitti25-rot bf16", total,
+                                k1_per_call=LAUNCHES_PER_CALL)
+    print(f"kitti25-rot bf16 vs f32 (phase 4): mean RRE {rre:.4f} vs {exact['rre']:.4f} deg, "
+          f"RTE {rte:.5f} vs {exact['rte']:.5f} m")
+    src, tgt = pairs[0][0], pairs[0][1]
+    out_k = reg(src, tgt)
+    with reference_path():
+        out_p = reg(src, tgt)
+    same = all(torch.equal(getattr(out_k, f), getattr(out_p, f))
+               for f in ("keypoints", "R", "t", "scores"))
+    print(f"kitti25-rot bf16 kernel vs plain path, pair 0: keypoints, pose and scores "
+          f"{'bit-identical' if same else 'DIFFERENT'}")
+    if not same:
+        fail("bf16: the kernel and plain paths differ")
+    return {"latency": engine_timing(torch, reg, src, tgt, "kitti25-rot bf16")}
+
+
+def plain_two_level(torch, dev, pairs, total: dict) -> None:
+    """Phase 21, plain two-level gather: kitti25 two-level with
+    use_pallas_onehot_gather=False (torch.gather, 0 K4 launches) against the
+    K4 path on pair 0."""
+    import dataclasses
+
+    from deepvcp_tpu_torch import pretrained
+    from deepvcp_tpu_torch.registration import Registrar
+
+    cfg, variables = pretrained.load("kitti25", num_points=N_POINTS)
+    cfg = dataclasses.replace(cfg, **TWO_LEVEL)
+    kw = dict(use_saliency_weights=True, refine_iters=pretrained.REGISTRY["kitti25"]
+              ["refine_iters"])
+    plain = Registrar(dataclasses.replace(cfg, use_pallas_onehot_gather=False), variables, dev,
+                      **kw)
+    k4 = Registrar(cfg, variables, dev, **kw)
+    _, _, _, counts = run_engine(torch, plain, pairs[:4], "kitti25 two-level, plain gather",
+                                 total, k1_per_call=LAUNCHES_PER_CALL)
+    if counts["k4"] or counts["k5"]:
+        fail("the plain two-level gather launched K4 or K5")
+    src, tgt = pairs[0][0], pairs[0][1]
+    out_p, out_k = plain(src, tgt), k4(src, tgt)
+    same = torch.equal(out_p.R, out_k.R) and torch.equal(out_p.t, out_k.t)
+    print(f"kitti25 two-level pair 0, torch.gather vs K4: pose "
+          f"{'bit-identical' if same else 'DIFFERENT'}")
+    if not same:
+        fail("the plain two-level gather's pose differs from the K4 path's")
+    engine_timing(torch, plain, src, tgt, "kitti25 two-level, plain gather")
+
+
+def msg_fp(torch, dev, clouds, total: dict) -> None:
+    """Phase 21, MSG / FP: SetAbstractionMSG on [2, 10 000, 3] to 1024
+    centroids (3 scales), then FeaturePropagation back to the 10 000 points,
+    random weights from a seed; kernel path against plain path."""
+    from deepvcp_tpu_torch.models import FeaturePropagation, SetAbstractionMSG
+    from deepvcp_tpu_torch.ops.kernels import reference_path
+
+    torch.manual_seed(21)
+    msg = SetAbstractionMSG(MSG_NPOINT, (0.05, 0.1, 0.2), (16, 32, 64),
+                            ((16, 16, 32), (32, 32, 64), (32, 48, 64))).to(dev).eval()
+    fp = FeaturePropagation((128, 64), in_features=32 + 64 + 64).to(dev).eval()
+
+    def run():
+        with torch.no_grad():
+            new_xyz, feats = msg(clouds, None)
+            return new_xyz, feats, fp(clouds, new_xyz, None, feats)
+
+    got, counts = counted_all(torch, run)
+    add_counts(total, counts)
+    with reference_path():
+        want = run()
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    print(f"SetAbstractionMSG {tuple(clouds.shape)} -> {tuple(got[1].shape)}, "
+          f"FeaturePropagation -> {tuple(got[2].shape)}: K3 launches {counts['k3']}; kernel vs "
+          f"plain path {'identical' if same else 'DIFFERENT'}")
+    if counts["k3"] != 1 or not same or not all(torch.isfinite(x).all() for x in got):
+        fail("MSG / FP: expected 1 K3 launch and identical, finite outputs on both paths")
+    ms = host_median_ms(torch, run, reps=5)
+    print(f"MSG + FP per call: {ms:.3f} ms (median of 5 synced calls)")
+
+
+def windowed_training(torch, dev, total: dict) -> None:
+    """Phase 21, windowed training: 2 Trainer steps of model_q5w at N = 2048
+    under its campaign recipe (residual_tcfg,
+    scripts/campaign_r4_common.py:85) on the first 2 of its training clouds."""
+    import numpy as np
+
+    from deepvcp_tpu_torch import convert, pretrained
+    from deepvcp_tpu_torch.data import SyntheticDataset, batch_iterator
+    from deepvcp_tpu_torch.train import MetricsLogger, TrainConfig, Trainer
+
+    records = []
+
+    class Records(MetricsLogger):
+        def log(self, record):
+            records.append(record)
+
+    tcfg = TrainConfig(batch_size=1, learning_rate=1e-3, vcp_loss_weight=1.0,
+                       lr_schedule="cosine", warmup_steps=100, total_steps=768,
+                       use_saliency_weights=True, init_translation="gt",
+                       init_rot_jitter_deg=12.0, init_trans_jitter=0.5, log_every=1)
+    name = "campaign_r4b-q5w"
+    trainer = Trainer(pretrained.campaign_config(name), tcfg, device=dev,
+                      metrics=Records(None, echo=False))
+    trainer.setup()
+    trainer.model.load_state_dict(convert.flax_to_torch(pretrained.load_variables(name)),
+                                  strict=True)
+    data = SyntheticDataset(num_clouds=2, num_points=2048, extent=1.0, seed=0)
+    batches = list(batch_iterator(data, 1, epoch=0, seed=0))
+    params0 = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+
+    def steps():
+        trainer.train_epoch(iter(batches[:1]), epoch=0)
+        torch.cuda.synchronize()
+        moved0 = sum(not torch.equal(p, params0[n]) for n, p in trainer.model.named_parameters())
+        trainer.train_epoch(iter(batches[1:]), epoch=0)
+        return moved0
+
+    moved0, counts = counted_all(torch, steps)
+    add_counts(total, counts)
+    moved = sum(not torch.equal(p, params0[n]) for n, p in trainer.model.named_parameters())
+    logged = [r for r in records if r["kind"] == "train"]
+    for i, r in enumerate(logged):
+        print(f"model_q5w windowed train step {i}: loss {r['loss']:.5f}, grad_norm "
+              f"{r['grad_norm']:.4f}")
+    print(f"model_q5w windowed training: parameters changed by step 0 (warmup lr 0) {moved0}, "
+          f"after step 1 {moved} of {len(params0)}; launches " + ", ".join(
+              f"{k.upper()} {v}" for k, v in counts.items()))
+    if len(logged) != 2 or not all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+                                   for r in logged):
+        fail("windowed training: expected 2 steps with finite loss and grad norm")
+    if moved0 or not moved:
+        fail("windowed training: step 0 changed the parameters, or step 1 changed none")
+
+
+def save_vis_cli(torch, dev, total: dict) -> None:
+    """Phase 21, --save-vis: the training CLI with --eval-only --save-vis on
+    a Trainer checkpoint of kitti25-rot's weights, on the card."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from deepvcp_tpu_torch import convert, pretrained
+    from deepvcp_tpu_torch.data import batch_iterator
+    from deepvcp_tpu_torch.ops import apply_rigid
+    from deepvcp_tpu_torch.registration import Registrar
+    from deepvcp_tpu_torch.train import TrainConfig, Trainer
+    from deepvcp_tpu_torch.train.cli import build_parser, configs_from_args, main, make_dataset
+    from deepvcp_tpu_torch.utils.vis import load_cloud_pairs
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(pretrained.config("kitti25-rot", N_POINTS),
+                          TrainConfig(checkpoint_dir=os.path.join(tmp, "ck")), device=dev)
+        trainer.setup()
+        trainer.model.load_state_dict(
+            convert.flax_to_torch(pretrained.load_variables("kitti25-rot")))
+        ckpt = trainer.save_checkpoint("kitti25-rot")
+        vis = os.path.join(tmp, "vis")
+        argv = ["--device", dev.type, "-d", "synthetic", "--num-points", str(N_POINTS),
+                "--metrics-path", os.path.join(tmp, "m.jsonl"), "--eval-only", "-r", ckpt]
+        with contextlib.redirect_stdout(io.StringIO()), warnings.catch_warnings():
+            warnings.simplefilter("ignore")   # the CLI's config is not the checkpoint's
+            _, counts = counted_all(torch, lambda: main(argv + ["--save-vis", vis]))
+        add_counts(total, counts)
+        args = build_parser().parse_args(argv)
+        model_cfg, train_cfg = configs_from_args(args)
+        test = make_dataset(args, model_cfg, "test")
+        files = sorted(os.listdir(vis))
+        want_files = sorted([f"{i}_{k}.npy" for i in range(len(test)) for k in ("gt", "pred")]
+                            + ["vis.pcd"])
+        src, tgt, _, _ = next(batch_iterator(test, 1, epoch=0, seed=train_cfg.seed + 1,
+                                             shuffle=False))
+        state = torch.load(ckpt, map_location=dev, weights_only=True)["model"]
+        reg = Registrar(model_cfg, state, dev)
+        src_t = torch.from_numpy(src).to(dev)
+        r = reg(src_t, torch.from_numpy(tgt).to(dev))
+        pred = apply_rigid(src_t[..., :3], r.R, r.t)[0].cpu().numpy()
+        gt0, pred0 = load_cloud_pairs(vis)[0]
+        same = np.array_equal(pred0, pred) and np.array_equal(gt0, tgt[0, :, :3])
+        print(f"--save-vis: {len(files)} files for {len(test)} test pairs ({files[0]} ... "
+              f"{files[-1]}); pair 0 read back {'equals' if same else 'DIFFERS FROM'} the "
+              f"registrar's transformed source; launches " + ", ".join(
+                  f"{k.upper()} {v}" for k, v in counts.items()))
+        if files != want_files or not same:
+            fail("--save-vis wrote the wrong files, or pair 0 is not the registrar's")
+
+
+def engines_phase(torch, dev, pairs, exact: dict) -> dict:
+    """Phase 21: the non-default engines and paths. Returns each kernel's
+    launches in their main-path runs."""
+    t0 = time.perf_counter()
+    total = {}
+    gather = gather_engines(torch, dev, total)
+    kp = keypoints_branch(torch, dev, total)
+    sb = static_band(torch, dev, pairs, total, exact)
+    bf = bf16_path(torch, dev, pairs, total, exact)
+    plain_two_level(torch, dev, pairs, total)
+    msg_fp(torch, dev, torch.cat([p[0] for p in kp["pairs"][:2]]), total)
+    windowed_training(torch, dev, total)
+    save_vis_cli(torch, dev, total)
+    print("phase 21 latency per call (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in (
+        ("windowed N=2048", gather["latency"]["windowed"]),
+        ("dense N=2048", gather["latency"]["dense"]), ("keypoints branch", kp["latency"]),
+        ("static band", sb["latency"]), ("bf16", bf["latency"]),
+        ("exact slab (phase 4)", exact["latency"]))))
+    print(f"phase 21 launches: " + ", ".join(f"{k.upper()} {v}" for k, v in total.items())
+          + f"; {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main() -> None:
     started = time.perf_counter()
     # cuBLAS reads this when it starts; the train-path comparison (phase 9)
@@ -1889,7 +2434,8 @@ def main() -> None:
         fail(f"expected {LAUNCHES_PER_CALL} K1 launches per call, got {launches / N_PAIRS:g}")
 
     # 7. timing (not gated)
-    registrar_timing(torch, reg, src, tgt, "kitti25-rot", reps=20, plain_reps=10)
+    exact = {"rre": mean_rre, "rte": mean_rte, "latency": registrar_timing(
+        torch, reg, src, tgt, "kitti25-rot", reps=20, plain_reps=10)}
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
     # 8-10. the training path
@@ -1905,6 +2451,10 @@ def main() -> None:
 
     # 20. odometry, the CLI, stream and routing
     odo = odometry_phase(torch, dev, reg, pairs, card)
+
+    # 21. the engines: windowed, dense, keypoints branch, static band, bf16,
+    # plain two-level gather, MSG / FP, windowed training, --save-vis
+    eng = engines_phase(torch, dev, pairs, exact)
 
     (k1_bound, k1_by), (k2_bound, k2_by) = band["k1_bound"], band["k2_bound"]
     print(f"bounds at the 3 serving SA shapes: K1 {k1_bound:.5f} ms ({k1_by}), K2 {k2_bound:.5f} "
@@ -1923,14 +2473,14 @@ def main() -> None:
     # pass, or one FE backward), K3 sums at the 2 shapes of one init call,
     # K4 and K5 at the two-level path's shapes (library_ms: torch.gather,
     # torch.scatter_add); launches: the main-path runs' (serving, training,
-    # global, two-level serving and training, odometry)
+    # global, two-level serving and training, odometry, the engines)
     print(json.dumps({"kernels": [{
         "name": "banded_masked_max",
         "route": "cuda",
         "source": "deepvcp_tpu_torch/csrc/band_max.cu",
         "replaces": "deepvcp_tpu/ops/pallas/band_max_kernel.py:148",
         "launches": (launches + train["k1"] + glob["k1"] + two["k1"] + two_train["k1"]
-                     + odo["k1"]),
+                     + odo["k1"] + eng["k1"]),
         "max_abs_err": band["k1_err"],
         "ms": band["k1_ms"],
         "plain_ms": band["k1_plain_ms"],
@@ -1942,7 +2492,7 @@ def main() -> None:
         "route": "cuda",
         "source": "deepvcp_tpu_torch/csrc/band_max_grad.cu",
         "replaces": "deepvcp_tpu/ops/pallas/band_max_kernel.py:267",
-        "launches": train["k2"] + two_train["k2"],
+        "launches": train["k2"] + two_train["k2"] + eng["k2"],
         "max_abs_err": band["k2_err"],
         "ms": band["k2_ms"],
         "plain_ms": band["k2_plain_ms"],
@@ -1954,7 +2504,7 @@ def main() -> None:
         "route": "cuda",
         "source": "deepvcp_tpu_torch/csrc/fps.cu",
         "replaces": "deepvcp_tpu/ops/pallas/fps_kernel.py:81",
-        "launches": glob["k3"],
+        "launches": glob["k3"] + eng["k3"],
         "max_abs_err": k3["max_abs_err"],
         "ms": k3["ms"],
         "plain_ms": k3["plain_ms"],
@@ -1970,8 +2520,8 @@ def main() -> None:
         **{key: two[k][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                         "library_ms")},
     } for name, k, line, launches_ in (
-        ("onehot_gather", "K4", 74, two["k4"] + two_train["k4"]),
-        ("onehot_scatter_add", "K5", 156, two_train["k5"]))]}))
+        ("onehot_gather", "K4", 74, two["k4"] + two_train["k4"] + eng["k4"]),
+        ("onehot_scatter_add", "K5", 156, two_train["k5"] + eng["k5"]))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -8,6 +8,11 @@ plus two layout changes:
     batch_stats mean / var               -> running_mean / running_var
     bias0 (banded SA first-layer bias)   -> bias0
 
+The gather-path SA stages of the windowed and dense engines
+(models/layers.py::SetAbstraction) carry sa*/proj_xyz/{kernel,bias},
+sa*/proj_feat/kernel, sa*/dense*/{kernel,bias} and sa*/bn*, and the MSG / FP
+stages b{i}_dense{j}, b{i}_bn{j}, dense{j}, bn{j}: the same rules cover them.
+
 and the Adam state of an optax chain maps onto torch.optim.Adam's with the
 same layout changes (optax_adam_to_torch).
 """

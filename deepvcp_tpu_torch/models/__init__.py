@@ -1,3 +1,8 @@
-"""PyTorch modules of the port."""
+"""PyTorch modules of the port (the exports of deepvcp_tpu/models)."""
 
 from deepvcp_tpu_torch.models.deepvcp import DeepVCP, Encoding  # noqa: F401
+from deepvcp_tpu_torch.models.extra_layers import (  # noqa: F401
+    FeaturePropagation, SetAbstractionMSG)
+from deepvcp_tpu_torch.models.fused_sa import BandedSetAbstraction  # noqa: F401
+from deepvcp_tpu_torch.models.layers import (  # noqa: F401
+    CPG, FeatEmbedding, FeatureExtraction, SetAbstraction, WeightingLayer)

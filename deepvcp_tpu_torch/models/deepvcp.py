@@ -1,9 +1,13 @@
-"""DeepVCP forward (port of deepvcp_tpu/models/deepvcp.py): top-K or
+"""DeepVCP forward (port of deepvcp_tpu/models/deepvcp.py): features from
+the banded, windowed or dense FE engine (models/layers.py), top-K or
 salient-FPS keypoints, source neighbourhoods from the full source cloud
-(D13), the candidates' target neighbourhoods from the flat candidate KNN and
-the fused [N, 3+F] gather, or from the two-level grouping
-(`tgt_knn="two_level"`, ops/two_level.py, kernels K4/K5), and derotated
-target neighbourhoods (D14).
+(D13) or, with dfe_src_neighbors="keypoints", among the keypoints (the
+reference's), the candidates' target neighbourhoods from the flat candidate
+KNN and the fused [N, 3+F] gather, or from the two-level grouping
+(`tgt_knn="two_level"`, ops/two_level.py, kernels K4/K5 or, with
+use_pallas_onehot_gather=False, torch.gather), and derotated target
+neighbourhoods (D14). compute_dtype="bfloat16" runs the MLPs, the DFE and
+the CPG in bf16 with f32 parameters, as flax's dtype=bf16 modules do.
 
 The forward is split at the warm start. `encode` is everything that does not
 depend on the pose (both FE passes, saliency, keypoints and the source
@@ -21,9 +25,10 @@ import torch
 from torch import nn
 
 from deepvcp_tpu_torch.config import DeepVCPConfig
-from deepvcp_tpu_torch.models.layers import CPG, FeatEmbedding, FeatureExtraction, WeightingLayer
+from deepvcp_tpu_torch.models.layers import (
+    CPG, FeatEmbedding, FeatureExtraction, WeightingLayer, compute_dtype)
 from deepvcp_tpu_torch.ops import (
-    apply_rigid, approx_knn, farthest_point_sample, index_points, knn, voxelize)
+    apply_rigid, approx_knn, farthest_point_sample, group_neighbors, index_points, knn, voxelize)
 from deepvcp_tpu_torch.ops.two_level import two_level_rows
 
 _EPS = 1e-8
@@ -41,20 +46,6 @@ class Encoding(NamedTuple):
     tgt_table: torch.Tensor          # [B, N, 3+F]: xyz and features, one gather
 
 
-def _unsupported(cfg: DeepVCPConfig) -> str:
-    """The first non-default branch cfg selects that the port lacks, with
-    the ROADMAP item that brings it ('' when all are ported)."""
-    if cfg.dfe_src_neighbors != "cloud":
-        return "dfe_src_neighbors='keypoints' (ROADMAP M10)"
-    if not cfg.use_pallas_band_max:
-        return "use_pallas_band_max=False static-band pooling (ROADMAP M10)"
-    if cfg.use_two_level_tgt_knn and not cfg.use_pallas_onehot_gather:
-        return "use_pallas_onehot_gather=False plain two-level gather (ROADMAP M10)"
-    if cfg.compute_dtype != "float32":
-        return f"compute_dtype={cfg.compute_dtype!r} (ROADMAP M10)"
-    return ""
-
-
 class DeepVCP(nn.Module):
     """forward(src, tgt, R_init, t_init) -> (keypoints [B,K,3], vcp [B,K,3], aux).
 
@@ -68,14 +59,13 @@ class DeepVCP(nn.Module):
     def __init__(self, cfg: DeepVCPConfig):
         super().__init__()
         cfg = cfg.resolve()
-        missing = _unsupported(cfg)
-        if missing:
-            raise NotImplementedError(f"not ported yet: {missing}")
         self.cfg = cfg
+        dt = compute_dtype(cfg)
         self.fe = FeatureExtraction(cfg)
-        self.wl = WeightingLayer(cfg.wl_mlp, cfg.feat_dim)
-        self.dfe = FeatEmbedding(cfg.dfe_mlp, 3 + cfg.feat_dim, activation=cfg.dfe_activation)
-        self.cpg = CPG(cfg.cpg_channels, cfg.grid_size, cfg.dfe_mlp[-1])
+        self.wl = WeightingLayer(cfg.wl_mlp, cfg.feat_dim, dtype=dt)
+        self.dfe = FeatEmbedding(cfg.dfe_mlp, 3 + cfg.feat_dim, activation=cfg.dfe_activation,
+                                 dtype=dt)
+        self.cpg = CPG(cfg.cpg_channels, cfg.grid_size, cfg.dfe_mlp[-1], dtype=dt)
 
     def _knn(self, ref: torch.Tensor, query: torch.Tensor, chunked: bool):
         cfg = self.cfg
@@ -108,20 +98,31 @@ class DeepVCP(nn.Module):
         else:
             kp_saliency, kp_idx = torch.topk(saliency, K, dim=-1)
         kp_xyz = index_points(src_xyz, kp_idx)
-        # D13: source neighbourhoods from the keypoint's ns-NN in the full
-        # source cloud, the same construction as the target branch
-        _, nb_idx = self._knn(src_xyz, kp_xyz, chunked=False)
-        snb = index_points(torch.cat([src_xyz, src_feat], dim=-1), nb_idx)
-        local_xyz = snb[..., :3] - kp_xyz[:, :, None, :]
+        if cfg.dfe_src_neighbors == "cloud":
+            # D13: source neighbourhoods from the keypoint's ns-NN in the
+            # full source cloud, the same construction as the target branch
+            _, nb_idx = self._knn(src_xyz, kp_xyz, chunked=False)
+            snb = index_points(torch.cat([src_xyz, src_feat.to(src_xyz.dtype)], dim=-1), nb_idx)
+            local_xyz = snb[..., :3] - kp_xyz[:, :, None, :]
+            nb_feat = snb[..., 3:]
+        else:
+            # the reference's: keypoints grouped among themselves within
+            # group_radius, their own features gathered (D8), a zero-hit
+            # row masked (self-inclusion makes it impossible here)
+            _, local_xyz, nb_idx, nb_count = group_neighbors(
+                cfg.group_radius, cfg.num_neighbors, kp_xyz, kp_xyz, return_count=True)
+            kp_feat = index_points(src_feat, kp_idx)
+            nb_feat = torch.where((nb_count > 0)[..., None, None],
+                                  index_points(kp_feat, nb_idx), 0.0)
         d_src = torch.linalg.norm(local_xyz, dim=-1)
         w_src = d_src / (torch.sum(d_src, dim=-1, keepdim=True) + _EPS)
-        src_cat = torch.cat([local_xyz, snb[..., 3:] * w_src[..., None]], dim=-1)
+        src_cat = torch.cat([local_xyz, nb_feat * w_src[..., None]], dim=-1)
         tgt_xyz = tgt[..., :3]
         tgt_feat = self.features(tgt)
         return Encoding(
             keypoints=kp_xyz, keypoint_idx=kp_idx, keypoint_saliency=kp_saliency,
             saliency=saliency, src_descriptors=self.dfe(src_cat),
-            tgt_xyz=tgt_xyz, tgt_table=torch.cat([tgt_xyz, tgt_feat], dim=-1))
+            tgt_xyz=tgt_xyz, tgt_table=torch.cat([tgt_xyz, tgt_feat.to(tgt_xyz.dtype)], dim=-1))
 
     def candidates(self, enc: Encoding, R_init: torch.Tensor,
                    t_init: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -138,6 +139,7 @@ class DeepVCP(nn.Module):
         dtype: keypoint-local coordinates stay small (as JAX)."""
         cfg = self.cfg
         return dict(table_size=cfg.tgt_knn_table, select_dtype=cfg.knn_select_dtype,
+                    use_kernel=cfg.use_pallas_onehot_gather,
                     center_select_dtype=cfg.knn_select_dtype_effective)
 
     def candidate_neighbors(self, enc: Encoding, kp_warm: torch.Tensor,

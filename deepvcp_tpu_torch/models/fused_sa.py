@@ -7,22 +7,37 @@ first layer is (masked max of u over the in-radius slab) - p_q + b0: the
 pair tensor is never built. The max is kernel K1 and its backward kernel K2
 (ops/kernels/band_max.py), over the exact in-radius set. The rest of the MLP
 runs per point.
+
+`use_pallas_band_max=False` selects the static band instead (the JAX
+package's `xla_banded_max`): each point pools over the in-radius points of a
+fixed band of ceil(window / tile) tiles on each side of its own tile, torus
+rolled, with the JAX formula's backward. It has no kernel: plain PyTorch on
+the card too, chunked over tiles so that no [B, T, w, band, C] block is
+built. It differs from the exact slab wherever the band under-covers it.
+
+Under compute_dtype="bfloat16" the projections and the MLP tail run in bf16
+(flax's Dense and BatchNorm with dtype=bf16) and the pool takes f32 copies of
+the bf16 values and casts its result back, as the TPU dispatch does.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 from torch.autograd.function import once_differentiable
 from torch.nn import functional as F
 
 from deepvcp_tpu_torch.config import SALayerConfig
-from deepvcp_tpu_torch.ops.kernels.band_max import banded_masked_max, banded_masked_max_grad
+from deepvcp_tpu_torch.ops.kernels.band_max import (
+    NEG, banded_masked_max, banded_masked_max_grad)
 
 BN_EPS = 1e-5        # flax.linen.BatchNorm's defaults
 BN_MOMENTUM = 0.99   # flax's: running = 0.99 * running + 0.01 * batch
+# elements of one [B, tiles, w, w, C] block of the static band
+_BAND_BLOCK = 1 << 25
 
 
 class _BandedMaxPool(torch.autograd.Function):
@@ -54,40 +69,181 @@ def banded_max_pool(sorted_xyz: torch.Tensor, u: torch.Tensor, radius: float) ->
     return _BandedMaxPool.apply(sorted_xyz.contiguous(), u.contiguous(), float(radius))
 
 
-def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor, training: bool) -> torch.Tensor:
-    """flax.linen.BatchNorm over the last axis.
+def pad_to_tiles(x: torch.Tensor, tile: int, pad_value: float) -> torch.Tensor:
+    """[B, N, C] -> [B, Np, C], Np the next multiple of tile."""
+    pad = (-x.shape[1]) % tile
+    return x if pad == 0 else F.pad(x, (0, 0, 0, pad), value=pad_value)
+
+
+def band_of(tiles: torch.Tensor, half_tiles: int) -> torch.Tensor:
+    """[B, T, w, C] -> [B, T, (2 * half_tiles + 1) * w, C]: each tile's band,
+    the tiles `half_tiles` before it to `half_tiles` after it in the JAX
+    order (torus roll by +half_tiles first). The static band pools over it;
+    static_band_max builds it a few tiles at a time."""
+    return torch.cat([torch.roll(tiles, s, dims=1) for s in _shifts(half_tiles)], dim=2)
+
+
+def _shifts(half_tiles: int) -> range:
+    return range(half_tiles, -half_tiles - 1, -1)
+
+
+def _band_geometry(sorted_xyz: torch.Tensor, C: int, window: int, tile: int):
+    """(tile width w, tiles T, tiles a side of the band, tiles per block)."""
+    B, N, _ = sorted_xyz.shape
+    w = min(tile, N)
+    T = -(-N // w)
+    per_block = max(1, _BAND_BLOCK // (B * w * w * max(C, 1)))
+    return w, T, -(-window // w), per_block
+
+
+def _tile_d2(q: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[B, t, w, 3] x [B, t, w, 3] -> [B, t, w, w]: ((dx*dx)+(dy*dy))+(dz*dz),
+    elementwise f32, the same bits on every device."""
+    d = q[:, :, :, None, :] - b[:, :, None, :, :]
+    dx, dy, dz = d.unbind(-1)
+    return (dx * dx + dy * dy) + dz * dz
+
+
+@torch.no_grad()
+def static_band_max(sorted_xyz: torch.Tensor, u: torch.Tensor, radius: float,
+                    window: int, tile: int) -> torch.Tensor:
+    """The JAX package's xla_banded_max: for each point of a sorted cloud,
+    the per-channel max of u over the in-radius points of its band (see
+    band_of); -1e30 where none. sorted_xyz [B, N, 3], u [B, N, C] f32 ->
+    [B, N, C]. Pads with points at 1e7, as JAX, and pools the band a block
+    of tiles and one band tile at a time (a max: any order is exact)."""
+    B, N, _ = sorted_xyz.shape
+    C = u.shape[-1]
+    w, T, half, per_block = _band_geometry(sorted_xyz, C, window, tile)
+    r2 = float(np.float32(radius * radius))
+    q = pad_to_tiles(sorted_xyz, w, 1e7).reshape(B, T, w, 3)
+    ut = pad_to_tiles(u, w, 0.0).reshape(B, T, w, C)
+    out = torch.full_like(ut, NEG)
+    tiles = torch.arange(T, device=u.device)
+    for t0 in range(0, T, per_block):
+        t = tiles[t0:t0 + per_block]
+        acc = out[:, t0:t0 + per_block]
+        for s in _shifts(half):
+            src = (t - s) % T
+            inr = _tile_d2(q[:, t], q[:, src]) <= r2
+            acc = torch.maximum(acc, torch.where(inr[..., None], ut[:, src, None], NEG).amax(dim=3))
+        out[:, t0:t0 + per_block] = acc
+    return out.reshape(B, T * w, C)[:, :N]
+
+
+@torch.no_grad()
+def static_band_max_grad(sorted_xyz: torch.Tensor, u: torch.Tensor, out: torch.Tensor,
+                         g: torch.Tensor, radius: float, window: int, tile: int) -> torch.Tensor:
+    """The JAX package's static-band backward (fused_sa.py::_bmp_bwd on its
+    CPU path): grad_u[n, c] = sum over the queries q of n's band of
+    g[q, c] * [in radius] * [u[n, c] == out[q, c]]. A band that holds a tile
+    more than once counts its queries that many times, as the JAX formula
+    does (at N <= tile the band is 2 * half + 1 copies of the one tile)."""
+    B, N, _ = sorted_xyz.shape
+    C = u.shape[-1]
+    w, T, half, per_block = _band_geometry(sorted_xyz, C, window, tile)
+    r2 = float(np.float32(radius * radius))
+    n_xyz = pad_to_tiles(sorted_xyz, w, 1e7).reshape(B, T, w, 3)
+    ut, ot, gt = (pad_to_tiles(x, w, 0.0).reshape(B, T, w, C) for x in (u, out, g))
+    grad = torch.zeros_like(ut)
+    tiles = torch.arange(T, device=u.device)
+    for t0 in range(0, T, per_block):
+        t = tiles[t0:t0 + per_block]
+        acc = grad[:, t0:t0 + per_block]
+        for s in _shifts(half):
+            src = (t - s) % T
+            inr = _tile_d2(n_xyz[:, t], n_xyz[:, src]) <= r2
+            took = inr[..., None] & (ut[:, t, :, None] == ot[:, src, None])
+            acc = acc + torch.where(took, gt[:, src, None], 0.0).sum(dim=3)
+        grad[:, t0:t0 + per_block] = acc
+    return grad.reshape(B, T * w, C)[:, :N]
+
+
+class _StaticBandMaxPool(torch.autograd.Function):
+    """The static band forward with the JAX formula's backward."""
+
+    @staticmethod
+    def forward(ctx, sorted_xyz, u, radius, window, tile):
+        out = static_band_max(sorted_xyz, u, radius, window, tile)
+        ctx.save_for_backward(sorted_xyz, u, out)
+        ctx.args = (radius, window, tile)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        sorted_xyz, u, out = ctx.saved_tensors
+        grad_u = None
+        if ctx.needs_input_grad[1]:
+            grad_u = static_band_max_grad(sorted_xyz, u, out, g, *ctx.args)
+        return None, grad_u, None, None, None
+
+
+def static_band_max_pool(sorted_xyz: torch.Tensor, u: torch.Tensor, radius: float,
+                         window: int, tile: int) -> torch.Tensor:
+    """Differentiable static-band masked max: [B, N, 3], [B, N, C] -> [B, N, C]."""
+    return _StaticBandMaxPool.apply(sorted_xyz, u, float(radius), int(window), int(tile))
+
+
+def linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax's Dense(dtype=...). float32: the layer. bfloat16: input, kernel and
+    bias rounded to bf16, the product rounded to bf16, then the bias added in
+    bf16 (two roundings, as XLA does it); the parameters stay f32."""
+    if dtype == torch.float32:
+        return layer(x)
+    y = F.linear(x.to(dtype), layer.weight.to(dtype))
+    return y if layer.bias is None else y + layer.bias.to(dtype)
+
+
+def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor, training: bool,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """flax.linen.BatchNorm(dtype=...) over the last axis: statistics and the
+    normalisation in f32, the result in `dtype`.
 
     Eval: the running statistics. Training: the batch mean and the biased
     batch variance over every other axis (flax's E[x^2] - E[x]^2, clipped
     at 0), and the running statistics move as running = 0.99 * running +
     0.01 * batch, biased variance included. F.batch_norm(training=True) would
     fold the unbiased variance into running_var, so the update is written
-    out here."""
+    out here. dtype float32 keeps the input's own (at least f32) precision."""
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
+    out = x.dtype if dtype == torch.float32 else dtype
     if not training:
         shape = x.shape
         y = F.batch_norm(x.reshape(-1, shape[-1]), bn.running_mean, bn.running_var,
                          bn.weight, bn.bias, training=False, eps=BN_EPS)
-        return y.reshape(shape)
+        return y.reshape(shape).to(out)
     axes = tuple(range(x.dim() - 1))
     mean = x.mean(dim=axes)
     var = torch.clamp_min((x * x).mean(dim=axes) - mean * mean, 0.0)
     with torch.no_grad():
         bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1.0 - BN_MOMENTUM) * mean)
         bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1.0 - BN_MOMENTUM) * var)
-    return (x - mean) * (torch.rsqrt(var + BN_EPS) * bn.weight) + bn.bias
+    return ((x - mean) * (torch.rsqrt(var + BN_EPS) * bn.weight) + bn.bias).to(out)
 
 
 class BandedSetAbstraction(nn.Module):
     """One banded SA stage on a sorted cloud: pooled first projection, then
     BN and the per-point (Dense -> BN -> ReLU) tail. Parameter names follow
     the flax module (proj_xyz, proj_feat, bias0, bn{i}, dense{i}). BN runs
-    on batch statistics and updates its running ones in `train()` mode."""
+    on batch statistics and updates its running ones in `train()` mode.
+
+    `use_kernel` (use_pallas_band_max) pools over the exact slab through
+    K1/K2; otherwise over the static band of `window` points a side in
+    tiles of `tile` (the JAX package's band_tile). `dtype` is the compute
+    dtype."""
 
     def __init__(self, layer: SALayerConfig, in_features: Optional[int],
-                 use_batchnorm: bool = True):
+                 use_batchnorm: bool = True, use_kernel: bool = True,
+                 window: Optional[int] = None, tile: int = 256,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.radius = float(layer.radius)
         self.use_batchnorm = use_batchnorm
+        self.use_kernel = use_kernel
+        if not use_kernel and window is None:
+            raise ValueError("the static band needs a window")
+        self.window, self.tile, self.dtype = window, tile, dtype
         c0 = layer.mlp[0]
         self.proj_xyz = nn.Linear(3, c0, bias=False)
         self.proj_feat = nn.Linear(in_features, c0, bias=False) if in_features else None
@@ -102,18 +258,25 @@ class BandedSetAbstraction(nn.Module):
     def _norm(self, x: torch.Tensor, i: int) -> torch.Tensor:
         if not self.use_batchnorm:
             return x
-        return batch_norm(getattr(self, f"bn{i}"), x, self.training)
+        return batch_norm(getattr(self, f"bn{i}"), x, self.training, self.dtype)
 
     def forward(self, sorted_xyz: torch.Tensor,
                 features: Optional[torch.Tensor]) -> torch.Tensor:
         """sorted_xyz [B, N, 3], features [B, N, D] or None -> [B, N, mlp[-1]]
         (sorted order)."""
-        p = self.proj_xyz(sorted_xyz)
-        u = p if features is None else p + self.proj_feat(features)
-        max_u = banded_max_pool(sorted_xyz, u, self.radius)
-        # relu(max) == max(relu); relu also clamps an empty row's -1e30
-        h = torch.relu(max_u - p + self.bias0)
+        dt = self.dtype
+        xyz = sorted_xyz.to(dt)
+        p = linear(self.proj_xyz, xyz, dt)
+        u = p if features is None else p + linear(self.proj_feat, features, dt)
+        if self.use_kernel:
+            max_u = banded_max_pool(xyz.float(), u.float(), self.radius)
+        else:
+            max_u = static_band_max_pool(xyz.float(), u.float(), self.radius, self.window,
+                                         self.tile)
+        # relu(max) == max(relu); relu also clamps an empty row's -1e30. In
+        # bf16 the f32 bias0 promotes the sum to f32, as in flax
+        h = torch.relu(max_u.to(dt) - p + self.bias0)
         h = self._norm(h, 0)
         for i in range(1, self.n_dense + 1):
-            h = torch.relu(self._norm(getattr(self, f"dense{i}")(h), i))
+            h = torch.relu(self._norm(linear(getattr(self, f"dense{i}"), h, dt), i))
         return h

@@ -27,7 +27,11 @@ def map_query_chunks(
 ):
     """Apply `fn` (returning a tuple of tensors) over blocks of `chunk`
     queries along `dim` and concatenate each result along the same dim.
-    Unlike the JAX version no padding is needed: eager blocks may be ragged."""
+    Unlike the JAX version no padding is needed: eager blocks may be ragged.
+    As in JAX, `dim` counts from the front of `queries` for the results too,
+    so a result with fewer trailing axes (a per-query count) is joined on
+    the same query axis."""
+    dim = dim % queries.dim()
     if queries.shape[dim] <= chunk:
         return fn(queries)
     outs = [fn(q) for q in torch.split(queries, chunk, dim=dim)]

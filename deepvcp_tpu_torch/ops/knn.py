@@ -59,3 +59,16 @@ def approx_knn(ref: torch.Tensor, query: torch.Tensor, k: int,
     if chunk is None:
         return run(query)
     return map_query_chunks(run, query, chunk)
+
+
+def nearest_neighbor_dist(ref: torch.Tensor, query: torch.Tensor,
+                          chunk: Optional[int] = None) -> torch.Tensor:
+    """Squared distance from each query [B, M, 3] to its nearest point of
+    ref [B, N, 3] -> [B, M]."""
+
+    def run(q):
+        return (torch.amin(square_distance(q, ref), dim=-1),)
+
+    if chunk is None:
+        return run(query)[0]
+    return map_query_chunks(run, query, chunk)[0]

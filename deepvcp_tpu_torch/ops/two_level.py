@@ -12,7 +12,9 @@ neighbours come from one small neighbourhood. Two levels use that:
      table, selected in keypoint-local coordinates (|values| bounded by the
      table's radius, so a bf16 selection tile is safe at any absolute cloud
      scale), then gathered from the table by kernel K4
-     (ops/kernels/onehot_gather.py), whose backward is K5.
+     (ops/kernels/onehot_gather.py), whose backward is K5, or, with
+     use_kernel=False (use_pallas_onehot_gather=False, the JAX
+     `_onehot_gather_xla`), by torch.gather with autograd's backward.
 
 A candidate's true k-NN is found iff it lies in its keypoint's top-T ball;
 tests/test_torch_two_level.py and chip_smoke.py measure the recall. The
@@ -62,25 +64,32 @@ def table_neighbors(table_xyz: torch.Tensor, centers: torch.Tensor, cand: torch.
     return torch.topk(d2, k, dim=-1, largest=False).indices
 
 
-def gather_table_rows(table: torch.Tensor, l_idx: torch.Tensor) -> torch.Tensor:
+def gather_table_rows(table: torch.Tensor, l_idx: torch.Tensor,
+                      use_kernel: bool = True) -> torch.Tensor:
     """The winning rows: table [B, K, T, D] f32, l_idx [B, K, C, k] ->
-    [B, K, C, k, D], through K4 (K5 backward)."""
+    [B, K, C, k, D], through K4 (K5 backward), or torch.gather."""
     B, K, C, k = l_idx.shape
-    out = onehot_gather_vjp(table, l_idx.reshape(B, K, C * k))
+    flat = l_idx.reshape(B, K, C * k)
+    if use_kernel:
+        out = onehot_gather_vjp(table, flat)
+    else:
+        out = torch.gather(table, 2, flat[..., None].expand(-1, -1, -1, table.shape[-1]))
     return out.reshape(B, K, C, k, -1)
 
 
 def two_level_rows(tgt_xyz: torch.Tensor, rows: torch.Tensor, centers: torch.Tensor,
                    cand: torch.Tensor, k: int, table_size: int = 512,
                    select_dtype: Optional[str] = None,
-                   center_select_dtype: Optional[str] = None) -> torch.Tensor:
+                   center_select_dtype: Optional[str] = None,
+                   use_kernel: bool = True) -> torch.Tensor:
     """Neighbour rows of every candidate through the two-level structure.
 
     tgt_xyz [B, N, 3]; rows [B, N, D] (xyz ++ features in the model);
     centers [B, K, 3] warm keypoints; cand [B, K, C, 3] -> [B, K, C, k, D],
     each candidate's rows by ascending distance. `select_dtype` is level 2's
     selection dtype, `center_select_dtype` level 1's. Exact selection at
-    both levels, where the TPU took approx_min_k."""
+    both levels, where the TPU took approx_min_k. `use_kernel` selects K4
+    or torch.gather for the final gather."""
     table = keypoint_tables(tgt_xyz, rows, centers, table_size, center_select_dtype)
     l_idx = table_neighbors(table[..., :3], centers, cand, k, select_dtype)
-    return gather_table_rows(table, l_idx)
+    return gather_table_rows(table, l_idx, use_kernel)

@@ -23,7 +23,7 @@ import dataclasses
 import json
 import os
 import warnings
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -141,6 +141,38 @@ CASCADES: Dict[str, Dict[str, Any]] = {
 }
 
 
+# Campaign checkpoints outside the registry (REGISTRY stays equal to the JAX
+# package's), exported because they run the non-default engines: name ->
+# checkpoint directory (its `.arch.json` applies), the point count and the
+# config fields of the script that trained it, and the GT-free (RRE deg,
+# RTE) of that campaign's eval step (one identity-init forward and the
+# unweighted trimmed Kabsch solve; a TPU with approx_min_k selection) on
+# `uniform_small`. Both are weak models, printed for orientation only.
+CAMPAIGN: Dict[str, Dict[str, Any]] = {
+    "campaign_r4b-q5w": {
+        "path": "artifacts/campaign_r4b/model_q5w/final",
+        "num_points": 2048,
+        "cfg": {"spatial_extent": 2.5, "neighbor_method": "windowed", "window_safety": 6.0,
+                "knn_window": 512},
+        "source": "scripts/campaign_r4b.py:269-283 (cfg_q5w)",
+        "gt_free": {"uniform_small": (7.287, 0.3653),
+                    "uniform_small_dense": (7.2267, 0.3687)},
+        "notes": "trained on the windowed engine at N = 2048; the same weights also "
+                 "run under neighbor_method='dense'",
+    },
+    "campaign_r4-r1c": {
+        "path": "artifacts/campaign_r4/model_r1c/final",
+        "num_points": 10000,
+        "cfg": {"spatial_extent": 2.5},
+        "source": "scripts/campaign_r4.py:75-85 (cfg_ref_sem)",
+        "gt_free": {"uniform_small": (9.0655, 0.1942)},
+        "notes": "the reference-semantics ablation: banded engine, "
+                 "dfe_src_neighbors='keypoints', uncentred grid, no derotation "
+                 "(from its .arch.json)",
+    },
+}
+
+
 def available() -> Dict[str, str]:
     """Name -> one-line description of each registry checkpoint."""
     return {k: v["notes"] for k, v in REGISTRY.items()}
@@ -159,7 +191,34 @@ def config(name: str, num_points: int = 10000, use_normal: bool = False) -> Deep
         raise KeyError(f"unknown pretrained model {name!r}; available: {sorted(REGISTRY)}")
     entry = REGISTRY[name]
     cfg = DeepVCPConfig(num_points=num_points, use_normal=use_normal, **entry["cfg"])
-    arch_path = os.path.join(_ROOT, entry["path"]) + ".arch.json"
+    return _apply_arch(name, cfg, entry["path"])
+
+
+def campaign_config(name: str, num_points: Optional[int] = None,
+                    **changes) -> DeepVCPConfig:
+    """The DeepVCPConfig of a CAMPAIGN checkpoint: its script's fields, then
+    its `.arch.json`, then `changes` (e.g. neighbor_method="dense")."""
+    if name not in CAMPAIGN:
+        raise KeyError(f"unknown campaign model {name!r}; available: {sorted(CAMPAIGN)}")
+    entry = CAMPAIGN[name]
+    cfg = DeepVCPConfig(num_points=num_points or entry["num_points"], use_normal=False,
+                        **entry["cfg"])
+    return dataclasses.replace(_apply_arch(name, cfg, entry["path"]), **changes)
+
+
+def campaign_registrar(name: str, *, device: torch.device, num_points: Optional[int] = None,
+                       cfg_changes: Optional[Dict[str, Any]] = None,
+                       **registrar_kwargs) -> Registrar:
+    """A Registrar on a CAMPAIGN checkpoint, on `device`, with the
+    Registrar's own defaults (refine_iters 1, unweighted solve; with
+    guard=False it computes the campaign eval step's GT-free pose)."""
+    cfg = campaign_config(name, num_points, **(cfg_changes or {}))
+    return Registrar(cfg, load_variables(name), device, **registrar_kwargs)
+
+
+def _apply_arch(name: str, cfg: DeepVCPConfig, path: str) -> DeepVCPConfig:
+    """cfg with the `.arch.json` provenance beside checkpoint `path` applied."""
+    arch_path = os.path.join(_ROOT, path) + ".arch.json"
     if not os.path.exists(arch_path):
         return cfg
     with open(arch_path) as fh:
@@ -177,18 +236,18 @@ def config(name: str, num_points: int = 10000, use_normal: bool = False) -> Deep
     if unapplied:
         warnings.warn(
             f"{name!r} arch provenance has keys this loader does not apply: "
-            f"{sorted(unapplied)} — extend pretrained.config", stacklevel=2)
+            f"{sorted(unapplied)} — extend pretrained.config", stacklevel=3)
     return cfg
 
 
 def load_variables(name: str) -> Dict[str, Any]:
     """{"params": ..., "batch_stats": ...} nested dicts of numpy arrays from
-    weights/<name>.npz."""
+    weights/<name>.npz (a REGISTRY or a CAMPAIGN name)."""
     path = os.path.join(WEIGHTS_DIR, f"{name}.npz")
     if not os.path.exists(path):
         raise FileNotFoundError(
             f"no exported weights for {name!r} at {path}; run "
-            f"scripts/export_torch_weights.py {name} with the JAX package installed")
+            f"scripts/export_torch_weights.py with the JAX package installed")
     variables: Dict[str, Any] = {}
     with np.load(path) as npz:
         for key in npz.files:

@@ -25,6 +25,7 @@ from deepvcp_tpu_torch import convert
 from deepvcp_tpu_torch.loss.registration import svd_refine
 from deepvcp_tpu_torch.models import DeepVCP
 from deepvcp_tpu_torch.ops import apply_rigid, square_distance
+from deepvcp_tpu_torch.ops.neighbors import slab_occupancy_stats, window_for
 
 
 class RegistrationOutput(NamedTuple):
@@ -78,6 +79,7 @@ class Registrar:
         self._declared_extent = cfg.resolve().spatial_extent
         self._warned_extent: Optional[float] = None
         self._pending_extents = collections.deque()
+        self._audited = False
 
     def score(self, kp, tgt_xyz, R, t) -> torch.Tensor:
         """Trimmed mean 1-NN distance of the posed keypoints into the target
@@ -139,9 +141,11 @@ class Registrar:
         a host sync: on the card the extent is reduced on the device, copied
         to pinned host memory behind an event, and judged at a later call
         once the event has completed (so a warning may come one call late);
-        on the CPU it is judged at once. (The JAX preflight also audits
-        static-window occupancy; the port always scans the exact slab, so
-        that audit has nothing to check.)"""
+        on the CPU it is judged at once. The first call also runs the JAX
+        preflight's slab-occupancy audit (_audit_windows)."""
+        if not self._audited:
+            self._audited = True
+            self._audit_windows(src)
         lo, hi = torch.aminmax(src[..., :3], dim=-2)
         extent = torch.amax(hi - lo)
         if extent.device.type == "cpu":
@@ -154,6 +158,44 @@ class Registrar:
         done = torch.cuda.Event()
         done.record(torch.cuda.current_stream(extent.device))
         self._pending_extents.append((done, host))
+
+    def _audit_windows(self, src: torch.Tensor) -> None:
+        """The JAX preflight's slab-occupancy audit, once: the windowed
+        engine and the static band (use_pallas_band_max=False) see only a
+        window of window_for(N, r, spatial_extent, window_safety) sorted
+        points around each query, sized for uniform density. Where a slab of
+        this cloud holds more, warn with the window_safety that would cover
+        it. The exact slab (K1) needs no audit. Reads the cloud on the host:
+        one sync, on the first call only, and only for those engines."""
+        cfg = self.cfg.resolve()
+        if not (cfg.neighbor_method == "windowed" or (
+                cfg.neighbor_method == "banded" and not cfg.use_pallas_band_max)):
+            return
+        xyz = src[..., :3].detach().cpu().numpy()
+        N = xyz.shape[-2]
+        worst = 0.0
+        for layer in cfg.sa_layers:
+            w = window_for(N, layer.radius, cfg.spatial_extent, cfg.window_safety)
+            if w >= N:
+                continue
+            occ = slab_occupancy_stats(xyz, layer.radius)
+            if occ["max"] > w:
+                # the safety at which window_for's expected occupancy covers
+                # the measured one (not the current safety scaled by occ / w,
+                # which under-estimates where w was raised to its minimum)
+                expected = N * min(2.0 * layer.radius / max(cfg.spatial_extent, 1e-6), 1.0)
+                worst = max(worst, occ["max"] / max(expected, 1e-6))
+        if worst > 0:
+            warnings.warn(
+                f"static neighbor windows under-cover this cloud's density "
+                f"peaks (slab occupancy exceeds the window sized by "
+                f"window_safety={cfg.window_safety:g}); over-dense queries "
+                f"lose in-radius neighbors (zero-hit rows are masked, not "
+                f"polluted). Raise window_safety to ~{worst:.1f}, or use "
+                f"neighbor_method='banded' with use_pallas_band_max (exact "
+                f"slab bounds) or 'dense'",
+                stacklevel=4,
+            )
 
     def _judge_extent(self, actual: float) -> None:
         declared = self._declared_extent

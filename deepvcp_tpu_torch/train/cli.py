@@ -4,8 +4,10 @@ required --device).
     python -m deepvcp_tpu_torch.train --device cuda -d synthetic --recipe residual
     python -m deepvcp_tpu_torch.train --device cpu --tiny -d synthetic --num-points 128 --epochs 1
 
---dataset modelnet and kitti read their files under --root (data/datasets.py);
---save-vis raises NotImplementedError until utils/vis.py is ported (ROADMAP).
+--dataset modelnet and kitti read their files under --root (data/datasets.py).
+With --eval-only, --save-vis DIR registers every test pair with the trained
+weights and writes {i}_gt.npy / {i}_pred.npy and vis.pcd to DIR
+(utils/vis.py), as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -45,7 +47,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest checkpoint in --checkpoint-dir")
     p.add_argument("--save-vis", type=str, default=None, metavar="DIR",
-                   help="with --eval-only: save cloud pairs to DIR (not ported)")
+                   help="with --eval-only: save {i}_gt.npy/{i}_pred.npy cloud pairs "
+                        "+ vis.pcd to DIR")
     p.add_argument("--recipe", default="reference", choices=["reference", "residual"],
                    help="'reference' = GT warm start, rigid-fit-only loss, constant "
                         "lr; 'residual' = jittered warm starts, direct VCP L1 term, "
@@ -106,8 +109,6 @@ def make_dataset(args, model_cfg: DeepVCPConfig, split: str):
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    if args.save_vis:
-        raise NotImplementedError("--save-vis needs utils/vis.py, not ported yet: see ROADMAP")
     model_cfg, train_cfg = configs_from_args(args)
 
     from deepvcp_tpu_torch.data import batch_iterator
@@ -131,6 +132,8 @@ def main(argv=None) -> None:
 
     if args.eval_only:
         print("eval:", trainer.evaluate(eval_batches(0)))
+        if args.save_vis:
+            save_vis(args.save_vis, model_cfg, trainer, eval_batches(0))
         return
 
     def train_batches(epoch):
@@ -139,6 +142,32 @@ def main(argv=None) -> None:
     trainer.fit(train_batches, eval_batches, resume=args.resume)
     path = trainer.save_checkpoint(args.model_path)
     print(f"Finished Training; final checkpoint at {path}")
+
+
+def save_vis(out_dir: str, model_cfg: DeepVCPConfig, trainer, batches) -> None:
+    """Register every pair of `batches` with the trainer's weights (a
+    Registrar with its defaults, on the trainer's device) and write each
+    target and transformed source as {i}_gt.npy / {i}_pred.npy, and the
+    last batch's first pair as vis.pcd (as the JAX CLI does), to out_dir."""
+    import os
+
+    import torch
+
+    from deepvcp_tpu_torch.ops import apply_rigid
+    from deepvcp_tpu_torch.registration import Registrar
+    from deepvcp_tpu_torch.utils.vis import draw, save_cloud_pair
+
+    reg = Registrar(model_cfg, trainer.model.state_dict(), trainer.device)
+    i = 0
+    for src, tgt, _, _ in batches:
+        src_t = torch.from_numpy(src).to(reg.device)
+        r = reg(src_t, torch.from_numpy(tgt).to(reg.device))
+        pred = apply_rigid(src_t[..., :3], r.R, r.t).cpu().numpy()
+        for b in range(src.shape[0]):
+            save_cloud_pair(out_dir, i, tgt[b, :, :3], pred[b])
+            i += 1
+    draw([tgt[0, :, :3], pred[0]], os.path.join(out_dir, "vis.pcd"))
+    print(f"vis saved to {out_dir}")
 
 
 if __name__ == "__main__":

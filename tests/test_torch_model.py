@@ -248,13 +248,70 @@ def test_two_level_builds_and_auto_selects_it():
     assert not dataclasses.replace(base, tgt_knn="flat").use_two_level_tgt_knn
 
 
+BF16_STEPS = 4   # bf16 values: within 4 bf16 steps (2^-7 relative) of their max
+
+
+def _bf16_step(x):
+    """The spacing of bf16 numbers at |x| (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(x), 1e-30))) - 7)
+
+
 @pytest.mark.parametrize("change", [
     {"neighbor_method": "windowed"},
     {"dfe_src_neighbors": "keypoints"},
     {"use_pallas_band_max": False},
     {"tgt_knn": "two_level", "use_pallas_onehot_gather": False},
+    {"compute_dtype": "bfloat16"},
 ])
-def test_unported_branches_raise(change):
-    cfg = dataclasses.replace(DeepVCPConfig.tiny(), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DeepVCP(cfg)
+def test_formerly_unported_branches_match_jax(monkeypatch, change):
+    """The branches that raised before the port had them, against the flax
+    model on the same weights and inputs (use_normal, so no saliencies tie):
+    f32 as test_deepvcp_forward (exact keypoints, FEAT_ATOL, WEIGHT_ATOL).
+
+    bfloat16: the JAX model's SA pooling runs the Pallas kernel (interpret
+    mode) on f32 copies of the bf16 values, the TPU dispatch the port
+    follows (the JAX CPU static band would compare bf16 distances instead).
+    The weighting layer's last kernel is scaled 30x so that the saliencies
+    spread out: the top-16 set is then clear of the 17th by more than two
+    bf16 steps (asserted), so both packages pick the same keypoints, though
+    torch.topk and lax.top_k may order bf16 ties among them differently.
+    Saliencies are held to BF16_STEPS bf16 steps of their max, and the
+    per-keypoint descriptors, candidate weights and VCPs, compared by
+    keypoint index, likewise (VCPs: f32 centroids of bf16 weights)."""
+    cfg = dataclasses.replace(_cfg(True), **change)
+    src, tgt, R, t = _pair(cfg, 11)
+    jm = JDeepVCP(cfg=cfg)
+    v = _perturb(jm.init(jax.random.key(11), src, tgt, R, t), 11)
+    if "compute_dtype" not in change:
+        _forward_parity(jm, v, _torch_module(DeepVCP(cfg), v), (src, tgt, R, t))
+        return
+    v["params"]["wl"]["Dense_2"]["kernel"] = v["params"]["wl"]["Dense_2"]["kernel"] * 30
+    monkeypatch.setattr(jfused_sa, "_use_band_kernel", lambda use_kernel: use_kernel)
+    kp_j, vcp_j, aux_j = jm.apply(v, *map(jnp.asarray, (src, tgt, R, t)))
+    with torch.no_grad():
+        kp_t, vcp_t, aux_t = _torch_module(DeepVCP(cfg), v)(*map(torch.from_numpy,
+                                                                 (src, tgt, R, t)))
+    assert aux_t["saliency"].dtype == torch.bfloat16 and vcp_t.dtype == torch.float32
+    sal_j = np.asarray(aux_j["saliency"]).astype(np.float32)
+    top = np.sort(sal_j, axis=-1)[:, ::-1]
+    K = cfg.num_keypoints
+    assert (top[:, K - 1] - top[:, K] > 2 * _bf16_step(top[:, K - 1])).all(), "top-K not clear"
+
+    def close(got, want, what):
+        want = np.asarray(want).astype(np.float32)
+        atol = BF16_STEPS * _bf16_step(np.abs(want).max())
+        np.testing.assert_allclose(got.float().numpy(), want, atol=atol, rtol=0, err_msg=what)
+
+    close(aux_t["saliency"], sal_j, "saliency")
+    idx_j = np.asarray(aux_j["keypoint_idx"])
+    idx_t = aux_t["keypoint_idx"].numpy()
+    oj, ot = np.argsort(idx_j, axis=-1), np.argsort(idx_t, axis=-1)
+    np.testing.assert_array_equal(np.take_along_axis(idx_t, ot, 1),
+                                  np.take_along_axis(idx_j, oj, 1))
+    by_t = lambda x: torch.from_numpy(np.take_along_axis(  # noqa: E731
+        x.float().numpy(), ot.reshape(ot.shape + (1,) * (x.dim() - 2)), 1))
+    by_j = lambda x: np.take_along_axis(  # noqa: E731
+        np.asarray(x).astype(np.float32), oj.reshape(oj.shape + (1,) * (x.ndim - 2)), 1)
+    close(by_t(aux_t["src_descriptors"]), by_j(aux_j["src_descriptors"]), "src_descriptors")
+    close(by_t(aux_t["candidate_weights"]), by_j(aux_j["candidate_weights"]), "weights")
+    close(by_t(vcp_t), by_j(vcp_j), "vcp")

@@ -57,6 +57,33 @@ def test_exported_odometry_and_routing_weights_equal_checkpoint(name):
     _assert_exported_equals_checkpoint(name)
 
 
+@pytest.mark.parametrize("name", sorted(pretrained.CAMPAIGN))
+def test_exported_campaign_weights_equal_checkpoint(name):
+    """Each exported campaign checkpoint (not registry entries: the windowed
+    model_q5w and the reference-semantics model_r1c) holds its orbax
+    checkpoint array for array, and its config is its campaign script's
+    with the checkpoint's .arch.json applied."""
+    entry = pretrained.CAMPAIGN[name]
+    want = dict(_flatten(jax.device_get(
+        jpretrained.load_variables(os.path.join(ROOT, entry["path"])))))
+    got = dict(_flatten(pretrained.load_variables(name)))
+    assert sorted(got) == sorted(want)
+    for key in want:
+        assert got[key].dtype == want[key].dtype, key
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    cfg = pretrained.campaign_config(name)
+    model = DeepVCP(cfg)
+    from deepvcp_tpu_torch.convert import flax_to_torch
+    model.load_state_dict(flax_to_torch(pretrained.load_variables(name)), strict=True)
+    if name == "campaign_r4b-q5w":
+        assert (cfg.num_points, cfg.neighbor_method, cfg.window_safety, cfg.spatial_extent) == \
+            (2048, "windowed", 6.0, 2.5)
+        assert "proj_xyz/bias" in " ".join(got) and "bias0" not in " ".join(got)
+    else:
+        assert (cfg.num_points, cfg.neighbor_method, cfg.dfe_src_neighbors, cfg.centered_grid,
+                cfg.derotate_tgt_neighborhoods) == (10000, "banded", "keypoints", False, False)
+
+
 def _assert_exported_equals_checkpoint(name):
     cfg_j, want = jpretrained.load(name)
     cfg_t, got = pretrained.load(name)

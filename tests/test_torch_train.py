@@ -525,11 +525,10 @@ def test_cli_train_eval_and_resume(tmp_path):
 
 @pytest.mark.parametrize("argv,match", [
     (["--dataset", "kitti"], "--root is required for kitti"),
-    (["--dataset", "modelnet"], "--root is required for modelnet"),
-    (["--dataset", "synthetic", "--eval-only", "--save-vis", "v"], "vis.py.*ROADMAP")])
+    (["--dataset", "modelnet"], "--root is required for modelnet")])
 def test_cli_refuses_what_is_not_ported(argv, match):
     """The file datasets need --root, as in the JAX CLI (their loaders are
-    ported: tests/test_torch_data.py); --save-vis is not ported yet."""
+    ported: tests/test_torch_data.py; --save-vis: tests/test_torch_vis.py)."""
     from deepvcp_tpu_torch.train.cli import main
-    with pytest.raises((SystemExit, NotImplementedError), match=match):
+    with pytest.raises(SystemExit, match=match):
         main(["--device", "cpu", "--tiny", *argv])
