@@ -16,8 +16,10 @@ the card too, chunked over tiles so that no [B, T, w, band, C] block is
 built. It differs from the exact slab wherever the band under-covers it.
 
 Under compute_dtype="bfloat16" the projections and the MLP tail run in bf16
-(flax's Dense and BatchNorm with dtype=bf16) and the pool takes f32 copies of
-the bf16 values and casts its result back, as the TPU dispatch does.
+(flax's Dense and BatchNorm with dtype=bf16). K1/K2 take f32 copies of the
+bf16 values and cast their result back, as the JAX package's TPU dispatch
+does; the static band pools on the bf16 values themselves, as its
+xla_banded_max does on any backend.
 """
 
 from __future__ import annotations
@@ -79,29 +81,50 @@ def band_of(tiles: torch.Tensor, half_tiles: int) -> torch.Tensor:
     """[B, T, w, C] -> [B, T, (2 * half_tiles + 1) * w, C]: each tile's band,
     the tiles `half_tiles` before it to `half_tiles` after it in the JAX
     order (torus roll by +half_tiles first). The static band pools over it;
-    static_band_max builds it a few tiles at a time."""
-    return torch.cat([torch.roll(tiles, s, dims=1) for s in _shifts(half_tiles)], dim=2)
-
-
-def _shifts(half_tiles: int) -> range:
-    return range(half_tiles, -half_tiles - 1, -1)
-
-
-def _band_geometry(sorted_xyz: torch.Tensor, C: int, window: int, tile: int):
-    """(tile width w, tiles T, tiles a side of the band, tiles per block)."""
-    B, N, _ = sorted_xyz.shape
-    w = min(tile, N)
-    T = -(-N // w)
-    per_block = max(1, _BAND_BLOCK // (B * w * w * max(C, 1)))
-    return w, T, -(-window // w), per_block
+    _static_band walks it a few tiles at a time."""
+    return torch.cat([torch.roll(tiles, s, dims=1)
+                      for s in range(half_tiles, -half_tiles - 1, -1)], dim=2)
 
 
 def _tile_d2(q: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """[B, t, w, 3] x [B, t, w, 3] -> [B, t, w, w]: ((dx*dx)+(dy*dy))+(dz*dz),
-    elementwise f32, the same bits on every device."""
+    """[B, t, w, 3] x [B, t, w, 3] -> [B, t, w, w] in q's dtype: the
+    differences and their squares in that dtype, their sum
+    ((dx*dx)+(dy*dy))+(dz*dz) in at least f32, rounded once to that dtype,
+    as XLA's CPU computes jnp.sum(jnp.square(...), -1) (it sums bf16 in
+    f32). Plain elementwise arithmetic: the same bits on every device."""
     d = q[:, :, :, None, :] - b[:, :, None, :, :]
-    dx, dy, dz = d.unbind(-1)
-    return (dx * dx + dy * dy) + dz * dz
+    dx, dy, dz = (d * d).to(torch.promote_types(d.dtype, torch.float32)).unbind(-1)
+    return ((dx + dy) + dz).to(q.dtype)
+
+
+def _static_band(sorted_xyz: torch.Tensor, C: int, radius: float, window: int, tile: int):
+    """The static band of a sorted cloud, a block of tiles at a time, so
+    that no [B, T, w, band, C] block is built. Returns (w, T, blocks): the
+    tile width, the tile count after padding with points at 1e7 (as JAX),
+    and a generator of (slice of tiles, the tiles' indices, band) where band
+    yields, for each band tile in the JAX order (band_of), (its tiles'
+    indices, the in-radius mask [B, tiles, w, w]). r^2 is rounded to the
+    cloud's dtype, as JAX's jnp.asarray(r * r, dtype)."""
+    B, N, _ = sorted_xyz.shape
+    w = min(tile, N)
+    T = -(-N // w)
+    half = -(-window // w)
+    per_block = max(1, _BAND_BLOCK // (B * w * w * max(C, 1)))
+    r2 = float(torch.tensor(float(np.float32(radius * radius))).to(sorted_xyz.dtype))
+    q = pad_to_tiles(sorted_xyz, w, 1e7).reshape(B, T, w, 3)
+    tiles = torch.arange(T, device=sorted_xyz.device)
+
+    def band(t):
+        for s in range(half, -half - 1, -1):
+            src = (t - s) % T
+            yield src, _tile_d2(q[:, t], q[:, src]) <= r2
+
+    def blocks():
+        for t0 in range(0, T, per_block):
+            t = tiles[t0:t0 + per_block]
+            yield slice(t0, t0 + per_block), t, band(t)
+
+    return w, T, blocks()
 
 
 @torch.no_grad()
@@ -109,25 +132,18 @@ def static_band_max(sorted_xyz: torch.Tensor, u: torch.Tensor, radius: float,
                     window: int, tile: int) -> torch.Tensor:
     """The JAX package's xla_banded_max: for each point of a sorted cloud,
     the per-channel max of u over the in-radius points of its band (see
-    band_of); -1e30 where none. sorted_xyz [B, N, 3], u [B, N, C] f32 ->
-    [B, N, C]. Pads with points at 1e7, as JAX, and pools the band a block
-    of tiles and one band tile at a time (a max: any order is exact)."""
+    band_of); -1e30 where none. sorted_xyz [B, N, 3], u [B, N, C], both f32
+    or both bf16 -> [B, N, C] in u's dtype. A max: any order is exact."""
     B, N, _ = sorted_xyz.shape
     C = u.shape[-1]
-    w, T, half, per_block = _band_geometry(sorted_xyz, C, window, tile)
-    r2 = float(np.float32(radius * radius))
-    q = pad_to_tiles(sorted_xyz, w, 1e7).reshape(B, T, w, 3)
+    w, T, blocks = _static_band(sorted_xyz, C, radius, window, tile)
     ut = pad_to_tiles(u, w, 0.0).reshape(B, T, w, C)
     out = torch.full_like(ut, NEG)
-    tiles = torch.arange(T, device=u.device)
-    for t0 in range(0, T, per_block):
-        t = tiles[t0:t0 + per_block]
-        acc = out[:, t0:t0 + per_block]
-        for s in _shifts(half):
-            src = (t - s) % T
-            inr = _tile_d2(q[:, t], q[:, src]) <= r2
+    for blk, _, band in blocks:
+        acc = out[:, blk]
+        for src, inr in band:
             acc = torch.maximum(acc, torch.where(inr[..., None], ut[:, src, None], NEG).amax(dim=3))
-        out[:, t0:t0 + per_block] = acc
+        out[:, blk] = acc
     return out.reshape(B, T * w, C)[:, :N]
 
 
@@ -136,27 +152,22 @@ def static_band_max_grad(sorted_xyz: torch.Tensor, u: torch.Tensor, out: torch.T
                          g: torch.Tensor, radius: float, window: int, tile: int) -> torch.Tensor:
     """The JAX package's static-band backward (fused_sa.py::_bmp_bwd on its
     CPU path): grad_u[n, c] = sum over the queries q of n's band of
-    g[q, c] * [in radius] * [u[n, c] == out[q, c]]. A band that holds a tile
+    g[q, c] * [in radius] * [u[n, c] == out[q, c]], summed in f32 and
+    returned in u's dtype (XLA sums bf16 in f32). A band that holds a tile
     more than once counts its queries that many times, as the JAX formula
     does (at N <= tile the band is 2 * half + 1 copies of the one tile)."""
     B, N, _ = sorted_xyz.shape
     C = u.shape[-1]
-    w, T, half, per_block = _band_geometry(sorted_xyz, C, window, tile)
-    r2 = float(np.float32(radius * radius))
-    n_xyz = pad_to_tiles(sorted_xyz, w, 1e7).reshape(B, T, w, 3)
+    w, T, blocks = _static_band(sorted_xyz, C, radius, window, tile)
     ut, ot, gt = (pad_to_tiles(x, w, 0.0).reshape(B, T, w, C) for x in (u, out, g))
-    grad = torch.zeros_like(ut)
-    tiles = torch.arange(T, device=u.device)
-    for t0 in range(0, T, per_block):
-        t = tiles[t0:t0 + per_block]
-        acc = grad[:, t0:t0 + per_block]
-        for s in _shifts(half):
-            src = (t - s) % T
-            inr = _tile_d2(n_xyz[:, t], n_xyz[:, src]) <= r2
+    grad = torch.zeros(ut.shape, dtype=torch.float32, device=u.device)
+    for blk, t, band in blocks:
+        acc = grad[:, blk]
+        for src, inr in band:
             took = inr[..., None] & (ut[:, t, :, None] == ot[:, src, None])
-            acc = acc + torch.where(took, gt[:, src, None], 0.0).sum(dim=3)
-        grad[:, t0:t0 + per_block] = acc
-    return grad.reshape(B, T * w, C)[:, :N]
+            acc = acc + torch.where(took, gt[:, src, None].float(), 0.0).sum(dim=3)
+        grad[:, blk] = acc
+    return grad.reshape(B, T * w, C)[:, :N].to(u.dtype)
 
 
 class _StaticBandMaxPool(torch.autograd.Function):
@@ -229,21 +240,18 @@ class BandedSetAbstraction(nn.Module):
     on batch statistics and updates its running ones in `train()` mode.
 
     `use_kernel` (use_pallas_band_max) pools over the exact slab through
-    K1/K2; otherwise over the static band of `window` points a side in
-    tiles of `tile` (the JAX package's band_tile). `dtype` is the compute
-    dtype."""
+    K1/K2; otherwise over the static band of the call's `window` points a
+    side in tiles of `tile` (the JAX package's band_tile). `dtype` is the
+    compute dtype."""
 
     def __init__(self, layer: SALayerConfig, in_features: Optional[int],
-                 use_batchnorm: bool = True, use_kernel: bool = True,
-                 window: Optional[int] = None, tile: int = 256,
+                 use_batchnorm: bool = True, use_kernel: bool = True, tile: int = 256,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.radius = float(layer.radius)
+        self.layer = layer
         self.use_batchnorm = use_batchnorm
         self.use_kernel = use_kernel
-        if not use_kernel and window is None:
-            raise ValueError("the static band needs a window")
-        self.window, self.tile, self.dtype = window, tile, dtype
+        self.tile, self.dtype = tile, dtype
         c0 = layer.mlp[0]
         self.proj_xyz = nn.Linear(3, c0, bias=False)
         self.proj_feat = nn.Linear(in_features, c0, bias=False) if in_features else None
@@ -260,19 +268,22 @@ class BandedSetAbstraction(nn.Module):
             return x
         return batch_norm(getattr(self, f"bn{i}"), x, self.training, self.dtype)
 
-    def forward(self, sorted_xyz: torch.Tensor,
-                features: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, sorted_xyz: torch.Tensor, features: Optional[torch.Tensor],
+                window: Optional[int] = None) -> torch.Tensor:
         """sorted_xyz [B, N, 3], features [B, N, D] or None -> [B, N, mlp[-1]]
-        (sorted order)."""
+        (sorted order). `window`: the static band's one-sided coverage in
+        points, window_for(N, ...) of this call's N."""
         dt = self.dtype
-        xyz = sorted_xyz.to(dt)
+        # f32 keeps the input's own (at least f32) precision, as batch_norm
+        xyz = sorted_xyz if dt == torch.float32 else sorted_xyz.to(dt)
         p = linear(self.proj_xyz, xyz, dt)
         u = p if features is None else p + linear(self.proj_feat, features, dt)
         if self.use_kernel:
-            max_u = banded_max_pool(xyz.float(), u.float(), self.radius)
+            max_u = banded_max_pool(xyz.float(), u.float(), self.layer.radius)
+        elif window is None:
+            raise ValueError("the static band needs a window")
         else:
-            max_u = static_band_max_pool(xyz.float(), u.float(), self.radius, self.window,
-                                         self.tile)
+            max_u = static_band_max_pool(xyz, u, self.layer.radius, window, self.tile)
         # relu(max) == max(relu); relu also clamps an empty row's -1e30. In
         # bf16 the f32 bias0 promotes the sum to f32, as in flax
         h = torch.relu(max_u.to(dt) - p + self.bias0)

@@ -34,17 +34,17 @@ class SetAbstraction(nn.Module):
     proj_xyz(local_xyz) (with bias) + proj_feat(f)[idx] (without), and rows
     of zero-hit queries are zeroed before the first BatchNorm.
 
-    With `window` and a sorted cloud (npoint == N) the neighbours are the
+    With a `window` and a sorted cloud (npoint == N) the neighbours are the
     first nsample in-radius points of the sorted window; otherwise the
     nsample lowest indices in radius over the whole cloud (dense)."""
 
     def __init__(self, layer: SALayerConfig, in_features: Optional[int],
                  use_batchnorm: bool = True, query_chunk: Optional[int] = None,
-                 window: Optional[int] = None, dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.layer = layer
         self.use_batchnorm = use_batchnorm
-        self.query_chunk, self.window, self.dtype = query_chunk, window, dtype
+        self.query_chunk, self.dtype = query_chunk, dtype
         c0 = layer.mlp[0]
         self.proj_xyz = nn.Linear(3, c0)
         self.proj_feat = nn.Linear(in_features, c0, bias=False) if in_features else None
@@ -61,18 +61,19 @@ class SetAbstraction(nn.Module):
         return torch.relu(x)
 
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor],
-                sorted_cloud: Optional[SortedCloud] = None
+                sorted_cloud: Optional[SortedCloud] = None, window: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """xyz [B, N, 3], features [B, N, D] or None -> (new_xyz [B, S, 3],
         features [B, S, mlp[-1]]). With a sorted cloud, xyz and features are
-        in its order and so are the outputs."""
+        in its order and so are the outputs; `window` is window_for(N, ...)
+        of this call's N."""
         cfg, dt = self.layer, self.dtype
         N = xyz.shape[1]
         new_xyz = xyz if cfg.npoint == N else index_points(
             xyz, farthest_point_sample(xyz, cfg.npoint))
-        if sorted_cloud is not None and self.window is not None and cfg.npoint == N:
+        if sorted_cloud is not None and window is not None and cfg.npoint == N:
             idx, count = windowed_ball_query(sorted_cloud, new_xyz, cfg.radius, cfg.nsample,
-                                             self.window, return_count=True)
+                                             window, return_count=True)
             local_xyz = index_points(xyz, idx) - new_xyz[..., :, None, :]
         else:
             _, local_xyz, idx, count = group_neighbors(
@@ -93,7 +94,8 @@ class FeatureExtraction(nn.Module):
 
     banded (the default): sort the cloud along x once, run the banded
     stages in sorted order (exact slab through K1/K2, or the static band),
-    unpermute. windowed: the same sort, gather-path stages over each stage's
+    unpermute. windowed: the same sort, gather-path stages. Both size a
+    stage's window on each call from the stage's own N, as
     window_for(N, r, spatial_extent, window_safety). dense: gather-path
     stages on the unsorted cloud, grouped over query_chunk queries at a
     time."""
@@ -102,22 +104,18 @@ class FeatureExtraction(nn.Module):
         super().__init__()
         cfg = cfg.resolve()
         self.method = cfg.neighbor_method
+        self.spatial_extent, self.window_safety = cfg.spatial_extent, cfg.window_safety
         dt = compute_dtype(cfg)
         self.dtype = dt
         in_features = 3 if cfg.use_normal else None
-        N = cfg.num_points
         for i, layer in enumerate(cfg.sa_layers):
-            window = window_for(N, layer.radius, cfg.spatial_extent, cfg.window_safety)
             if self.method == "banded":
                 sa = BandedSetAbstraction(
                     layer, in_features, use_batchnorm=cfg.use_batchnorm,
-                    use_kernel=cfg.use_pallas_band_max, window=window, tile=cfg.band_tile,
-                    dtype=dt)
+                    use_kernel=cfg.use_pallas_band_max, tile=cfg.band_tile, dtype=dt)
             else:
-                sa = SetAbstraction(
-                    layer, in_features, use_batchnorm=cfg.use_batchnorm,
-                    query_chunk=cfg.query_chunk,
-                    window=window if self.method == "windowed" else None, dtype=dt)
+                sa = SetAbstraction(layer, in_features, use_batchnorm=cfg.use_batchnorm,
+                                    query_chunk=cfg.query_chunk, dtype=dt)
             self.add_module(f"sa{i + 1}", sa)
             in_features = layer.mlp[-1]
         self.n_sa = len(cfg.sa_layers)
@@ -135,10 +133,12 @@ class FeatureExtraction(nn.Module):
         x = cloud.xyz
         for i in range(1, self.n_sa + 1):
             sa = getattr(self, f"sa{i}")
+            window = window_for(x.shape[1], sa.layer.radius, self.spatial_extent,
+                                self.window_safety)
             if self.method == "banded":
-                feats = sa(x, feats)
+                feats = sa(x, feats, window)
             else:
-                x, feats = sa(x, feats, sorted_cloud=cloud)
+                x, feats = sa(x, feats, sorted_cloud=cloud, window=window)
         feats = linear(self.proj, feats, self.dtype)
         B, N = cloud.perm.shape
         inv_perm = torch.empty_like(cloud.perm).scatter_(

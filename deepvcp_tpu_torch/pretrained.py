@@ -194,25 +194,23 @@ def config(name: str, num_points: int = 10000, use_normal: bool = False) -> Deep
     return _apply_arch(name, cfg, entry["path"])
 
 
-def campaign_config(name: str, num_points: Optional[int] = None,
-                    **changes) -> DeepVCPConfig:
+def campaign_config(name: str, **changes) -> DeepVCPConfig:
     """The DeepVCPConfig of a CAMPAIGN checkpoint: its script's fields, then
     its `.arch.json`, then `changes` (e.g. neighbor_method="dense")."""
     if name not in CAMPAIGN:
         raise KeyError(f"unknown campaign model {name!r}; available: {sorted(CAMPAIGN)}")
     entry = CAMPAIGN[name]
-    cfg = DeepVCPConfig(num_points=num_points or entry["num_points"], use_normal=False,
-                        **entry["cfg"])
+    cfg = DeepVCPConfig(num_points=entry["num_points"], use_normal=False, **entry["cfg"])
     return dataclasses.replace(_apply_arch(name, cfg, entry["path"]), **changes)
 
 
-def campaign_registrar(name: str, *, device: torch.device, num_points: Optional[int] = None,
+def campaign_registrar(name: str, *, device: torch.device,
                        cfg_changes: Optional[Dict[str, Any]] = None,
                        **registrar_kwargs) -> Registrar:
     """A Registrar on a CAMPAIGN checkpoint, on `device`, with the
     Registrar's own defaults (refine_iters 1, unweighted solve; with
     guard=False it computes the campaign eval step's GT-free pose)."""
-    cfg = campaign_config(name, num_points, **(cfg_changes or {}))
+    cfg = campaign_config(name, **(cfg_changes or {}))
     return Registrar(cfg, load_variables(name), device, **registrar_kwargs)
 
 

@@ -131,12 +131,12 @@ def test_gather_set_abstraction(engine, train):
                                                jnp.asarray(xyz), jnp.asarray(feats))[0][1] * g))(
         v["params"])
 
-    tm = layers.SetAbstraction(layer, 8, query_chunk=64, window=window)
+    tm = layers.SetAbstraction(layer, 8, query_chunk=64)
     tm.load_state_dict(flax_to_torch(v), strict=True)
     tm.train(train)
     x = torch.from_numpy(xyz)
     cloud = tnb.sort_cloud(x) if engine == "windowed" else None
-    new_t, out_t = tm(x, torch.from_numpy(feats), sorted_cloud=cloud)
+    new_t, out_t = tm(x, torch.from_numpy(feats), sorted_cloud=cloud, window=window)
     np.testing.assert_array_equal(new_t.numpy(), np.asarray(new_j))
     _close(out_t.detach().numpy(), out_j, what="features")
     (out_t * torch.from_numpy(g)).sum().backward()
@@ -165,11 +165,11 @@ def test_train_mode_gradients_against_float64():
         v["params"])
     grads = {}
     for dt in (torch.float32, torch.float64):
-        tm = layers.SetAbstraction(layer, 8, query_chunk=64, window=128)
+        tm = layers.SetAbstraction(layer, 8, query_chunk=64)
         tm.load_state_dict(flax_to_torch(v), strict=True)
         tm.to(dt).train()
         x = torch.from_numpy(xyz).to(dt)
-        _, out = tm(x, torch.from_numpy(feats).to(dt), sorted_cloud=tnb.sort_cloud(x))
+        _, out = tm(x, torch.from_numpy(feats).to(dt), sorted_cloud=tnb.sort_cloud(x), window=128)
         (out * torch.from_numpy(g).to(dt)).sum().backward()
         grads[dt] = {n: p.grad.double().numpy() for n, p in tm.named_parameters()}
     ref = grads[torch.float64]
@@ -201,35 +201,74 @@ def test_gather_set_abstraction_samples_with_fps():
 
 # --- the static band ----------------------------------------------------------
 
-@pytest.mark.parametrize("N,window,tile,C", [
+def _bf16_step(x):
+    """The spacing of bf16 numbers at |x| (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(x), 1e-30))) - 7)
+
+
+STATIC_BAND_SHAPES = [
     (128, 128, 256, 16),    # tiny(): the band is 3 copies of the one tile
     (700, 128, 64, 8),      # 11 tiles, 2 a side: under-covers the slab
     (700, 384, 128, 5),     # 6 tiles, 3 a side: a tile twice in the band
-])
+]
+
+
+def _static_band_pair(N, window, tile, C, dtype):
+    """(JAX's banded_max_pool forward and its VJP's gradient, the port's
+    static_band_max_pool output and u's gradient) on the same inputs in
+    `dtype`, all as float32 numpy (float32 values of bf16 ones)."""
+    xyz = np.asarray(jnb.sort_cloud(jnp.asarray(_cloud(4, 2, N, 1.0))).xyz)
+    u = np.random.default_rng(5).standard_normal((2, N, C)).astype(np.float32)
+    g = np.random.default_rng(6).standard_normal((2, N, C)).astype(np.float32)
+    radius = 0.3
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    out_j, vjp = jax.vjp(lambda a: jfused_sa.banded_max_pool(
+        jnp.asarray(xyz).astype(jdt), a, radius, window, tile, False), jnp.asarray(u).astype(jdt))
+    (grad_j,) = vjp(jnp.asarray(g).astype(jdt))
+    x_t = torch.from_numpy(xyz).to(tdt)
+    u_t = torch.from_numpy(u).to(tdt).requires_grad_()
+    out_t = fused_sa.static_band_max_pool(x_t, u_t, radius, window, tile)
+    out_t.backward(torch.from_numpy(g).to(tdt))
+    assert out_t.dtype == tdt and u_t.grad.dtype == tdt
+    return ([np.asarray(a.astype(jnp.float32)) for a in (out_j, grad_j)],
+            [a.detach().float().numpy() for a in (out_t, u_t.grad)],
+            (x_t, u_t.detach(), torch.from_numpy(g), radius))
+
+
+@pytest.mark.parametrize("N,window,tile,C", STATIC_BAND_SHAPES)
 def test_static_band_forward_backward(N, window, tile, C):
     """The port's static band equals xla_banded_max (max: exactly) and its
     backward the JAX custom VJP's static-band formula (sums in another
     order: 1e-5 of max). At N <= tile the band holds its tile 3 times and
     the gradient is 3x the exact slab's (the JAX formula's behaviour,
     reproduced)."""
-    xyz = np.asarray(jnb.sort_cloud(jnp.asarray(_cloud(4, 2, N, 1.0))).xyz)
-    u = np.random.default_rng(5).standard_normal((2, N, C)).astype(np.float32)
-    g = np.random.default_rng(6).standard_normal((2, N, C)).astype(np.float32)
-    radius = 0.3
-    out_j, vjp = jax.vjp(lambda a: jfused_sa.banded_max_pool(
-        jnp.asarray(xyz), a, radius, window, tile, False), jnp.asarray(u))
-    (grad_j,) = vjp(jnp.asarray(g))
-    x_t, u_t = torch.from_numpy(xyz), torch.from_numpy(u).requires_grad_()
-    out_t = fused_sa.static_band_max_pool(x_t, u_t, radius, window, tile)
-    np.testing.assert_array_equal(out_t.detach().numpy(), np.asarray(out_j))
-    out_t.backward(torch.from_numpy(g))
-    _close(u_t.grad.numpy(), grad_j, what="grad_u")
+    (out_j, grad_j), (out_t, grad_t), (x_t, u_t, g_t, radius) = _static_band_pair(
+        N, window, tile, C, "float32")
+    np.testing.assert_array_equal(out_t, out_j)
+    _close(grad_t, grad_j, what="grad_u")
     if N <= tile:
         copies = 2 * -(-window // N) + 1    # one tile, half = ceil(window / N) a side
         assert copies == 3
-        exact = banded_masked_max_grad_reference(x_t, u_t.detach(), out_t.detach(),
-                                                 torch.from_numpy(g), radius)
-        _close(u_t.grad.numpy(), copies * exact.numpy(), what="tripled")
+        exact = banded_masked_max_grad_reference(x_t, u_t, torch.from_numpy(out_t), g_t, radius)
+        _close(grad_t, copies * exact.numpy(), what="tripled")
+
+
+def _bf16_step(x):
+    """The spacing of bf16 numbers at |x| (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(x), 1e-30))) - 7)
+
+
+@pytest.mark.parametrize("N,window,tile,C", STATIC_BAND_SHAPES)
+def test_static_band_bf16_matches_jax(N, window, tile, C):
+    """compute_dtype="bfloat16" on the static band: both packages take bf16
+    differences and squares, sum them in f32 and round d^2 to bf16 (XLA's
+    CPU sums bf16 in f32), so the masks and the max are the same bits; the
+    backward's f32 sums, rounded to bf16, are held to one bf16 step of
+    their max. JAX runs op by op here: under jax.jit XLA may keep d^2 in
+    f32, which moves the mask."""
+    (out_j, grad_j), (out_t, grad_t), _ = _static_band_pair(N, window, tile, C, "bfloat16")
+    np.testing.assert_array_equal(out_t, out_j)
+    np.testing.assert_allclose(grad_t, grad_j, atol=_bf16_step(np.abs(grad_j).max()), rtol=0)
 
 
 def test_static_band_blocks_match_one_block(monkeypatch):
@@ -302,6 +341,43 @@ def test_deepvcp_branch_trains_like_jax(branch):
     for name, b in tm.named_buffers():
         if not name.endswith("num_batches_tracked"):
             _close(b.numpy(), stats[name].numpy(), what=name)
+
+
+@pytest.mark.parametrize("change", [{"neighbor_method": "windowed"},
+                                    {"use_pallas_band_max": False, "band_tile": 64}])
+def test_window_follows_the_cloud(change):
+    """cfg.num_points = 128, clouds of 512 points: both packages size each
+    stage's window from the call's N (window_for(512, ...) = 512 here, where
+    the config's N would give 128), so the windowed engine and the static
+    band (8 tiles of 64, 8 a side rather than 2) agree with JAX at any N.
+    The stages keep all 512 points (npoint = 512), so every windowed stage
+    runs the windowed query. Eval mode: keypoints exact, the rest FEAT_RTOL
+    of its max."""
+    N = 512
+    tiny = DeepVCPConfig.tiny(use_normal=True)
+    cfg = dataclasses.replace(
+        tiny, knn_select_dtype=None, sa_layers=tuple(
+            dataclasses.replace(layer, npoint=N) for layer in tiny.sa_layers),
+        **change).resolve()
+    for layer in cfg.sa_layers:
+        assert tnb.window_for(N, layer.radius, cfg.spatial_extent, cfg.window_safety) > \
+            tnb.window_for(cfg.num_points, layer.radius, cfg.spatial_extent, cfg.window_safety)
+    rng = np.random.default_rng(22)
+    src = rng.uniform(-1.5, 1.5, (1, N, 6)).astype(np.float32)
+    tgt = (src + rng.normal(0, 0.02, src.shape)).astype(np.float32)
+    R = np.eye(3, dtype=np.float32)[None]
+    t = rng.uniform(-0.1, 0.1, (1, 3)).astype(np.float32)
+    jm = JDeepVCP(cfg=cfg)
+    v = _perturb(jm.init(jax.random.key(22), src, tgt, R, t), 22)
+    _, vcp_j, aux_j = jm.apply(v, src, tgt, R, t)
+    tm = DeepVCP(cfg)
+    tm.load_state_dict(flax_to_torch(v), strict=True)
+    with torch.no_grad():
+        _, vcp_t, aux_t = tm.eval()(*map(torch.from_numpy, (src, tgt, R, t)))
+    np.testing.assert_array_equal(aux_t["keypoint_idx"].numpy(), np.asarray(aux_j["keypoint_idx"]))
+    for name in ("saliency", "src_descriptors"):
+        _close(aux_t[name].numpy(), aux_j[name], what=name)
+    _close(vcp_t.numpy(), vcp_j, what="vcp")
 
 
 # --- campaign_r4b's windowed checkpoint at N = 2048 ---------------------------

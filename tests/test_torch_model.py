@@ -262,16 +262,18 @@ def _bf16_step(x):
     {"use_pallas_band_max": False},
     {"tgt_knn": "two_level", "use_pallas_onehot_gather": False},
     {"compute_dtype": "bfloat16"},
+    {"compute_dtype": "bfloat16", "use_pallas_band_max": False},
 ])
 def test_formerly_unported_branches_match_jax(monkeypatch, change):
     """The branches that raised before the port had them, against the flax
     model on the same weights and inputs (use_normal, so no saliencies tie):
     f32 as test_deepvcp_forward (exact keypoints, FEAT_ATOL, WEIGHT_ATOL).
 
-    bfloat16: the JAX model's SA pooling runs the Pallas kernel (interpret
-    mode) on f32 copies of the bf16 values, the TPU dispatch the port
-    follows (the JAX CPU static band would compare bf16 distances instead).
-    The weighting layer's last kernel is scaled 30x so that the saliencies
+    bfloat16 on the exact slab: the JAX model's SA pooling runs the Pallas
+    kernel (interpret mode) on f32 copies of the bf16 values, the TPU
+    dispatch the port follows with K1. bfloat16 on the static band: JAX's
+    own CPU dispatch, xla_banded_max on the bf16 values, which the port's
+    static band follows (bf16 distances). The weighting layer's last kernel is scaled 30x so that the saliencies
     spread out: the top-16 set is then clear of the 17th by more than two
     bf16 steps (asserted), so both packages pick the same keypoints, though
     torch.topk and lax.top_k may order bf16 ties among them differently.
@@ -286,7 +288,8 @@ def test_formerly_unported_branches_match_jax(monkeypatch, change):
         _forward_parity(jm, v, _torch_module(DeepVCP(cfg), v), (src, tgt, R, t))
         return
     v["params"]["wl"]["Dense_2"]["kernel"] = v["params"]["wl"]["Dense_2"]["kernel"] * 30
-    monkeypatch.setattr(jfused_sa, "_use_band_kernel", lambda use_kernel: use_kernel)
+    if cfg.use_pallas_band_max:
+        monkeypatch.setattr(jfused_sa, "_use_band_kernel", lambda use_kernel: use_kernel)
     kp_j, vcp_j, aux_j = jm.apply(v, *map(jnp.asarray, (src, tgt, R, t)))
     with torch.no_grad():
         kp_t, vcp_t, aux_t = _torch_module(DeepVCP(cfg), v)(*map(torch.from_numpy,
