@@ -17,7 +17,10 @@ the non-default engines: campaign_r4b's model_q5w under the windowed and
 the dense engine (N = 2048), campaign_r4's model_r1c (keypoints branch),
 `kitti25-rot` on the static band and in bf16, the plain two-level gather,
 SetAbstractionMSG / FeaturePropagation, windowed training and the training
-CLI's --save-vis. It checks on the way:
+CLI's --save-vis; and the multi-device modules over a process group of one
+NCCL rank: the sharded train step, ring_knn, the sharded pose graph and BA,
+Trainer.fit with a heartbeat, plot and profile_stages. It checks on the
+way:
 
   1. device      a CUDA card is present; prints nvidia-smi's name and power limit
   2. build       builds every CUDA kernel of the paths from csrc/ with nvcc
@@ -148,6 +151,37 @@ CLI's --save-vis. It checks on the way:
                  pair per test pair and vis.pcd, pair 0 the registrar's
                  transformed source. Latency, busy time and idle share per
                  engine (printed)
+ 22. multi-device a process group of one NCCL rank and its 1 x 1 ("data",
+                 "point") mesh. kitti25-rot at N = 10 000: one step of
+                 make_train_step(mesh=...) against make_train_step() from one
+                 state on one B = 2 batch (deterministic algorithms, jittered
+                 warm start, step 100 so that lr > 0): loss within LOSS_RTOL,
+                 grad norm and every gradient tensor within GRAD_RTOL (phase
+                 9's rule), running statistics within STAT_ATOL, parameters
+                 within 2.5 lr; 6 K1 and 6 K2 launches. ring_knn over one
+                 point rank on pair 0's 13 824 candidates x 10 000 points, k =
+                 32: the exact knn's neighbours but for distance ties
+                 (counted). optimize_pose_graph_sharded and
+                 optimize_landmark_ba(mesh=...) on phase 20's 12-frame graph
+                 (64 landmarks seen from every frame): within 0.1 deg / 5e-3
+                 and 0.05 deg / 2e-3 of the unsharded solves. Trainer.fit,
+                 2 steps under the process group with heartbeat_interval
+                 0.5: the heartbeat file, the watchdog's scan, rank 0's
+                 checkpoints, 6 + 6 launches a step; plot --summary on its
+                 metrics file; profile_stages on kitti25-rot beside the
+                 registrar's busy time (printed, with the stages whose
+                 device holds ran out). Then two gloo ranks sharing cuda:0
+                 (NCCL takes one rank a card): all_reduce, broadcast and
+                 all_gather of CUDA tensors give their values in each; B =
+                 1 each of the same batch,
+                 against the single-process B = 2 step: loss within rel
+                 1e-4, grad norm rel 1e-3, RRE 0.05 deg, parameters 2.5 lr,
+                 running statistics 1e-5 of their max, 6 K1 and 6 K2 a rank
+                 (printed by each); the sharded solves over both ranks
+                 within the bounds above; a rank that fails or outlasts its
+                 timeout fails the run. ring_knn over more than one rank is
+                 not run on the card: gloo takes no CUDA tensors for its
+                 point-to-point sends (batch_isend_irecv)
  11. no jax      neither jax nor the JAX package deepvcp_tpu was imported
                  (checked last)
 
@@ -219,6 +253,19 @@ CARD_CPU_RTOL = 1e-4       # FE features and saliency, of their max (unit-scale 
 CARD_CPU_RTOL_25M = 3e-4
 CARD_CPU_POSE = 1e-4       # R and t where the keypoint sets are equal
 MSG_NPOINT = 1024
+# phase 22, multi-device: the sharded step's parameters after one fresh-Adam
+# step may differ by ~lr where a gradient element is rounding-sized
+# (tests/test_parallel.py's bound); the solves' bounds are
+# tests/test_distributed_ba.py's and test_landmark_ba.py's
+SHARDED_PARAM_LR = 2.5
+SHARD_GRAPH_DEG, SHARD_GRAPH_ATOL = 0.1, 5e-3
+SHARD_BA_DEG, SHARD_BA_ATOL = 0.05, 2e-3
+TOOLING_STEPS = 2
+DP_STEP = 100              # kitti25_recipe's warmup_steps: lr at its peak
+# two gloo ranks against the single-process step: tests/test_parallel.py's
+# bounds, and the running statistics within 1e-5 of each tensor's max
+DP_LOSS_RTOL, DP_GRAD_RTOL, DP_RRE_ATOL, DP_STAT_RTOL = 1e-4, 1e-3, 0.05, 1e-5
+TWO_RANK_TIMEOUT_S = 240
 
 
 def fail(msg: str) -> None:
@@ -622,9 +669,7 @@ def train_paths_agree(torch, trainer, step_fn, saved, batch, what: str) -> None:
     # is held to GRAD_RTOL of the global norm instead.
     own = {n: g.abs().max().item() for n, g in grads_p.items()}
     err_kp, err_kk = err(grads_k, grads_p), err(grads_k, grads_k2)
-    scale = {n: own[n] if own[n] >= CANCEL_FRAC * norm_p else norm_p for n in own}
-    rel_kp = {n: e / scale[n] for n, e in err_kp.items()}
-    cancelling = sorted(n for n in own if scale[n] == norm_p)
+    rel_kp, cancelling = grad_rel_errors(err_kp, own, norm_p)
     worst = sorted(rel_kp, key=rel_kp.get)[-4:]
     for n in (sorted(rel_kp) if max(rel_kp.values()) > GRAD_RTOL else worst):
         print(f"  grad {n}: max|g| {own[n]:.3e}, max|dg| kernel vs plain {err_kp[n]:.3e} "
@@ -640,6 +685,16 @@ def train_paths_agree(torch, trainer, step_fn, saved, batch, what: str) -> None:
     if loss_rel > LOSS_RTOL or grad_rel > GRAD_RTOL or stat_err > STAT_ATOL or kk_err != 0.0:
         fail(f"the {what}'s kernel path and plain path disagree, or the kernel path "
              "disagrees with itself")
+
+
+def grad_rel_errors(errors: dict, own: dict, norm: float) -> tuple:
+    """Phase 9's rule for gradient tensors: each tensor's max |error| over
+    its own max |g|, or over the global norm where its max is below
+    CANCEL_FRAC of the norm (a cancelling sum). Returns ({name: relative
+    error}, the cancelling sums' names)."""
+    scale = {n: own[n] if own[n] >= CANCEL_FRAC * norm else norm for n in own}
+    return ({n: e / scale[n] for n, e in errors.items()},
+            sorted(n for n in own if scale[n] == norm))
 
 
 def time_train_step(torch, trainer, step_fn, batches, dev, what: str, reps: int,
@@ -1848,7 +1903,7 @@ def odometry_phase(torch, dev, reg, pairs, card: str) -> dict:
     print(f"  routed registrar, B={ROUTE_B}: vote + weight selection {sel_ms:.4f} ms per call "
           f"({sel_held:.4f} behind a device hold); routed call {r_ms:.3f} ms against its "
           f"expert's {e_ms:.3f} ms (medians of synced calls, 4 turns of 5)")
-    return {"k1": k1}
+    return {"k1": k1, "graph": (graph_cpu, R_ch, t_ch)}
 
 
 def kernel_counters() -> dict:
@@ -2445,6 +2500,374 @@ def engines_phase(torch, dev, pairs, exact: dict) -> dict:
     return total
 
 
+def dp_setup(torch, dev):
+    """Phase 22's step inputs, the same in every process: kitti25-rot under
+    its recipe (fine_tuning), one B = 2 batch of 25 m lidar-like pairs, at
+    step DP_STEP (past the warmup: lr > 0). Returns (trainer, recipe, the
+    saved model and optimizer state, the batch on dev)."""
+    from deepvcp_tpu_torch.data import LidarLikeDataset, batch_iterator
+
+    trainer, tcfg, _, _, saved = fine_tuning("kitti25-rot", {}, 1, dev)
+    data = LidarLikeDataset(num_clouds=2, num_points=N_POINTS, max_range=25.0, seed=12)
+    batch = tuple(torch.from_numpy(a).to(dev) for a in next(batch_iterator(data, 2, seed=0)))
+    return trainer, tcfg, saved, batch
+
+
+def step_result(torch, trainer, step_fn, saved, batch) -> dict:
+    """One step of step_fn from `saved` at DP_STEP on `batch`: its metrics,
+    and the gradients, parameters and running statistics after it (on the
+    CPU)."""
+    model = trainer.model
+    model.load_state_dict(saved[0])
+    trainer.state.optimizer.load_state_dict(saved[1])
+    trainer.state.step = DP_STEP
+    trainer.state, m = step_fn(trainer.state, *batch)
+    torch.cuda.synchronize()
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "grads": {n: p.grad.cpu() for n, p in model.named_parameters()},
+            "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
+            "stats": {n: b.cpu() for n, b in model.named_buffers() if "running" in n}}
+
+
+def sharded_step_agrees(torch, dev, mesh) -> tuple:
+    """Phase 22, the step: make_train_step(mesh=1 x 1) against
+    make_train_step(mesh=None) from one saved kitti25-rot state on one B = 2
+    batch, under deterministic algorithms, with the recipe's jittered warm
+    start. Fails unless the loss agrees within LOSS_RTOL, the grad norm
+    within GRAD_RTOL, every gradient tensor by phase 9's rule, the running
+    statistics within STAT_ATOL, the parameters after the step within
+    SHARDED_PARAM_LR x lr, and the sharded step launches LAUNCHES_PER_CALL
+    K1 and K2. Returns (its launches, the unsharded step's result, lr)."""
+    from deepvcp_tpu_torch.train import make_train_step
+    from deepvcp_tpu_torch.train.optim import learning_rate_schedule
+
+    trainer, tcfg, saved, batch = dp_setup(torch, dev)
+    schedule = learning_rate_schedule(tcfg)
+    model = trainer.model
+    plain = make_train_step(model, schedule, tcfg)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            ref = step_result(torch, trainer, plain, saved, batch)
+            sharded = make_train_step(model, schedule, tcfg, mesh=mesh)
+            got, counts = counted_all(
+                torch, lambda: step_result(torch, trainer, sharded, saved, batch))
+            ms = {what: host_median_ms(torch, lambda: step_result(torch, trainer, fn, saved, batch),
+                                       reps=3)
+                  for what, fn in (("unsharded", plain), ("sharded", sharded))}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    lr = schedule(DP_STEP)
+    m_p, m_s = ref["metrics"], got["metrics"]
+    own = {n: g.abs().max().item() for n, g in ref["grads"].items()}
+    rel, cancelling = grad_rel_errors(
+        {n: (got["grads"][n] - g).abs().max().item() for n, g in ref["grads"].items()},
+        own, m_p["grad_norm"])
+    loss_rel = abs(m_s["loss"] - m_p["loss"]) / abs(m_p["loss"])
+    norm_rel = abs(m_s["grad_norm"] - m_p["grad_norm"]) / m_p["grad_norm"]
+    param_err = max((got["params"][n] - p).abs().max().item() for n, p in ref["params"].items())
+    stat_err = max((got["stats"][n] - s).abs().max().item() for n, s in ref["stats"].items())
+    print(f"sharded train step on a 1 x 1 NCCL mesh vs the unsharded step, kitti25-rot, B=2, "
+          f"N={N_POINTS}, step {DP_STEP} (lr {lr:.3e}): loss {m_s['loss']:.7f} vs "
+          f"{m_p['loss']:.7f} (rel {loss_rel:.2e}), grad norm {m_s['grad_norm']:.6f} vs "
+          f"{m_p['grad_norm']:.6f} (rel {norm_rel:.2e}), every gradient within "
+          f"{max(rel.values()):.2e} of its max ({len(cancelling)} cancelling sums of |g|), "
+          f"parameters after the step max|d| {param_err:.3e}, running statistics max|d| "
+          f"{stat_err:.2e}")
+    print(f"launches in the sharded step: K1 {counts['k1']}, K2 {counts['k2']}; synced step "
+          f"time: sharded {ms['sharded']:.3f} ms, unsharded {ms['unsharded']:.3f} ms (median "
+          f"of 3)")
+    if (loss_rel > LOSS_RTOL or norm_rel > GRAD_RTOL or max(rel.values()) > GRAD_RTOL
+            or stat_err > STAT_ATOL or param_err > SHARDED_PARAM_LR * lr):
+        fail("the sharded step on a 1 x 1 mesh and the unsharded step disagree")
+    if counts["k1"] != LAUNCHES_PER_CALL or counts["k2"] != LAUNCHES_PER_CALL:
+        fail(f"expected {LAUNCHES_PER_CALL} K1 and K2 launches in the sharded step")
+    return counts, ref, lr
+
+
+def ring_on_card(torch, dev, reg, pair, mesh) -> None:
+    """Phase 22, the op: ring_knn over a point group of one rank on
+    kitti25-rot's candidate query of pair 0 (K * C = 13 824 queries, N =
+    10 000, k = num_neighbors) against the port's exact knn: the neighbour
+    sets equal but for rows whose differing members tie in distance
+    (counted)."""
+    from deepvcp_tpu_torch.ops import knn
+    from deepvcp_tpu_torch.ops.distributed import ring_knn
+
+    model = reg.model
+    src, tgt, R_gt, t_gt = pair
+    with torch.no_grad():
+        enc = model.encode(src, tgt)
+        _, cand = model.candidates(enc, R_gt, t_gt)
+    query = cand.reshape(cand.shape[0], -1, 3)
+    k = model.cfg.num_neighbors
+    d_r, i_r = ring_knn(mesh, enc.tgt_xyz, query, k)
+    d_k, i_k = knn(enc.tgt_xyz, query, k)
+    differ = (torch.sort(i_r, dim=-1).values != torch.sort(i_k, dim=-1).values).any(-1)
+    d_err = (d_r - d_k).abs().max().item()
+    ties_ok = bool(torch.equal(torch.sort(d_r[differ], -1).values,
+                               torch.sort(d_k[differ], -1).values))
+    ring_ms = cuda_median_ms(torch, lambda: ring_knn(mesh, enc.tgt_xyz, query, k), reps=10)
+    knn_ms = cuda_median_ms(torch, lambda: knn(enc.tgt_xyz, query, k), reps=10)
+    print(f"ring_knn, one point rank, {query.shape[1]} queries x {enc.tgt_xyz.shape[1]} points, "
+          f"k={k}: rows differing from knn {int(differ.sum())} (each a distance tie: {ties_ok}), "
+          f"distances max|d| {d_err:.2e}; {ring_ms:.3f} ms against knn's {knn_ms:.3f} ms "
+          f"(CUDA events)")
+    if d_err > 0 or not ties_ok:
+        fail("ring_knn over one rank differs from the exact knn beyond distance ties")
+
+
+def solve_inputs(torch, graph, dev) -> tuple:
+    """Phase 22's solves' inputs on dev: phase 20's graph and chained poses
+    (numpy), and 64 points of the sequence's scene seen from every frame at
+    the true poses with 5 mm noise, started 5 cm off: (graph, R0, t0,
+    landmarks0, observations)."""
+    import numpy as np
+
+    from deepvcp_tpu_torch.odometry import LandmarkObs, PoseGraph, chain_poses
+
+    g_np, R0, t0 = graph
+    g = PoseGraph(*(torch.from_numpy(a).to(dev) for a in g_np))
+    scans, R_rel, t_rel = odometry_sequence()
+    R_abs, t_abs = chain_poses(torch.from_numpy(R_rel), torch.from_numpy(t_rel))
+    rng = np.random.default_rng(ODO_SEED)
+    lms = torch.from_numpy(scans[0][rng.choice(N_POINTS, 64, replace=False)])
+    F, L = R_abs.shape[0], lms.shape[0]
+    frame, lm = torch.arange(F).repeat_interleave(L), torch.arange(L).repeat(F)
+    xyz = torch.einsum("oba,ob->oa", R_abs[frame], lms[lm] - t_abs[frame])
+    xyz = xyz + torch.from_numpy(rng.normal(0, 0.005, xyz.shape).astype(np.float32))
+    obs = LandmarkObs(frame.to(dev), lm.to(dev), xyz.to(dev), torch.ones(F * L, device=dev))
+    lm0 = lms + torch.from_numpy(rng.normal(0, 0.05, lms.shape).astype(np.float32))
+    return g, torch.from_numpy(R0).to(dev), torch.from_numpy(t0).to(dev), lm0.to(dev), obs
+
+
+def solves(torch, inputs, mesh) -> dict:
+    """The pose graph (ODO_GN_ITERS iterations) and the landmark BA with the
+    graph (6 iterations), sharded over `mesh` or not (None); on the CPU."""
+    from deepvcp_tpu_torch.odometry import (
+        optimize_landmark_ba, optimize_pose_graph, optimize_pose_graph_sharded)
+
+    g, R0, t0, lm0, obs = inputs
+    if mesh is None:
+        graph = optimize_pose_graph(g, R0, t0, num_iters=ODO_GN_ITERS)
+    else:
+        graph = optimize_pose_graph_sharded(g, R0, t0, mesh, num_iters=ODO_GN_ITERS)
+    ba = optimize_landmark_ba(g, R0, t0, lm0, obs, mesh=mesh, num_iters=6)
+    return {"graph": tuple(a.cpu() for a in graph), "ba": tuple(a.cpu() for a in ba)}
+
+
+def solves_agree(torch, got: dict, want: dict, what: str) -> None:
+    """Fail unless the sharded solves are within SHARD_GRAPH_DEG /
+    SHARD_GRAPH_ATOL (pose graph) and SHARD_BA_DEG / SHARD_BA_ATOL (BA) of
+    the unsharded ones."""
+    from deepvcp_tpu_torch.data import rotation_geodesic_deg
+
+    g_deg = rotation_geodesic_deg(got["graph"][0], want["graph"][0]).max().item()
+    g_err = (got["graph"][1] - want["graph"][1]).abs().max().item()
+    ba_deg = rotation_geodesic_deg(got["ba"][0], want["ba"][0]).max().item()
+    ba_err = max((a - b).abs().max().item() for a, b in zip(got["ba"][1:], want["ba"][1:]))
+    print(f"{what} vs the unsharded solves: pose graph {g_deg:.2e} deg, max|dt| {g_err:.2e}; "
+          f"landmark BA {ba_deg:.2e} deg, max|d| {ba_err:.2e}")
+    if not (g_deg < SHARD_GRAPH_DEG and g_err <= SHARD_GRAPH_ATOL and ba_deg < SHARD_BA_DEG
+            and ba_err <= SHARD_BA_ATOL):
+        fail(f"{what} differ from the unsharded solves")
+
+
+def gloo_on_card(torch, dist, dev) -> None:
+    """In each of two gloo ranks on `dev`: all_reduce and broadcast of CUDA
+    tensors (the collectives of the data-parallel step, BatchNorm, the loss
+    and the sharded solves) and all_gather (ring_knn's, of its index
+    shards) give the values they must; raises otherwise, which fails the
+    rank and the phase."""
+    rank, world = dist.get_rank(), dist.get_world_size()
+    x = torch.full((4,), float(rank + 1), device=dev)
+    dist.all_reduce(x)
+    y = torch.full((4,), float(rank + 1), device=dev)
+    dist.broadcast(y, 0)
+    parts = [torch.empty(4, device=dev) for _ in range(world)]
+    dist.all_gather(parts, torch.full((4,), float(rank), device=dev))
+    want = world * (world + 1) / 2
+    if not (bool((x == want).all()) and bool((y == 1.0).all()) and all(
+            bool((p == r).all()) for r, p in enumerate(parts))):
+        raise RuntimeError(f"gloo collectives on CUDA tensors gave all_reduce {x.tolist()}, "
+                           f"broadcast {y.tolist()}, all_gather {[p.tolist() for p in parts]}")
+    print(f"rank {rank}: gloo all_reduce, broadcast and all_gather on {dev} tensors: right",
+          flush=True)
+
+
+def two_rank_body(graph) -> dict:
+    """One of phase 22's two gloo ranks on cuda:0 (run by
+    parallel.launch.run_ranks): first gloo_on_card's check of the
+    collectives on CUDA tensors, then a 2 x 1 mesh; this rank's B = 1 of
+    dp_setup's batch through make_train_step(mesh=...) (its K1 / K2
+    launches counted and printed), and the sharded solves."""
+    import torch
+    import torch.distributed as dist
+
+    from deepvcp_tpu_torch.parallel import make_mesh, shard_batch
+    from deepvcp_tpu_torch.train import make_train_step
+    from deepvcp_tpu_torch.train.optim import learning_rate_schedule
+
+    dev = torch.device("cuda", 0)
+    gloo_on_card(torch, dist, dev)
+    mesh = make_mesh(device=dev)
+    trainer, tcfg, saved, batch = dp_setup(torch, dev)
+    step = make_train_step(trainer.model, learning_rate_schedule(tcfg), tcfg, mesh=mesh)
+    local = shard_batch(mesh, batch)
+    result, counts = counted_all(torch, lambda: step_result(torch, trainer, step, saved, local))
+    print(f"rank {dist.get_rank()}: K1 {counts['k1']}, K2 {counts['k2']} launches in its step "
+          f"(B={local[0].shape[0]})", flush=True)
+    return {**result, "counts": counts, **solves(torch, solve_inputs(torch, graph, dev), mesh)}
+
+
+def two_ranks_on_card(torch, ref: dict, lr: float, graph, solved: dict) -> dict:
+    """Phase 22, part 2: two gloo ranks sharing cuda:0 (gloo takes CUDA
+    tensors for all_reduce and broadcast, the only collectives of these
+    paths). The data-parallel step, each rank B = 1 of the B = 2 batch,
+    against the single-process B = 2 step `ref`: loss within DP_LOSS_RTOL,
+    grad norm within DP_GRAD_RTOL, RRE within DP_RRE_ATOL, parameters
+    within SHARDED_PARAM_LR x lr, running statistics within DP_STAT_RTOL of
+    each tensor's max, the ranks equal, LAUNCHES_PER_CALL K1 and K2 a rank;
+    the sharded solves against the unsharded `solved`. A rank that fails or
+    outlasts TWO_RANK_TIMEOUT_S fails the phase. Returns the two ranks'
+    launches."""
+    from deepvcp_tpu_torch.parallel.launch import run_ranks
+
+    t0 = time.perf_counter()
+    ranks = run_ranks("chip_smoke:two_rank_body", 2, kwargs={"graph": graph}, device="cuda",
+                      backend="gloo", timeout_s=TWO_RANK_TIMEOUT_S, echo=True)
+    m_p = ref["metrics"]
+    for r, got in enumerate(ranks):
+        m = got["metrics"]
+        loss_rel = abs(m["loss"] - m_p["loss"]) / abs(m_p["loss"])
+        norm_rel = abs(m["grad_norm"] - m_p["grad_norm"]) / m_p["grad_norm"]
+        rre_err = abs(m["rre_deg"] - m_p["rre_deg"])
+        param_err = max((got["params"][n] - p).abs().max().item()
+                        for n, p in ref["params"].items())
+        stat_rel = max((got["stats"][n] - s).abs().max().item() / s.abs().max().item()
+                       for n, s in ref["stats"].items())
+        print(f"rank {r} of 2 (gloo, cuda:0, B=1 each) vs the single-process B=2 step: loss "
+              f"{m['loss']:.7f} vs {m_p['loss']:.7f} (rel {loss_rel:.2e}), grad norm rel "
+              f"{norm_rel:.2e}, RRE {m['rre_deg']:.4f} vs {m_p['rre_deg']:.4f} deg, parameters "
+              f"max|d| {param_err:.3e} ({param_err / lr:.3f} lr), running statistics within "
+              f"{stat_rel:.2e} of their max")
+        if (loss_rel > DP_LOSS_RTOL or norm_rel > DP_GRAD_RTOL or rre_err > DP_RRE_ATOL
+                or param_err > SHARDED_PARAM_LR * lr or stat_rel > DP_STAT_RTOL):
+            fail(f"rank {r}'s data-parallel step disagrees with the single-process step")
+        if got["counts"]["k1"] != LAUNCHES_PER_CALL or got["counts"]["k2"] != LAUNCHES_PER_CALL:
+            fail(f"rank {r}: expected {LAUNCHES_PER_CALL} K1 and K2 launches in its step")
+        solves_agree(torch, got, solved, f"rank {r}'s sharded solves over 2 ranks")
+    if ranks[0]["metrics"] != ranks[1]["metrics"] or any(
+            not torch.equal(ranks[0]["params"][n], ranks[1]["params"][n]) for n in ref["params"]):
+        fail("the two ranks took different steps")
+    print(f"two gloo ranks on cuda:0: {time.perf_counter() - t0:.1f} s, process starts included")
+    return {k: sum(got["counts"][k] for got in ranks) for k in ("k1", "k2")}
+
+
+def tooling_on_card(torch, dev, reg, pair) -> dict:
+    """Phase 22, the tooling: one epoch of TOOLING_STEPS Trainer steps of
+    kitti25-rot under the process group of one rank with heartbeat_interval
+    0.5 (heartbeat file written, the epoch's watchdog scan passed, rank 0's
+    checkpoints written; LAUNCHES_PER_CALL K1 and K2 a step), `plot
+    --summary` on the epoch's metrics file, and profile_stages on
+    kitti25-rot at N = 10 000 beside the registrar's device busy time (a
+    stage whose device holds all ran out is named). Returns the steps'
+    launches."""
+    import contextlib
+    import dataclasses
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from deepvcp_tpu_torch import convert, plot, pretrained
+    from deepvcp_tpu_torch.data import LidarLikeDataset, batch_iterator
+    from deepvcp_tpu_torch.profile_stages import profile_stages, report
+    from deepvcp_tpu_torch.train import Trainer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tcfg = dataclasses.replace(kitti25_recipe(), num_epochs=1, heartbeat_interval=0.5,
+                                   checkpoint_dir=os.path.join(tmp, "ck"),
+                                   metrics_path=os.path.join(tmp, "metrics.jsonl"))
+        trainer = Trainer(pretrained.config("kitti25-rot", N_POINTS), tcfg, device=dev)
+        trainer.setup()
+        trainer.model.load_state_dict(
+            convert.flax_to_torch(pretrained.load_variables("kitti25-rot")), strict=True)
+        data = LidarLikeDataset(num_clouds=TOOLING_STEPS, num_points=N_POINTS, max_range=25.0,
+                                seed=10)
+        batches = list(batch_iterator(data, 1, epoch=0, seed=0))
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            _, counts = counted_all(torch, lambda: trainer.fit(lambda epoch: iter(batches)))
+        hb = os.path.join(tcfg.checkpoint_dir, "heartbeats", "heartbeat_0.json")
+        beat = json.load(open(hb)) if os.path.exists(hb) else None
+        wrote = sorted(f for f in os.listdir(tcfg.checkpoint_dir) if f != "heartbeats")
+        print(f"Trainer.fit under the process group, {TOOLING_STEPS} steps, heartbeat 0.5 s: "
+              f"last beat {beat}, the epoch's watchdog scan passed, rank 0 wrote {wrote}; "
+              f"launches K1 {counts['k1']}, K2 {counts['k2']}")
+        if beat is None or beat["process_id"] != 0 or "latest.json" not in wrote:
+            fail("Trainer.fit with a heartbeat wrote no heartbeat or no checkpoint")
+        if counts["k1"] != LAUNCHES_PER_CALL * TOOLING_STEPS or \
+                counts["k2"] != LAUNCHES_PER_CALL * TOOLING_STEPS:
+            fail(f"expected {LAUNCHES_PER_CALL} K1 and K2 launches per Trainer step")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            plot.main([tcfg.metrics_path, "--summary"])
+        summary = [json.loads(line) for line in out.getvalue().splitlines()]
+        print(f"plot --summary: {summary}")
+        if [r["kind"] for r in summary] != ["epoch"] or not np.isfinite(summary[0]["loss"]):
+            fail(f"plot --summary printed {summary}")
+
+    result = profile_stages(reg.model, 1, dev, reps=10)
+    print(f"profile_stages, kitti25-rot, N={N_POINTS}, B=1 (CUDA events behind a device hold):")
+    print(report(result))
+    host = [n for n, r in result["roofline"].items() if r["bound"] == "host"]
+    print(f"profile_stages: stages timed by the host (every hold ran out): {host or 'none'}")
+    src, tgt = pair[0], pair[1]
+    busy, _ = device_time_per_call(torch, lambda: reg(src, tgt), calls=3)
+    print(f"profile_stages sum {sum(result['stages_ms'].values()):.3f} ms (each stage once; the "
+          f"flat and the two-level grouping both) | kitti25-rot registrar call, refine_iters "
+          f"{reg.refine_iters}: device busy {busy:.3f} ms")
+    return counts
+
+
+def multi_device_phase(torch, dev, reg, pairs, odo) -> dict:
+    """Phase 22: the multi-device modules on one card. Part 1, a process
+    group of one NCCL rank and its 1 x 1 ("data", "point") mesh: the
+    sharded train step, ring_knn, the sharded pose graph and BA, and the
+    tooling. Part 2, two gloo ranks sharing cuda:0: the data-parallel step
+    and the sharded solves across ranks (NCCL takes one rank a card; ring_knn
+    over more than one point rank needs point-to-point sends, which gloo
+    does not take on CUDA tensors, so it is held on the CPU by the tests).
+    Returns the K1 / K2 launches of its gated steps."""
+    import torch.distributed as dist
+
+    from deepvcp_tpu_torch.parallel import initialize_multihost, make_mesh
+    from deepvcp_tpu_torch.parallel.launch import free_port
+
+    t0 = time.perf_counter()
+    g_cpu, R_ch, t_ch = odo["graph"]
+    graph = (tuple(a.numpy() for a in g_cpu), R_ch.numpy(), t_ch.numpy())
+    initialize_multihost(f"localhost:{free_port()}", 1, 0, device=dev, timeout_s=120)
+    try:
+        print(f"process group: backend {dist.get_backend()}, world {dist.get_world_size()}")
+        mesh = make_mesh(1, 1, device=dev)
+        step, ref, lr = sharded_step_agrees(torch, dev, mesh)
+        ring_on_card(torch, dev, reg, pairs[0], mesh)
+        inputs = solve_inputs(torch, graph, dev)
+        solved = solves(torch, inputs, None)
+        solves_agree(torch, solves(torch, inputs, mesh), solved,
+                     f"sharded solves on a 1 x 1 mesh ({inputs[0].edges_i.numel()} edges, "
+                     f"{inputs[4].frame.numel()} landmark observations)")
+        tools = tooling_on_card(torch, dev, reg, pairs[0])
+    finally:
+        dist.destroy_process_group()
+    two = two_ranks_on_card(torch, ref, lr, graph, solved)
+    print(f"phase 22: {time.perf_counter() - t0:.1f} s")
+    return {k: step[k] + tools[k] + two[k] for k in ("k1", "k2")}
+
+
 def main() -> None:
     started = time.perf_counter()
     # cuBLAS reads this when it starts; the train-path comparison (phase 9)
@@ -2537,6 +2960,10 @@ def main() -> None:
     # plain two-level gather, MSG / FP, windowed training, --save-vis
     eng = engines_phase(torch, dev, pairs, exact)
 
+    # 22. multi-device: the sharded step, ring_knn, the sharded solves and
+    # the tooling over a process group of one NCCL rank
+    multi = multi_device_phase(torch, dev, reg, pairs, odo)
+
     (k1_bound, k1_by), (k2_bound, k2_by) = band["k1_bound"], band["k2_bound"]
     print(f"bounds at the 3 serving SA shapes: K1 {k1_bound:.5f} ms ({k1_by}), K2 {k2_bound:.5f} "
           f"ms ({k2_by}); K3 at one init call's 2 shapes {k3['bound_ms']:.5f} ms "
@@ -2554,14 +2981,15 @@ def main() -> None:
     # pass, or one FE backward), K3 sums at the 2 shapes of one init call,
     # K4 and K5 at the two-level path's shapes (library_ms: torch.gather,
     # torch.scatter_add); launches: the main-path runs' (serving, training,
-    # global, two-level serving and training, odometry, the engines)
+    # global, two-level serving and training, odometry, the engines,
+    # multi-device)
     print(json.dumps({"kernels": [{
         "name": "banded_masked_max",
         "route": "cuda",
         "source": "deepvcp_tpu_torch/csrc/band_max.cu",
         "replaces": "deepvcp_tpu/ops/pallas/band_max_kernel.py:148",
         "launches": (launches + train["k1"] + glob["k1"] + two["k1"] + two_train["k1"]
-                     + odo["k1"] + eng["k1"]),
+                     + odo["k1"] + eng["k1"] + multi["k1"]),
         "max_abs_err": band["k1_err"],
         "ms": band["k1_ms"],
         "plain_ms": band["k1_plain_ms"],
@@ -2573,7 +3001,7 @@ def main() -> None:
         "route": "cuda",
         "source": "deepvcp_tpu_torch/csrc/band_max_grad.cu",
         "replaces": "deepvcp_tpu/ops/pallas/band_max_kernel.py:267",
-        "launches": train["k2"] + two_train["k2"] + eng["k2"],
+        "launches": train["k2"] + two_train["k2"] + eng["k2"] + multi["k2"],
         "max_abs_err": band["k2_err"],
         "ms": band["k2_ms"],
         "plain_ms": band["k2_plain_ms"],

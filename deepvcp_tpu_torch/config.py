@@ -231,5 +231,5 @@ class TrainConfig:
     checkpoint_every_epochs: int = 1
     metrics_path: str = "metrics.jsonl"
     log_every: int = 5
-    heartbeat_interval: float = 0.0  # > 0: multi-host heartbeat (M11)
+    heartbeat_interval: float = 0.0  # > 0: heartbeat and watchdog in Trainer.fit
     heartbeat_stale_after: float = 120.0

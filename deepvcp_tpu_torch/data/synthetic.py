@@ -95,12 +95,16 @@ class LidarLikeDataset(SyntheticDataset):
 
 
 def batch_iterator(dataset, batch_size: int, epoch: int = 0, seed: int = 0,
-                   shuffle: bool = True) -> Iterator[Tuple[np.ndarray, ...]]:
+                   shuffle: bool = True, host_id: int = 0,
+                   num_hosts: int = 1) -> Iterator[Tuple[np.ndarray, ...]]:
     """Yield (src [B,N,3], tgt [B,N,3], R [B,3,3], t [B,3]) numpy batches,
-    each pair seeded by (seed, epoch, index); drops a ragged last batch."""
+    each pair seeded by (seed, epoch, index); drops a ragged last batch.
+    With num_hosts > 1 each host (data rank) reads the disjoint stride
+    host_id::num_hosts of the shuffled index stream."""
     order = np.arange(len(dataset))
     if shuffle:
         np.random.default_rng((seed, epoch)).shuffle(order)
+    order = order[host_id::num_hosts]
     for start in range(0, len(order) - len(order) % batch_size, batch_size):
         pairs = [dataset.sample(int(i), np.random.default_rng((seed, epoch, int(i))))
                  for i in order[start:start + batch_size]]

@@ -49,17 +49,32 @@ def svd_refine(x: torch.Tensor, y_pred: torch.Tensor, inlier_ratio: float = 0.8,
 def deepvcp_loss(x: torch.Tensor, y_pred: torch.Tensor, R_true: torch.Tensor,
                  t_true: torch.Tensor, alpha: float = 0.5, inlier_ratio: float = 0.8,
                  weights: Optional[torch.Tensor] = None, vcp_weight: float = 0.0,
-                 rot_weight: float = 0.0) -> RegistrationResult:
+                 rot_weight: float = 0.0, group=None) -> RegistrationResult:
     """alpha * L1(y_true_in, y2) + (1 - alpha) * |mean(y2 - y_true_in)| on the
     trimmed inliers, with y2 their second-pass fit; plus vcp_weight * the
     mean per-keypoint L1 of the VCPs and rot_weight * the mean
     sqrt(||R2 - R_true||_F^2 + 1e-12). x, y_pred [B, N, 3] keypoints and
-    VCPs; R_true [B, 3, 3], t_true [B, 3]; weights [B, N] or None."""
+    VCPs; R_true [B, 3, 3], t_true [B, 3]; weights [B, N] or None.
+
+    `group`: a process group whose ranks hold the other pairs of the batch.
+    The mean residual is then the batch's: its signed sum and count are
+    all-reduced over the group (with autograd) before the absolute value;
+    each rank's mean of its own would give another loss and gradient. The
+    other terms stay this rank's means, which equal shards average into the
+    batch's (so does the loss: its mean over the group is the batch's)."""
     ref = svd_refine(x, y_pred, inlier_ratio, weights)
     y2 = apply_rigid(ref.x_in, ref.R, ref.t)
     y_true_in = apply_rigid(ref.x_in, R_true, t_true)
     l1 = torch.mean(torch.abs(y_true_in - y2))
-    mean_res = torch.abs(torch.mean(y2 - y_true_in))
+    residual = y2 - y_true_in
+    if group is None:
+        mean_res = torch.abs(torch.mean(residual))
+    else:
+        from torch.distributed.nn.functional import all_reduce
+
+        sums = all_reduce(torch.stack([residual.sum(), residual.new_tensor(residual.numel())]),
+                          group=group)
+        mean_res = torch.abs(sums[0] / sums[1])
     vcp_l1 = torch.mean(torch.abs(apply_rigid(x, R_true, t_true) - y_pred))
     # the +1e-12 keeps the gradient bounded at zero rotation error
     rot_fro = torch.mean(torch.sqrt(

@@ -6,7 +6,10 @@ reference's), the candidates' target neighbourhoods from the flat candidate
 KNN and the fused [N, 3+F] gather, or from the two-level grouping
 (`tgt_knn="two_level"`, ops/two_level.py, kernels K4/K5 or, with
 use_pallas_onehot_gather=False, torch.gather), and derotated target
-neighbourhoods (D14). compute_dtype="bfloat16" runs the MLPs, the DFE and
+neighbourhoods (D14). With a `knn_mesh` whose "point" group has more than
+one rank, the candidate KNN runs as the ring over that group
+(ops/distributed.ring_knn), ahead of the two-level and flat branches, as in
+JAX. compute_dtype="bfloat16" runs the MLPs, the DFE and
 the CPG in bf16 with f32 parameters, as flax's dtype=bf16 modules do.
 
 The forward is split at the warm start. `encode` is everything that does not
@@ -54,12 +57,24 @@ class DeepVCP(nn.Module):
     JAX `apply(..., train=False)`; under `train()` the JAX `apply(...,
     train=True, mutable=["batch_stats"])`: BatchNorm on batch statistics,
     with the shared FE's running statistics updated once per cloud, source
-    first, as the two FE calls of the JAX forward do."""
+    first, as the two FE calls of the JAX forward do.
 
-    def __init__(self, cfg: DeepVCPConfig):
+    `knn_mesh`: an optional ("data", "point") mesh (parallel.make_mesh).
+    Where its point group has P > 1 ranks that divide N and K*C (and
+    ns <= N / P), the candidate KNN runs as the exact ring KNN over that
+    group; other shapes take the single-device engines, as JAX's static
+    gate does. A rank passes
+    its own pairs (in the sharded train step, its data shard), so the ring
+    runs over the point group only: JAX's batch_axis="data" makes its
+    shard_map compose with a batch already split over "data", which a
+    rank's arrays are here. Every rank of the point group gets every
+    candidate's neighbours for the gather that follows."""
+
+    def __init__(self, cfg: DeepVCPConfig, knn_mesh=None):
         super().__init__()
         cfg = cfg.resolve()
         self.cfg = cfg
+        self.knn_mesh = knn_mesh
         dt = compute_dtype(cfg)
         self.fe = FeatureExtraction(cfg)
         self.wl = WeightingLayer(cfg.wl_mlp, cfg.feat_dim, dtype=dt)
@@ -75,6 +90,16 @@ class DeepVCP(nn.Module):
                               select_dtype=cfg.knn_select_dtype_effective)
         return knn(ref, query, cfg.num_neighbors,
                    chunk=cfg.query_chunk if chunked else None)
+
+    def _use_ring(self, n_ref: int, n_query: int, k: int) -> bool:
+        """The ring's gate: a point group of P > 1 ranks that divides both
+        clouds, with k <= n_ref / P."""
+        if self.knn_mesh is None:
+            return False
+        from deepvcp_tpu_torch.parallel.mesh import POINT_AXIS, axis_size
+
+        p = axis_size(self.knn_mesh, POINT_AXIS)
+        return p > 1 and n_ref % p == 0 and n_query % p == 0 and k <= n_ref // p
 
     def features(self, pts: torch.Tensor) -> torch.Tensor:
         """FE of one cloud [B, N, 3(+3)] -> [B, N, F]."""
@@ -145,10 +170,17 @@ class DeepVCP(nn.Module):
     def candidate_neighbors(self, enc: Encoding, kp_warm: torch.Tensor,
                             candidates: torch.Tensor) -> torch.Tensor:
         """Each candidate's ns nearest target rows (xyz ++ features):
-        [B, K*C, ns, 3+F], from the flat KNN over the whole target cloud or
-        from the two-level per-keypoint tables."""
+        [B, K*C, ns, 3+F], from the ring KNN over the knn_mesh's point
+        group, the flat KNN over the whole target cloud or the two-level
+        per-keypoint tables."""
         cfg = self.cfg
         B, K, C, _ = candidates.shape
+        if self._use_ring(enc.tgt_xyz.shape[1], K * C, cfg.num_neighbors):
+            from deepvcp_tpu_torch.ops.distributed import ring_knn
+
+            _, idx = ring_knn(self.knn_mesh, enc.tgt_xyz, candidates.reshape(B, K * C, 3),
+                              cfg.num_neighbors)
+            return index_points(enc.tgt_table, idx)
         if cfg.use_two_level_tgt_knn:
             rows = two_level_rows(enc.tgt_xyz, enc.tgt_table, kp_warm, candidates,
                                   cfg.num_neighbors, **self.two_level_args())

@@ -24,6 +24,8 @@ xla_banded_max does on any backend.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional
 
 import numpy as np
@@ -38,6 +40,8 @@ from deepvcp_tpu_torch.ops.kernels.band_max import (
 
 BN_EPS = 1e-5        # flax.linen.BatchNorm's defaults
 BN_MOMENTUM = 0.99   # flax's: running = 0.99 * running + 0.01 * batch
+# the process group batch_norm reduces its training statistics over
+_BN_GROUP: contextvars.ContextVar = contextvars.ContextVar("batch_norm_group", default=None)
 # elements of one [B, tiles, w, w, C] block of the static band
 _BAND_BLOCK = 1 << 25
 
@@ -216,7 +220,19 @@ def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor, training: bool,
     at 0), and the running statistics move as running = 0.99 * running +
     0.01 * batch, biased variance included. F.batch_norm(training=True) would
     fold the unbiased variance into running_var, so the update is written
-    out here. dtype float32 keeps the input's own (at least f32) precision."""
+    out here. dtype float32 keeps the input's own (at least f32) precision.
+
+    Inside `with batch_norm_group(group)`, whose ranks hold the other rows
+    of the batch (flax's axis_name), the row counts are summed over it, then each rank's
+    E[x] and E[x^2] weighted by its share of the rows, summed through
+    torch.distributed.nn so that the gradient flows back to every rank's
+    rows: the sums of x and x^2 over the count, so the formulas above give
+    the statistics of the whole batch on every rank. Weighting the rank's
+    own means (rather than summing x) leaves a group of one rank
+    bit-identical to no group: in f32, E[x^2] - E[x]^2 cancels so much on
+    25 m clouds that a 1-ulp change of the statistics moves the deepest
+    stage's gradients by ~1e-2 of their max. nn.SyncBatchNorm would use
+    torch's momentum and the unbiased variance."""
     x = x.to(torch.promote_types(x.dtype, torch.float32))
     out = x.dtype if dtype == torch.float32 else dtype
     if not training:
@@ -226,11 +242,35 @@ def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor, training: bool,
         return y.reshape(shape).to(out)
     axes = tuple(range(x.dim() - 1))
     mean = x.mean(dim=axes)
-    var = torch.clamp_min((x * x).mean(dim=axes) - mean * mean, 0.0)
+    mean_sq = (x * x).mean(dim=axes)
+    group = _BN_GROUP.get()
+    if group is not None:
+        import torch.distributed as dist
+        from torch.distributed.nn.functional import all_reduce
+
+        rows = x.numel() // x.shape[-1]
+        total = x.new_full((1,), rows)
+        dist.all_reduce(total, group=group)
+        stats = all_reduce(torch.cat([mean, mean_sq]) * (rows / total), group=group)
+        mean, mean_sq = stats.chunk(2)
+    var = torch.clamp_min(mean_sq - mean * mean, 0.0)
     with torch.no_grad():
         bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1.0 - BN_MOMENTUM) * mean)
         bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1.0 - BN_MOMENTUM) * var)
     return ((x - mean) * (torch.rsqrt(var + BN_EPS) * bn.weight) + bn.bias).to(out)
+
+
+@contextlib.contextmanager
+def batch_norm_group(group):
+    """Within the block, training-mode batch_norm reduces its statistics
+    over the process group `group` (None: this rank's rows only). The
+    train step that owns the group opens the block around its forward; the
+    backward needs no block (the reductions' autograd holds the group)."""
+    token = _BN_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _BN_GROUP.reset(token)
 
 
 class BandedSetAbstraction(nn.Module):

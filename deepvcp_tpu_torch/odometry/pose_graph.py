@@ -13,6 +13,11 @@ does: log_so3's branches at theta = 0 hold an infinite arccos derivative,
 which forward mode's torch.where selects away and reverse mode would
 multiply by 0 into NaN. Solves use torch.linalg.solve_ex / inv_ex, so the
 card does not wait on an error check each iteration.
+
+The sharded variants split the edges (or the landmark observations) over a
+mesh's "data" group: each rank builds the normal equations of its shard,
+they are all-reduced (summed) over the group, and every rank solves the
+whole system, as the JAX package's psum over its "data" axis.
 """
 
 from __future__ import annotations
@@ -23,10 +28,6 @@ import numpy as np
 import torch
 
 from deepvcp_tpu_torch.ops import apply_rigid, kabsch
-
-_M11 = ("not ported yet: the sharded pose graph and bundle adjustment wait for "
-        "ROADMAP M11 (multi-device)")
-
 
 # --- SO(3) -------------------------------------------------------------------
 
@@ -184,10 +185,69 @@ def optimize_pose_graph(
     return R_abs, t_abs
 
 
-def optimize_pose_graph_sharded(*args, **kwargs):
-    """Edge-sharded Gauss-Newton over a device mesh (JAX package's
-    optimize_pose_graph_sharded)."""
-    raise NotImplementedError(f"optimize_pose_graph_sharded is {_M11}")
+def _data_shard(mesh):
+    """(group, size, index) of this rank along the mesh's "data" dim."""
+    from deepvcp_tpu_torch.parallel.mesh import DATA_AXIS, axis_group, axis_index, axis_size
+
+    return axis_group(mesh, DATA_AXIS), axis_size(mesh, DATA_AXIS), axis_index(mesh, DATA_AXIS)
+
+
+def _my_shard(parts: Sequence[torch.Tensor], pads: Sequence[torch.Tensor], size: int,
+              index: int) -> list:
+    """Each of `parts` (a leading entry axis of one length E) padded with
+    the matching `pads` row repeated to a multiple of `size` entries, and
+    this rank's contiguous 1/size of it."""
+    E = parts[0].shape[0]
+    pad = (-E) % size
+    per = (E + pad) // size
+    return [torch.cat([a, p.expand(pad, *p.shape).to(a)])[index * per:(index + 1) * per]
+            for a, p in zip(parts, pads)]
+
+
+def _sum_over(group, tensors: Sequence[torch.Tensor]) -> list:
+    """`tensors` summed over the process group, in one all-reduce."""
+    import torch.distributed as dist
+
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    return [part.view_as(t) for t, part in zip(tensors, torch.split(flat, [t.numel() for t in tensors]))]
+
+
+def optimize_pose_graph_sharded(
+    graph: PoseGraph,
+    R_init: torch.Tensor,
+    t_init: torch.Tensor,
+    mesh,
+    num_iters: int = 20,
+    damping: float = 1e-3,
+    rot_weight: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """optimize_pose_graph with the edges split over the mesh's "data"
+    group: every rank passes the whole graph and initial poses, builds
+    H = sum_e J_e^T J_e and g = sum_e J_e^T r_e over its shard of the edges,
+    the parts are summed over the group, and every rank solves the dense
+    system. Edges are padded to a multiple of the group's size with
+    zero-weight self-edges (0, 0, I, 0, w = 0), exact no-ops. Returns the
+    same (R_abs, t_abs) on every rank."""
+    group, size, index = _data_shard(mesh)
+    F = R_init.shape[0]
+    dev = R_init.device
+    eye = torch.eye(3, dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    zero_i = torch.zeros((), dtype=graph.edges_i.dtype, device=dev)
+    shard = PoseGraph(*_my_shard(
+        [graph.edges_i, graph.edges_j, graph.R_meas.to(torch.float32),
+         graph.t_meas.to(torch.float32), graph.weights.to(torch.float32)],
+        [zero_i, zero_i, eye, zero.expand(3), zero], size, index))
+    pin = _pinned(F, dev)
+    damp = damping * torch.eye(F * 6, dtype=torch.float32, device=dev)
+    R_abs, t_abs = R_init.to(torch.float32), t_init.to(torch.float32)
+    for _ in range(num_iters):
+        H, g = _sum_over(group, _graph_normal_equations(shard, R_abs, t_abs, pin, rot_weight))
+        delta = -_solve(H + damp, g).reshape(F, 6)
+        R_abs = R_abs @ exp_so3(delta[:, :3] * pin)
+        t_abs = t_abs + delta[:, 3:] * pin
+    return R_abs, t_abs
 
 
 # --- trajectory metrics --------------------------------------------------------------
@@ -275,12 +335,24 @@ def optimize_landmark_ba(
         S = Hpp - Hpl Hll^-1 Hlp,  S dx_p = -(gp - Hpl Hll^-1 gl)
     then back-substitutes dx_l = -Hll^-1 (gl + Hlp dx_p). The optional pose
     graph adds its edges' terms to Hpp / gp. Node 0 is pinned. Returns
-    (R_abs, t_abs, landmarks). `mesh` (sharded observations) waits for
-    ROADMAP M11."""
-    if mesh is not None:
-        raise NotImplementedError(f"optimize_landmark_ba(mesh=...) is {_M11}")
+    (R_abs, t_abs, landmarks).
+
+    With a `mesh`, the observations are split over its "data" group (padded
+    to a multiple of its size with zero-weight observations of landmark 0
+    in frame 0), each rank sums its shard's blocks Hpp, Hpl, Hll, gp and gl,
+    they are summed over the group, and every rank solves the reduced
+    system; every rank passes all the observations and gets the same
+    result."""
     N, L = R_init.shape[0], landmarks_init.shape[0]
     dev = R_init.device
+    group = None
+    if mesh is not None:
+        group, size, index = _data_shard(mesh)
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        zero_i = torch.zeros((), dtype=obs.frame.dtype, device=dev)
+        obs = LandmarkObs(*_my_shard(
+            [obs.frame, obs.lm, obs.xyz.to(torch.float32), obs.weights.to(torch.float32)],
+            [zero_i, zero_i.to(obs.lm.dtype), zero.expand(3), zero], size, index))
     pin = _pinned(N, dev)
     eye3 = torch.eye(3, dtype=torch.float32, device=dev)
     damp = damping * torch.eye(N * 6, dtype=torch.float32, device=dev)
@@ -289,6 +361,8 @@ def optimize_landmark_ba(
     lms = landmarks_init.to(torch.float32)
     for _ in range(num_iters):
         Hpp_o, Hpl, Hll, gp, gl = _ba_normal_equations(R_abs, t_abs, lms, obs, N, L)
+        if group is not None:
+            Hpp_o, Hpl, Hll, gp, gl = _sum_over(group, (Hpp_o, Hpl, Hll, gp, gl))
         # node 0 is pinned: its landmark-term blocks are zero by definition
         Hpp_o, gp = Hpp_o * pin[:, :, None], gp * pin
         Hpl = Hpl.reshape(N, L, 6, 3) * pin[:, :, None, None]

@@ -3,6 +3,7 @@ package's on the same numpy inputs: SO(3) maps, pose chaining, the pose
 graph and its Gauss-Newton, landmark bundle adjustment, trajectory metrics,
 register_sequence and run_odometry, and the CLI."""
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -138,9 +139,34 @@ def test_optimize_pose_graph_perfect_graph_stays_put():
     np.testing.assert_allclose(t_t.numpy(), t_abs, atol=1e-2)
 
 
+@contextlib.contextmanager
+def _world_of_one():
+    """A gloo process group of this process alone and its 1 x 1 mesh, torn
+    down after."""
+    import torch.distributed as dist
+
+    from deepvcp_tpu_torch.parallel import initialize_multihost, make_mesh
+    from deepvcp_tpu_torch.parallel.launch import free_port
+
+    initialize_multihost(f"localhost:{free_port()}", 1, 0, device="cpu")
+    try:
+        yield make_mesh(1, 1, device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
 def test_sharded_paths_wait_for_m11():
-    with pytest.raises(NotImplementedError, match="M11"):
-        tpg.optimize_pose_graph_sharded(None, None, None, mesh=None)
+    """The edge-sharded pose graph on a 1 x 1 mesh (one data rank: the whole
+    graph, a sum over one rank) is the dense solve, bit for bit, on the
+    noisy loop graph."""
+    _, _, R_rel, t_rel, extra = _noisy_loop_graph()
+    g = tpg.build_graph(_t(R_rel), _t(t_rel), extra_edges=extra)
+    R0, t0 = tpg.chain_poses(_t(R_rel), _t(t_rel))
+    want = tpg.optimize_pose_graph(g, R0, t0, num_iters=8)
+    with _world_of_one() as mesh:
+        got = tpg.optimize_pose_graph_sharded(g, R0, t0, mesh, num_iters=8)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
 def _ba_scene(rng, F=6, L=40, obs_noise=0.005):
@@ -189,8 +215,12 @@ def test_optimize_landmark_ba_matches_jax(with_graph):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=GN_ATOL)
     np.testing.assert_allclose(got[1].numpy(), t_abs, atol=0.02)
     np.testing.assert_allclose(got[2].numpy(), lms, atol=0.05)
-    with pytest.raises(NotImplementedError, match="M11"):
-        tpg.optimize_landmark_ba(g_t, _t(R0), _t(t0), _t(lm0), obs_t, mesh=object())
+    # the observations on a 1 x 1 mesh: the same solve
+    with _world_of_one() as mesh:
+        sharded = tpg.optimize_landmark_ba(g_t, _t(R0), _t(t0), _t(lm0), obs_t, mesh=mesh,
+                                           num_iters=6)
+    for a, b in zip(sharded, got):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
 def test_trajectory_metrics_match_jax():

@@ -12,6 +12,7 @@ forgives but the static-band backward sums, so on CPU the JAX SA gradients
 are three times the exact ones.
 """
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -483,14 +484,64 @@ def test_trainer_checkpoint_round_trip_and_resume(tmp_path):
             str(tmp_path / "full" / "final"))
 
 
+@contextlib.contextmanager
+def _world_of_one():
+    """A gloo process group of this process alone and its 1 x 1 mesh, torn
+    down after."""
+    import torch.distributed as dist
+
+    from deepvcp_tpu_torch.parallel import initialize_multihost, make_mesh
+    from deepvcp_tpu_torch.parallel.launch import free_port
+
+    initialize_multihost(f"localhost:{free_port()}", 1, 0, device="cpu")
+    try:
+        yield make_mesh(1, 1, device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
 def test_trainer_refuses_what_is_not_ported(tmp_path):
-    tr = _trainer(tmp_path, "x", epochs=1)
-    with pytest.raises(NotImplementedError, match="M11"):
-        from deepvcp_tpu_torch.train import make_train_step
-        make_train_step(tr.model, lambda step: 1e-3, tr.cfg, mesh=object())
-    tr.cfg = dataclasses.replace(tr.cfg, heartbeat_interval=1.0)
-    with pytest.raises(NotImplementedError, match="M11"):
+    """What was refused before the multi-device port: the step of
+    make_train_step(mesh=...) on a 1 x 1 mesh equals the unsharded step over
+    two steps (warmup lr 0, then lr > 0; jittered warm starts): loss and
+    grad norm within LOSS_RTOL, parameters within 2.5 lr (a fresh Adam moves
+    a rounding-level gradient by ~lr either way); the step's BatchNorm group
+    does not outlive the step (an unsharded step of the same model runs
+    after the group is gone); and Trainer.fit with a heartbeat under the
+    process group writes its heartbeat file and rank 0's checkpoints."""
+    from deepvcp_tpu_torch.train import make_train_step
+
+    plain, sharded = _trainer(tmp_path, "plain", epochs=1), _trainer(tmp_path, "sharded", epochs=1)
+    batches = [tuple(torch.from_numpy(a) for a in b) for b in _train_batches(0)][:2]
+    with _world_of_one() as mesh:
+        steps = {"plain": make_train_step(plain.model, learning_rate_schedule(plain.cfg), plain.cfg),
+                 "sharded": make_train_step(sharded.model, learning_rate_schedule(sharded.cfg),
+                                            sharded.cfg, mesh=mesh)}
+        metrics = {k: [] for k in steps}
+        for name, tr in (("plain", plain), ("sharded", sharded)):
+            for batch in batches:
+                tr.state, m = steps[name](tr.state, *batch)
+                metrics[name].append({k: float(v) for k, v in m.items()})
+        for a, b in zip(metrics["plain"], metrics["sharded"]):
+            assert b["loss"] == pytest.approx(a["loss"], rel=LOSS_RTOL)
+            assert b["grad_norm"] == pytest.approx(a["grad_norm"], rel=LOSS_RTOL)
+        lr = learning_rate_schedule(plain.cfg)(1)
+        assert lr > 0
+        for (n, p), q in zip(plain.model.named_parameters(), sharded.model.parameters()):
+            np.testing.assert_allclose(q.detach().numpy(), p.detach().numpy(),
+                                       atol=2.5 * lr, err_msg=n)
+
+        tr = _trainer(tmp_path, "heartbeat", epochs=1)
+        tr.cfg = dataclasses.replace(tr.cfg, heartbeat_interval=0.2)
+        tr.setup()
         tr.fit(_train_batches)
+    after = make_train_step(sharded.model, learning_rate_schedule(sharded.cfg), sharded.cfg)
+    sharded.state, m = after(sharded.state, *batches[0])
+    assert np.isfinite(float(m["loss"]))
+    ckpt = tmp_path / "heartbeat"
+    assert (ckpt / "heartbeats" / "heartbeat_0.json").exists()
+    assert (ckpt / "final").exists() and (ckpt / "epoch_0").exists()
+    assert json.load(open(ckpt / "latest.json"))["step"] == 4
 
 
 def _cli(tmp_path, *args):
