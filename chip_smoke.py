@@ -44,7 +44,11 @@ way:
   7. timing      per-call latency and a CUDA-event stage split (printed only)
   8. training    12 steps from kitti25-rot: finite loss and grad norm, step 0
                  (warmup lr 0) leaves the parameters as they were and later
-                 steps change them, 6 K1 and 6 K2 launches per step
+                 steps change them, 6 K1 and 6 K2 launches per step. The 12
+                 steps again from the same start, by default and twice under
+                 deterministic algorithms: whether the two deterministic
+                 runs end bit-identical, the time a step of each mode, the
+                 GT-free accuracy after each run (printed only)
   9. train paths one step from kitti25-rot through the kernels against the
                  same step through the plain versions, under deterministic
                  algorithms: loss
@@ -178,7 +182,14 @@ way:
                  1e-4, grad norm rel 1e-3, RRE 0.05 deg, parameters 2.5 lr,
                  running statistics 1e-5 of their max, 6 K1 and 6 K2 a rank
                  (printed by each); the sharded solves over both ranks
-                 within the bounds above; a rank that fails or outlasts its
+                 within the bounds above. Then the point-partitioned step
+                 on a 1 x 2 mesh, both ranks the whole B = 2 batch and each
+                 half of the per-point work (models.point_partition: the
+                 model's gate must pass), against the same single-process
+                 step with the same bounds, the ranks equal, 6 K1 and 6 K2
+                 a rank; each rank's peak memory beside the single-process
+                 step's, its synced step time and the card's name and power
+                 limit (printed). A rank that fails or outlasts its
                  timeout fails the run. ring_knn over more than one rank is
                  not run on the card: gloo takes no CUDA tensors for its
                  point-to-point sends (batch_isend_irecv)
@@ -512,11 +523,11 @@ def train_step_split(torch, step_fn, state, model, batch):
 def train_phase(torch, dev, pairs) -> dict:
     """Phases 8-10: fine-tune kitti25-rot for TRAIN_STEPS steps through the
     Trainer, hold one step's kernel path against its plain path, and time
-    the step. Returns the K1 and K2 launch counts of the 12 gated steps."""
+    the step; then the fine-tuning steps again, by default and twice under
+    deterministic algorithms (fine_tuning_repeats, printed). Returns the K1
+    and K2 launch counts of the 12 gated steps."""
     import numpy as np
 
-    from deepvcp_tpu_torch import pretrained
-    from deepvcp_tpu_torch.data import rotation_geodesic_deg, translation_error
     from deepvcp_tpu_torch.ops.kernels import band_max
     from deepvcp_tpu_torch.train import build_train_step
     from deepvcp_tpu_torch.train.optim import learning_rate_schedule
@@ -559,15 +570,10 @@ def train_phase(torch, dev, pairs) -> dict:
         fail(f"expected {LAUNCHES_PER_CALL} K1 and K2 launches per train step")
 
     # the fine-tuned model through the Registrar on the held pairs (not gated)
-    reg = pretrained.registrar("kitti25-rot", device=dev)
-    reg.model.load_state_dict(trainer.model.state_dict(), strict=True)
-    rre, rte = [], []
-    for src, tgt, R_gt, t_gt in pairs:
-        out = reg(src, tgt)
-        rre.append(rotation_geodesic_deg(out.R, R_gt).item())
-        rte.append(translation_error(out.t, t_gt).item())
+    rre, rte = held_accuracy(torch, dev, trainer.model, pairs)
     print(f"after {TRAIN_STEPS} fine-tuning steps, GT-free over {len(pairs)} held pairs: "
-          f"mean RRE {statistics.mean(rre):.4f} deg, mean RTE {statistics.mean(rte):.5f} m")
+          f"mean RRE {rre:.4f} deg, mean RTE {rte:.5f} m")
+    fine_tuning_repeats(torch, dev, pairs)
 
     # 9. one step through the kernels against the same step through the
     # plain versions, from kitti25-rot as loaded, with a fresh Adam
@@ -579,6 +585,61 @@ def train_phase(torch, dev, pairs) -> dict:
     time_train_step(torch, trainer, step_fn, batches, dev, "train step", reps=10, plain_reps=3,
                     profile=True)
     return {"k1": k1, "k2": k2}
+
+
+def held_accuracy(torch, dev, model, pairs) -> tuple:
+    """GT-free mean RRE (deg) and RTE (m) of `model`'s weights through the
+    kitti25-rot Registrar on the held pairs."""
+    from deepvcp_tpu_torch import pretrained
+    from deepvcp_tpu_torch.data import rotation_geodesic_deg, translation_error
+
+    reg = pretrained.registrar("kitti25-rot", device=dev)
+    reg.model.load_state_dict(model.state_dict(), strict=True)
+    rre, rte = [], []
+    for src, tgt, R_gt, t_gt in pairs:
+        out = reg(src, tgt)
+        rre.append(rotation_geodesic_deg(out.R, R_gt).item())
+        rte.append(translation_error(out.t, t_gt).item())
+    return statistics.mean(rre), statistics.mean(rte)
+
+
+def fine_tuning_repeats(torch, dev, pairs) -> None:
+    """Phase 8's TRAIN_STEPS fine-tuning steps four more times from
+    kitti25-rot as loaded, in turns: as phase 8 runs them, twice under
+    deterministic algorithms, and as phase 8 again (printed, not gated).
+    Whether the two runs of each mode end at the same parameters bit for
+    bit, each run's synced time a step after its first (the host reads each
+    step's metrics, as in phase 8), and the fine-tuned model's GT-free
+    accuracy on the held pairs."""
+    runs = {}
+    for what, det in (("default", False), ("deterministic", True),
+                      ("deterministic, again", True), ("default, again", False)):
+        trainer, _, _, batches, _ = fine_tuning("kitti25-rot", {}, TRAIN_STEPS, dev)
+        torch.use_deterministic_algorithms(det, warn_only=True)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                trainer.train_epoch(iter(batches[:1]), epoch=0)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trainer.train_epoch(iter(batches[1:]), epoch=0)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3 / (TRAIN_STEPS - 1)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        rre, rte = held_accuracy(torch, dev, trainer.model, pairs)
+        runs[what] = ({n: p.detach().clone() for n, p in trainer.model.named_parameters()}, ms)
+        print(f"{TRAIN_STEPS} fine-tuning steps, {what}: {ms:.3f} ms a step (synced, after "
+              f"the first), then GT-free over {len(pairs)} held pairs: mean RRE {rre:.4f} deg, "
+              f"mean RTE {rte:.5f} m")
+    for mode in ("deterministic", "default"):
+        a, b = runs[mode][0], runs[f"{mode}, again"][0]
+        d = max((a[n] - b[n]).abs().max().item() for n in a)
+        print(f"two {mode} runs of the {TRAIN_STEPS} steps: parameters bit-identical "
+              f"{all(torch.equal(a[n], b[n]) for n in a)} (max|d| {d:.3e})")
+    det_ms = runs["deterministic"][1] + runs["deterministic, again"][1]
+    print(f"deterministic mode: {det_ms / (runs['default'][1] + runs['default, again'][1]):.3f}x "
+          f"the default's time a step (both runs of each)")
 
 
 def fine_tuning(name: str, cfg_changes: dict, steps: int, dev):
@@ -2063,8 +2124,8 @@ def pinned_pose(torch, reg, reg_cpu, src, tgt, what: str):
 
     picked = []
 
-    def record(ref, query, chunked):
-        out = DeepVCP._knn(reg.model, ref, query, chunked)
+    def record(ref, query, chunked, parts=1):
+        out = DeepVCP._knn(reg.model, ref, query, chunked, parts)
         picked.append(out[1])
         return out
 
@@ -2076,9 +2137,9 @@ def pinned_pose(torch, reg, reg_cpu, src, tgt, what: str):
     cfg, card = reg_cpu.model.cfg, iter(picked)
     rows = ties = 0
 
-    def pin(ref, query, chunked):
+    def pin(ref, query, chunked, parts=1):
         nonlocal rows, ties
-        dist, idx = DeepVCP._knn(reg_cpu.model, ref, query, chunked)
+        dist, idx = DeepVCP._knn(reg_cpu.model, ref, query, chunked, parts)
         idx_d = next(card).cpu()
         differ = (torch.sort(idx, -1).values != torch.sort(idx_d, -1).values).any(-1)
         for b, m in differ.nonzero().tolist():
@@ -2537,7 +2598,8 @@ def sharded_step_agrees(torch, dev, mesh) -> tuple:
     within GRAD_RTOL, every gradient tensor by phase 9's rule, the running
     statistics within STAT_ATOL, the parameters after the step within
     SHARDED_PARAM_LR x lr, and the sharded step launches LAUNCHES_PER_CALL
-    K1 and K2. Returns (its launches, the unsharded step's result, lr)."""
+    K1 and K2. Returns (its launches, the unsharded step's result with its
+    step_peak under "peak", lr)."""
     from deepvcp_tpu_torch.train import make_train_step
     from deepvcp_tpu_torch.train.optim import learning_rate_schedule
 
@@ -2558,6 +2620,8 @@ def sharded_step_agrees(torch, dev, mesh) -> tuple:
                   for what, fn in (("unsharded", plain), ("sharded", sharded))}
     finally:
         torch.use_deterministic_algorithms(False)
+    # the unsharded B = 2 step's memory, as the gloo ranks of part 2 measure theirs
+    _, ref["peak"] = step_peak(torch, lambda: step_result(torch, trainer, plain, saved, batch))
     lr = schedule(DP_STEP)
     m_p, m_s = ref["metrics"], got["metrics"]
     own = {n: g.abs().max().item() for n, g in ref["grads"].items()}
@@ -2584,6 +2648,19 @@ def sharded_step_agrees(torch, dev, mesh) -> tuple:
     if counts["k1"] != LAUNCHES_PER_CALL or counts["k2"] != LAUNCHES_PER_CALL:
         fail(f"expected {LAUNCHES_PER_CALL} K1 and K2 launches in the sharded step")
     return counts, ref, lr
+
+
+def step_peak(torch, fn) -> tuple:
+    """(fn(), (MiB allocated above fn's start at its peak, the process's
+    peak torch.cuda.max_memory_allocated in MiB)), the peak counters reset
+    just before fn."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return out, ((peak - base) / 2**20, peak / 2**20)
 
 
 def ring_on_card(torch, dev, reg, pair, mesh) -> None:
@@ -2696,12 +2773,37 @@ def gloo_on_card(torch, dist, dev) -> None:
           flush=True)
 
 
+def partitioned_step(torch, dist, trainer, tcfg, saved, batch, dev) -> dict:
+    """In one of phase 22's two gloo ranks: a 1 x 2 mesh, and dp_setup's
+    whole B = 2 batch through make_train_step(mesh=...), the point group's
+    per-point work split over the two ranks (K1 / K2 launches counted, the
+    step's peak memory, whether the model's gate passed); then its synced
+    time, median of 3."""
+    from deepvcp_tpu_torch.parallel import make_mesh, shard_batch
+    from deepvcp_tpu_torch.train import make_train_step
+    from deepvcp_tpu_torch.train.optim import learning_rate_schedule
+
+    mesh = make_mesh(1, 2, device=dev)
+    step = make_train_step(trainer.model, learning_rate_schedule(tcfg), tcfg, mesh=mesh)
+    args = shard_batch(mesh, batch)
+    split = trainer.model.partitions(mesh, args[0].shape[1], args[1].shape[1])
+    (result, peak), counts = counted_all(torch, lambda: step_peak(
+        torch, lambda: step_result(torch, trainer, step, saved, args)))
+    ms = host_median_ms(torch, lambda: step_result(torch, trainer, step, saved, args), reps=3)
+    print(f"rank {dist.get_rank()}: point-partitioned step on a 1 x 2 mesh (B={args[0].shape[0]}, "
+          f"gate passed: {split}): K1 {counts['k1']}, K2 {counts['k2']} launches, peak "
+          f"{peak[0]:.1f} MiB above the step's start ({peak[1]:.1f} MiB in all), "
+          f"{ms:.3f} ms a step", flush=True)
+    return {**result, "counts": counts, "split": split, "peak": peak, "ms": ms}
+
+
 def two_rank_body(graph) -> dict:
     """One of phase 22's two gloo ranks on cuda:0 (run by
     parallel.launch.run_ranks): first gloo_on_card's check of the
     collectives on CUDA tensors, then a 2 x 1 mesh; this rank's B = 1 of
     dp_setup's batch through make_train_step(mesh=...) (its K1 / K2
-    launches counted and printed), and the sharded solves."""
+    launches counted and printed), the sharded solves, and the point-
+    partitioned step on a 1 x 2 mesh (partitioned_step)."""
     import torch
     import torch.distributed as dist
 
@@ -2715,21 +2817,59 @@ def two_rank_body(graph) -> dict:
     trainer, tcfg, saved, batch = dp_setup(torch, dev)
     step = make_train_step(trainer.model, learning_rate_schedule(tcfg), tcfg, mesh=mesh)
     local = shard_batch(mesh, batch)
-    result, counts = counted_all(torch, lambda: step_result(torch, trainer, step, saved, local))
+    (result, peak), counts = counted_all(torch, lambda: step_peak(
+        torch, lambda: step_result(torch, trainer, step, saved, local)))
     print(f"rank {dist.get_rank()}: K1 {counts['k1']}, K2 {counts['k2']} launches in its step "
-          f"(B={local[0].shape[0]})", flush=True)
-    return {**result, "counts": counts, **solves(torch, solve_inputs(torch, graph, dev), mesh)}
+          f"(B={local[0].shape[0]}), peak {peak[0]:.1f} MiB above the step's start", flush=True)
+    return {**result, "counts": counts, "peak": peak,
+            **solves(torch, solve_inputs(torch, graph, dev), mesh),
+            "partitioned": partitioned_step(torch, dist, trainer, tcfg, saved, batch, dev)}
+
+
+def dp_step_agrees(torch, got: dict, ref: dict, lr: float, what: str) -> None:
+    """Fail unless a rank's step `got` is the single-process B = 2 step
+    `ref` within the data-parallel bounds (loss DP_LOSS_RTOL, grad norm
+    DP_GRAD_RTOL, RRE DP_RRE_ATOL, parameters SHARDED_PARAM_LR x lr,
+    running statistics DP_STAT_RTOL of each tensor's max) and launched
+    LAUNCHES_PER_CALL K1 and K2; print it, with its peak memory beside
+    `ref`'s."""
+    m, m_p = got["metrics"], ref["metrics"]
+    loss_rel = abs(m["loss"] - m_p["loss"]) / abs(m_p["loss"])
+    norm_rel = abs(m["grad_norm"] - m_p["grad_norm"]) / m_p["grad_norm"]
+    rre_err = abs(m["rre_deg"] - m_p["rre_deg"])
+    param_err = max((got["params"][n] - p).abs().max().item() for n, p in ref["params"].items())
+    stat_rel = max((got["stats"][n] - s).abs().max().item() / s.abs().max().item()
+                   for n, s in ref["stats"].items())
+    print(f"{what} vs the single-process B=2 step: loss {m['loss']:.7f} vs {m_p['loss']:.7f} "
+          f"(rel {loss_rel:.2e}), grad norm rel {norm_rel:.2e}, RRE {m['rre_deg']:.4f} vs "
+          f"{m_p['rre_deg']:.4f} deg, parameters max|d| {param_err:.3e} ({param_err / lr:.3f} "
+          f"lr), running statistics within {stat_rel:.2e} of their max; peak {got['peak'][0]:.1f} "
+          f"MiB above the step's start ({got['peak'][1]:.1f} in all) against the single-process "
+          f"step's {ref['peak'][0]:.1f} ({got['peak'][0] / ref['peak'][0]:.3f}x)")
+    if (loss_rel > DP_LOSS_RTOL or norm_rel > DP_GRAD_RTOL or rre_err > DP_RRE_ATOL
+            or param_err > SHARDED_PARAM_LR * lr or stat_rel > DP_STAT_RTOL):
+        fail(f"{what} disagrees with the single-process step")
+    if got["counts"]["k1"] != LAUNCHES_PER_CALL or got["counts"]["k2"] != LAUNCHES_PER_CALL:
+        fail(f"{what}: expected {LAUNCHES_PER_CALL} K1 and K2 launches in its step")
+
+
+def ranks_equal(torch, ranks: list, names, what: str) -> None:
+    """Fail unless both ranks report the same metrics and parameters."""
+    if ranks[0]["metrics"] != ranks[1]["metrics"] or any(
+            not torch.equal(ranks[0]["params"][n], ranks[1]["params"][n]) for n in names):
+        fail(f"the two ranks took different {what} steps")
 
 
 def two_ranks_on_card(torch, ref: dict, lr: float, graph, solved: dict) -> dict:
     """Phase 22, part 2: two gloo ranks sharing cuda:0 (gloo takes CUDA
-    tensors for all_reduce and broadcast, the only collectives of these
-    paths). The data-parallel step, each rank B = 1 of the B = 2 batch,
-    against the single-process B = 2 step `ref`: loss within DP_LOSS_RTOL,
-    grad norm within DP_GRAD_RTOL, RRE within DP_RRE_ATOL, parameters
-    within SHARDED_PARAM_LR x lr, running statistics within DP_STAT_RTOL of
-    each tensor's max, the ranks equal, LAUNCHES_PER_CALL K1 and K2 a rank;
-    the sharded solves against the unsharded `solved`. A rank that fails or
+    tensors for all_reduce, broadcast and all_gather, the only collectives
+    of these paths). Against the single-process B = 2 step `ref`
+    (dp_step_agrees), the ranks equal: the data-parallel step on a 2 x 1
+    mesh, each rank B = 1 of the B = 2 batch; and the point-partitioned
+    step on a 1 x 2 mesh, both ranks the whole batch, each its half of the
+    per-point work (the model's gate must pass), with each rank's peak
+    memory beside the single-process step's and its synced time (printed).
+    The sharded solves against the unsharded `solved`. A rank that fails or
     outlasts TWO_RANK_TIMEOUT_S fails the phase. Returns the two ranks'
     launches."""
     from deepvcp_tpu_torch.parallel.launch import run_ranks
@@ -2737,32 +2877,21 @@ def two_ranks_on_card(torch, ref: dict, lr: float, graph, solved: dict) -> dict:
     t0 = time.perf_counter()
     ranks = run_ranks("chip_smoke:two_rank_body", 2, kwargs={"graph": graph}, device="cuda",
                       backend="gloo", timeout_s=TWO_RANK_TIMEOUT_S, echo=True)
-    m_p = ref["metrics"]
+    print(f"card: {card_line()}")
     for r, got in enumerate(ranks):
-        m = got["metrics"]
-        loss_rel = abs(m["loss"] - m_p["loss"]) / abs(m_p["loss"])
-        norm_rel = abs(m["grad_norm"] - m_p["grad_norm"]) / m_p["grad_norm"]
-        rre_err = abs(m["rre_deg"] - m_p["rre_deg"])
-        param_err = max((got["params"][n] - p).abs().max().item()
-                        for n, p in ref["params"].items())
-        stat_rel = max((got["stats"][n] - s).abs().max().item() / s.abs().max().item()
-                       for n, s in ref["stats"].items())
-        print(f"rank {r} of 2 (gloo, cuda:0, B=1 each) vs the single-process B=2 step: loss "
-              f"{m['loss']:.7f} vs {m_p['loss']:.7f} (rel {loss_rel:.2e}), grad norm rel "
-              f"{norm_rel:.2e}, RRE {m['rre_deg']:.4f} vs {m_p['rre_deg']:.4f} deg, parameters "
-              f"max|d| {param_err:.3e} ({param_err / lr:.3f} lr), running statistics within "
-              f"{stat_rel:.2e} of their max")
-        if (loss_rel > DP_LOSS_RTOL or norm_rel > DP_GRAD_RTOL or rre_err > DP_RRE_ATOL
-                or param_err > SHARDED_PARAM_LR * lr or stat_rel > DP_STAT_RTOL):
-            fail(f"rank {r}'s data-parallel step disagrees with the single-process step")
-        if got["counts"]["k1"] != LAUNCHES_PER_CALL or got["counts"]["k2"] != LAUNCHES_PER_CALL:
-            fail(f"rank {r}: expected {LAUNCHES_PER_CALL} K1 and K2 launches in its step")
+        dp_step_agrees(torch, got, ref, lr, f"rank {r} of 2 (gloo, cuda:0, 2 x 1, B=1 each)")
         solves_agree(torch, got, solved, f"rank {r}'s sharded solves over 2 ranks")
-    if ranks[0]["metrics"] != ranks[1]["metrics"] or any(
-            not torch.equal(ranks[0]["params"][n], ranks[1]["params"][n]) for n in ref["params"]):
-        fail("the two ranks took different steps")
+    ranks_equal(torch, ranks, ref["params"], "data-parallel")
+    part = [got["partitioned"] for got in ranks]
+    for r, got in enumerate(part):
+        if not got["split"]:
+            fail(f"rank {r}: the point partition's gate refused the 1 x 2 step")
+        dp_step_agrees(torch, got, ref, lr, f"rank {r} of 2 (gloo, cuda:0, 1 x 2 point-"
+                                            f"partitioned, B=2, {got['ms']:.3f} ms a step)")
+    ranks_equal(torch, part, ref["params"], "point-partitioned")
     print(f"two gloo ranks on cuda:0: {time.perf_counter() - t0:.1f} s, process starts included")
-    return {k: sum(got["counts"][k] for got in ranks) for k in ("k1", "k2")}
+    return {k: sum(got["counts"][k] + got["partitioned"]["counts"][k] for got in ranks)
+            for k in ("k1", "k2")}
 
 
 def tooling_on_card(torch, dev, reg, pair) -> dict:

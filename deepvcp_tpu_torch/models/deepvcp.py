@@ -12,6 +12,16 @@ one rank, the candidate KNN runs as the ring over that group
 JAX. compute_dtype="bfloat16" runs the MLPs, the DFE and
 the CPG in bf16 with f32 parameters, as flax's dtype=bf16 modules do.
 
+Inside `with point_partition(mesh)` (the sharded train step opens it) a
+forward whose shapes pass DeepVCP.partitions splits its per-point work over
+the mesh's point group, as GSPMD splits the JAX step's: each rank runs the
+SA stages' projections and tails on its rows of each sorted cloud
+(models/layers.py::FeatureExtraction), the saliency on its rows, and the
+source descriptors, candidate neighbourhoods, DFE and CPG for its
+keypoints; the features, the saliency, the VCPs and the candidate weights
+are all-gathered (parallel.mesh.gather_points), and what needs the whole
+set (the sort, K1, top-K, the loss) runs whole on every rank.
+
 The forward is split at the warm start. `encode` is everything that does not
 depend on the pose (both FE passes, saliency, keypoints and the source
 descriptors); `correspond` is everything after it. `forward` is
@@ -22,6 +32,8 @@ eager PyTorch would run it again, so the port's Registrar encodes once.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Dict, NamedTuple, Tuple
 
 import torch
@@ -35,6 +47,24 @@ from deepvcp_tpu_torch.ops import (
 from deepvcp_tpu_torch.ops.two_level import two_level_rows
 
 _EPS = 1e-8
+# the mesh whose point group a forward may split its per-point work over
+_POINT_MESH: contextvars.ContextVar = contextvars.ContextVar("point_partition", default=None)
+
+
+@contextlib.contextmanager
+def point_partition(mesh):
+    """Within the block, a DeepVCP forward that passes its gate
+    (DeepVCP.partitions) splits its per-point work over `mesh`'s point
+    group (None: no split). Each rank of the group passes the same pairs and
+    gets the whole forward's outputs; their gradients are each rank's share
+    when it backpropagates 1 / P of the loss, so the train step that opens
+    the block scales its loss by 1 / P and sums the gradients over the
+    group (train/trainer.py)."""
+    token = _POINT_MESH.set(mesh)
+    try:
+        yield
+    finally:
+        _POINT_MESH.reset(token)
 
 
 class Encoding(NamedTuple):
@@ -44,7 +74,7 @@ class Encoding(NamedTuple):
     keypoint_idx: torch.Tensor       # [B, K] int64
     keypoint_saliency: torch.Tensor  # [B, K]
     saliency: torch.Tensor           # [B, N]
-    src_descriptors: torch.Tensor    # [B, K, F]
+    src_descriptors: torch.Tensor    # [B, K, F]; this rank's [B, K / P, F] under a partition
     tgt_xyz: torch.Tensor            # [B, N, 3]
     tgt_table: torch.Tensor          # [B, N, 3+F]: xyz and features, one gather
 
@@ -68,7 +98,8 @@ class DeepVCP(nn.Module):
     runs over the point group only: JAX's batch_axis="data" makes its
     shard_map compose with a batch already split over "data", which a
     rank's arrays are here. Every rank of the point group gets every
-    candidate's neighbours for the gather that follows."""
+    candidate's neighbours for the gather that follows, or, under a point
+    partition over the same group (point_partition), its own keypoints'."""
 
     def __init__(self, cfg: DeepVCPConfig, knn_mesh=None):
         super().__init__()
@@ -82,14 +113,17 @@ class DeepVCP(nn.Module):
                                  dtype=dt)
         self.cpg = CPG(cfg.cpg_channels, cfg.grid_size, cfg.dfe_mlp[-1], dtype=dt)
 
-    def _knn(self, ref: torch.Tensor, query: torch.Tensor, chunked: bool):
+    def _knn(self, ref: torch.Tensor, query: torch.Tensor, chunked: bool, parts: int = 1):
+        """`chunked`: the configured query chunk, divided by `parts` (a
+        point group's size, so that each rank of a partition holds 1 /
+        parts of the distance tile; the neighbours are the same)."""
         cfg = self.cfg
         if cfg.use_approx_knn:
             return approx_knn(ref, query, cfg.num_neighbors,
-                              chunk=cfg.knn_query_chunk if chunked else None,
+                              chunk=-(-cfg.knn_query_chunk // parts) if chunked else None,
                               select_dtype=cfg.knn_select_dtype_effective)
         return knn(ref, query, cfg.num_neighbors,
-                   chunk=cfg.query_chunk if chunked else None)
+                   chunk=-(-cfg.query_chunk // parts) if chunked else None)
 
     def _use_ring(self, n_ref: int, n_query: int, k: int) -> bool:
         """The ring's gate: a point group of P > 1 ranks that divides both
@@ -101,16 +135,42 @@ class DeepVCP(nn.Module):
         p = axis_size(self.knn_mesh, POINT_AXIS)
         return p > 1 and n_ref % p == 0 and n_query % p == 0 and k <= n_ref // p
 
-    def features(self, pts: torch.Tensor) -> torch.Tensor:
-        """FE of one cloud [B, N, 3(+3)] -> [B, N, F]."""
+    def partitions(self, mesh, *n_points: int) -> bool:
+        """The point partition's gate, static as the ring's: a point group
+        of P > 1 ranks that divides K and each cloud's N, on the banded
+        engine's exact slab (K1 / K2) in f32. Other shapes and engines run
+        the whole forward on every rank of the group."""
+        from deepvcp_tpu_torch.parallel.mesh import POINT_AXIS, axis_size
+
+        cfg = self.cfg
+        p = axis_size(mesh, POINT_AXIS)
+        return (p > 1 and cfg.num_keypoints % p == 0 and all(n % p == 0 for n in n_points)
+                and cfg.neighbor_method == "banded" and cfg.use_pallas_band_max
+                and cfg.compute_dtype == "float32")
+
+    def _point_mesh(self, *n_points: int):
+        """The mesh of the enclosing point_partition if this forward's
+        shapes pass the gate, else None."""
+        mesh = _POINT_MESH.get()
+        return mesh if mesh is not None and self.partitions(mesh, *n_points) else None
+
+    def features(self, pts: torch.Tensor, mesh=None) -> torch.Tensor:
+        """FE of one cloud [B, N, 3(+3)] -> [B, N, F] (split over `mesh`'s
+        point group, whole on every rank: FeatureExtraction)."""
         nrm = pts[..., 3:6] if self.cfg.use_normal else None
-        return self.fe(pts[..., :3], nrm)
+        return self.fe(pts[..., :3], nrm, mesh=mesh)
 
     def encode(self, src: torch.Tensor, tgt: torch.Tensor) -> Encoding:
         cfg = self.cfg
+        mesh = self._point_mesh(src.shape[1], tgt.shape[1])
         src_xyz = src[..., :3]
-        src_feat = self.features(src)
-        saliency = self.wl(src_feat)
+        src_feat = self.features(src, mesh)
+        if mesh is None:
+            saliency = self.wl(src_feat)
+        else:
+            from deepvcp_tpu_torch.parallel.mesh import gather_points, point_shard
+
+            saliency = gather_points(self.wl(point_shard(src_feat, mesh)), mesh)
         K = cfg.num_keypoints
         if cfg.keypoint_selection == "salient_fps":
             # FPS of K over the top-(pool_mult*K) saliency pool: salient
@@ -123,19 +183,21 @@ class DeepVCP(nn.Module):
         else:
             kp_saliency, kp_idx = torch.topk(saliency, K, dim=-1)
         kp_xyz = index_points(src_xyz, kp_idx)
+        # the keypoints whose descriptors this rank computes
+        kp_own = kp_xyz if mesh is None else point_shard(kp_xyz, mesh)
         if cfg.dfe_src_neighbors == "cloud":
             # D13: source neighbourhoods from the keypoint's ns-NN in the
             # full source cloud, the same construction as the target branch
-            _, nb_idx = self._knn(src_xyz, kp_xyz, chunked=False)
+            _, nb_idx = self._knn(src_xyz, kp_own, chunked=False)
             snb = index_points(torch.cat([src_xyz, src_feat.to(src_xyz.dtype)], dim=-1), nb_idx)
-            local_xyz = snb[..., :3] - kp_xyz[:, :, None, :]
+            local_xyz = snb[..., :3] - kp_own[:, :, None, :]
             nb_feat = snb[..., 3:]
         else:
             # the reference's: keypoints grouped among themselves within
             # group_radius, their own features gathered (D8), a zero-hit
             # row masked (self-inclusion makes it impossible here)
             _, local_xyz, nb_idx, nb_count = group_neighbors(
-                cfg.group_radius, cfg.num_neighbors, kp_xyz, kp_xyz, return_count=True)
+                cfg.group_radius, cfg.num_neighbors, kp_xyz, kp_own, return_count=True)
             kp_feat = index_points(src_feat, kp_idx)
             nb_feat = torch.where((nb_count > 0)[..., None, None],
                                   index_points(kp_feat, nb_idx), 0.0)
@@ -143,7 +205,7 @@ class DeepVCP(nn.Module):
         w_src = d_src / (torch.sum(d_src, dim=-1, keepdim=True) + _EPS)
         src_cat = torch.cat([local_xyz, nb_feat * w_src[..., None]], dim=-1)
         tgt_xyz = tgt[..., :3]
-        tgt_feat = self.features(tgt)
+        tgt_feat = self.features(tgt, mesh)
         return Encoding(
             keypoints=kp_xyz, keypoint_idx=kp_idx, keypoint_saliency=kp_saliency,
             saliency=saliency, src_descriptors=self.dfe(src_cat),
@@ -168,24 +230,34 @@ class DeepVCP(nn.Module):
                     center_select_dtype=cfg.knn_select_dtype_effective)
 
     def candidate_neighbors(self, enc: Encoding, kp_warm: torch.Tensor,
-                            candidates: torch.Tensor) -> torch.Tensor:
+                            candidates: torch.Tensor, mesh=None) -> torch.Tensor:
         """Each candidate's ns nearest target rows (xyz ++ features):
         [B, K*C, ns, 3+F], from the ring KNN over the knn_mesh's point
         group, the flat KNN over the whole target cloud or the two-level
-        per-keypoint tables."""
+        per-keypoint tables. Under a point partition over `mesh` the
+        candidates are this rank's keypoints' (K / P of them), and the
+        ring's query shard is exactly these (knn_mesh must be `mesh`)."""
         cfg = self.cfg
         B, K, C, _ = candidates.shape
-        if self._use_ring(enc.tgt_xyz.shape[1], K * C, cfg.num_neighbors):
+        P = 1
+        if mesh is not None:
+            from deepvcp_tpu_torch.parallel.mesh import POINT_AXIS, axis_peers, axis_size
+
+            P = axis_size(mesh, POINT_AXIS)
+        if self._use_ring(enc.tgt_xyz.shape[1], K * C * P, cfg.num_neighbors):
             from deepvcp_tpu_torch.ops.distributed import ring_knn
 
+            if mesh is not None and axis_peers(self.knn_mesh, POINT_AXIS) != axis_peers(
+                    mesh, POINT_AXIS):
+                raise ValueError("the ring's point group must be the partition's")
             _, idx = ring_knn(self.knn_mesh, enc.tgt_xyz, candidates.reshape(B, K * C, 3),
-                              cfg.num_neighbors)
+                              cfg.num_neighbors, gather=mesh is None)
             return index_points(enc.tgt_table, idx)
         if cfg.use_two_level_tgt_knn:
             rows = two_level_rows(enc.tgt_xyz, enc.tgt_table, kp_warm, candidates,
                                   cfg.num_neighbors, **self.two_level_args())
             return rows.reshape(B, K * C, cfg.num_neighbors, -1)
-        _, idx = self._knn(enc.tgt_xyz, candidates.reshape(B, K * C, 3), chunked=True)
+        _, idx = self._knn(enc.tgt_xyz, candidates.reshape(B, K * C, 3), chunked=True, parts=P)
         return index_points(enc.tgt_table, idx)
 
     def match(self, enc: Encoding, candidates: torch.Tensor, tnb: torch.Tensor,
@@ -206,15 +278,26 @@ class DeepVCP(nn.Module):
 
     def correspond(self, enc: Encoding, R_init: torch.Tensor,
                    t_init: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
+        mesh = self._point_mesh(enc.saliency.shape[1], enc.tgt_xyz.shape[1])
         kp_warm, candidates = self.candidates(enc, R_init, t_init)
-        tnb = self.candidate_neighbors(enc, kp_warm, candidates)
+        src_desc = enc.src_descriptors
+        if mesh is not None:
+            from deepvcp_tpu_torch.parallel.mesh import point_shard
+
+            kp_warm, candidates = point_shard(kp_warm, mesh), point_shard(candidates, mesh)
+        tnb = self.candidate_neighbors(enc, kp_warm, candidates, mesh)
         vcp, cand_weights = self.match(enc, candidates, tnb, R_init)
+        if mesh is not None:
+            from deepvcp_tpu_torch.parallel.mesh import gather_points
+
+            vcp, cand_weights, src_desc = (gather_points(a, mesh)
+                                           for a in (vcp, cand_weights, src_desc))
         aux = {
             "saliency": enc.saliency,
             "keypoint_idx": enc.keypoint_idx,
             "keypoint_saliency": enc.keypoint_saliency,
             "candidate_weights": cand_weights,
-            "src_descriptors": enc.src_descriptors,
+            "src_descriptors": src_desc,
         }
         return enc.keypoints, vcp, aux
 

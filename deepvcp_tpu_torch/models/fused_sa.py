@@ -309,16 +309,33 @@ class BandedSetAbstraction(nn.Module):
         return batch_norm(getattr(self, f"bn{i}"), x, self.training, self.dtype)
 
     def forward(self, sorted_xyz: torch.Tensor, features: Optional[torch.Tensor],
-                window: Optional[int] = None) -> torch.Tensor:
+                window: Optional[int] = None, mesh=None) -> torch.Tensor:
         """sorted_xyz [B, N, 3], features [B, N, D] or None -> [B, N, mlp[-1]]
         (sorted order). `window`: the static band's one-sided coverage in
-        points, window_for(N, ...) of this call's N."""
+        points, window_for(N, ...) of this call's N.
+
+        With a `mesh` (the exact slab only) this rank computes its rows of
+        the point group's split (parallel.mesh.point_shard): `features` and
+        the result are its rows [B, N / P, ...], sorted_xyz the whole
+        cloud. The projections and the tail run on its rows; K1 pools over
+        the whole cloud, on u all-gathered over the group, and the rank
+        keeps its rows of the max."""
         dt = self.dtype
         # f32 keeps the input's own (at least f32) precision, as batch_norm
         xyz = sorted_xyz if dt == torch.float32 else sorted_xyz.to(dt)
-        p = linear(self.proj_xyz, xyz, dt)
+        own = xyz
+        if mesh is not None:
+            from deepvcp_tpu_torch.parallel.mesh import gather_points, point_shard
+
+            if not self.use_kernel:
+                raise ValueError("a point-partitioned stage pools over the exact slab only")
+            own = point_shard(xyz, mesh)
+        p = linear(self.proj_xyz, own, dt)
         u = p if features is None else p + linear(self.proj_feat, features, dt)
-        if self.use_kernel:
+        if mesh is not None:
+            max_u = point_shard(banded_max_pool(xyz, gather_points(u, mesh), self.layer.radius),
+                                mesh)
+        elif self.use_kernel:
             max_u = banded_max_pool(xyz.float(), u.float(), self.layer.radius)
         elif window is None:
             raise ValueError("the static band needs a window")

@@ -121,8 +121,18 @@ class FeatureExtraction(nn.Module):
         self.n_sa = len(cfg.sa_layers)
         self.proj = nn.Linear(in_features, cfg.feat_dim)
 
-    def forward(self, xyz: torch.Tensor, normals: Optional[torch.Tensor]) -> torch.Tensor:
-        """xyz [B, N, 3], normals [B, N, 3] or None -> features [B, N, feat_dim]."""
+    def forward(self, xyz: torch.Tensor, normals: Optional[torch.Tensor],
+                mesh=None) -> torch.Tensor:
+        """xyz [B, N, 3], normals [B, N, 3] or None -> features [B, N, feat_dim].
+
+        With a `mesh` (banded stages on the exact slab) the cloud is sorted
+        whole, each stage runs on this rank's rows of the sorted cloud
+        (BandedSetAbstraction), the features stay split between stages and
+        through the projection, and are all-gathered once, then
+        unpermuted: every rank of the point group returns the whole
+        result."""
+        if mesh is not None:
+            return self._partitioned(xyz, normals, mesh)
         if self.method == "dense":
             feats = normals
             for i in range(1, self.n_sa + 1):
@@ -140,10 +150,28 @@ class FeatureExtraction(nn.Module):
             else:
                 x, feats = sa(x, feats, sorted_cloud=cloud, window=window)
         feats = linear(self.proj, feats, self.dtype)
-        B, N = cloud.perm.shape
-        inv_perm = torch.empty_like(cloud.perm).scatter_(
-            1, cloud.perm, torch.arange(N, device=xyz.device).expand(B, N))
-        return index_points(feats, inv_perm)
+        return _unsort(feats, cloud)
+
+    def _partitioned(self, xyz: torch.Tensor, normals: Optional[torch.Tensor],
+                     mesh) -> torch.Tensor:
+        from deepvcp_tpu_torch.parallel.mesh import gather_points, point_shard
+
+        cloud = sort_cloud(xyz)
+        feats = None if normals is None else point_shard(index_points(normals, cloud.perm), mesh)
+        x = cloud.xyz
+        for i in range(1, self.n_sa + 1):
+            sa = getattr(self, f"sa{i}")
+            feats = sa(x, feats, window_for(x.shape[1], sa.layer.radius, self.spatial_extent,
+                                            self.window_safety), mesh=mesh)
+        return _unsort(gather_points(linear(self.proj, feats, self.dtype), mesh), cloud)
+
+
+def _unsort(feats: torch.Tensor, cloud: SortedCloud) -> torch.Tensor:
+    """Features [B, N, F] in the sorted order of `cloud` -> the original order."""
+    B, N = cloud.perm.shape
+    inv_perm = torch.empty_like(cloud.perm).scatter_(
+        1, cloud.perm, torch.arange(N, device=cloud.perm.device).expand(B, N))
+    return index_points(feats, inv_perm)
 
 
 def _dense_stack(widths: Tuple[int, ...], in_features: int) -> list:

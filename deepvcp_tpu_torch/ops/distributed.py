@@ -27,7 +27,8 @@ from deepvcp_tpu_torch.parallel.mesh import (
 
 
 def ring_knn(mesh, ref: torch.Tensor, query: torch.Tensor, k: int,
-             batch_axis: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+             batch_axis: Optional[str] = None,
+             gather: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact K nearest neighbours with both clouds split over the mesh's
     "point" group, in the JAX function's global view: every rank of a point
     group passes the same ref [B, N, 3] and query [B, M, 3] (N and M
@@ -39,21 +40,27 @@ def ring_knn(mesh, ref: torch.Tensor, query: torch.Tensor, k: int,
     `batch_axis` (e.g. "data"): a mesh dim that the batch rows are split
     over here, as in JAX: each rank along it computes its B / size rows
     (B divisible by that size) and the rows are all-gathered over it, so
-    the result is that of the replicated form."""
+    the result is that of the replicated form.
+
+    With `gather=False`, `query` is this rank's query shard [B, M / P, 3]
+    (rows [r M / P, (r + 1) M / P) of the global query, r its point index)
+    and the result is that shard's, with no final all-gather: the form of
+    the point-partitioned forward, whose rank owns those queries."""
     P = axis_size(mesh, POINT_AXIS)
     B, N, _ = ref.shape
-    M = query.shape[1]
+    M = query.shape[1] * (1 if gather else P)
     shard_n, shard_m = N // P, M // P
     assert shard_n * P == N, (N, P)
     assert shard_m * P == M, (M, P)
     assert k <= shard_n, (k, shard_n)
+    assert gather or batch_axis is None, "a query shard takes no batch axis"
     if batch_axis is not None:
         assert B % axis_size(mesh, batch_axis) == 0, (ref.shape, batch_axis, mesh.shape)
         ref, query = shard_rows(ref, mesh, batch_axis), shard_rows(query, mesh, batch_axis)
     me = axis_index(mesh, POINT_AXIS)
     peers = axis_peers(mesh, POINT_AXIS)
     group = axis_group(mesh, POINT_AXIS)
-    q = query[:, me * shard_m:(me + 1) * shard_m]
+    q = query[:, me * shard_m:(me + 1) * shard_m] if gather else query
     block = ref[:, me * shard_n:(me + 1) * shard_n].contiguous()
     best_d = best_i = None
     for step in range(P):
@@ -78,6 +85,8 @@ def ring_knn(mesh, ref: torch.Tensor, query: torch.Tensor, k: int,
                 req.wait()
             block = incoming
     dist_out = torch.sqrt(torch.clamp_min(best_d, 0.0))
+    if not gather:
+        return dist_out, best_i
     dist_out = all_gather_cat(dist_out, mesh, POINT_AXIS, dim=1)
     idx = all_gather_cat(best_i, mesh, POINT_AXIS, dim=1)
     if batch_axis is not None:

@@ -117,6 +117,11 @@ def _rank_main(spec_path: str) -> None:
         result = getattr(importlib.import_module(module), name)(**spec["kwargs"])
         with open(spec["out"], "wb") as fh:
             pickle.dump(result, fh)
+        # rank 0 hosts the group's store: no rank may leave while another
+        # still talks to it (a rank still building its groups would fail
+        # with a broken pipe). A failing rank skips this: run_ranks kills
+        # the others.
+        dist.barrier()
     finally:
         dist.destroy_process_group()
 

@@ -7,11 +7,14 @@ np.asarray(devices).reshape(data, point):
 
 - frame pairs are split over "data": each data rank runs B / data pairs
   and the gradients are all-reduced over its data group;
-- the ranks of one "point" group hold the same pairs. The candidate KNN
-  runs as the ring over the point group (ops/distributed.ring_knn) when the
-  model has a knn_mesh; the rest of their forward is computed redundantly
-  (GSPMD partitions the per-point ops of the JAX step across chips, which
-  the port does not: that costs memory, not results);
+- the ranks of one "point" group hold the same pairs, whole (sorting a
+  cloud is one global op). Within the train step they split the per-point
+  work as GSPMD splits the JAX step's: rank r of a group of P owns rows
+  [r N / P, (r + 1) N / P) of each sorted cloud and keypoints
+  [r K / P, (r + 1) K / P), and all-gathers what an op needs whole
+  (point_shard / gather_points; models.point_partition). The candidate
+  KNN runs as the ring over the point group (ops/distributed.ring_knn)
+  when the model has a knn_mesh;
 - parameters and optimizer state are replicated: broadcast from rank 0
   when the train step is built.
 """
@@ -78,20 +81,57 @@ def all_gather_cat(x: torch.Tensor, mesh: DeviceMesh, axis: str, dim: int) -> to
     return torch.cat(parts, dim=dim)
 
 
-def shard_rows(x, mesh: DeviceMesh, axis: str = DATA_AXIS):
-    """This rank's rows (axis 0) of `x`, split evenly over `axis`."""
+def point_shard(x: torch.Tensor, mesh: DeviceMesh, dim: int = 1) -> torch.Tensor:
+    """This rank's share of `x` along `dim`, split evenly over the point
+    group (shard_rows): a slice, whose backward is autograd's own (the
+    cotangent in this rank's rows, zeros elsewhere)."""
+    return shard_rows(x, mesh, POINT_AXIS, dim)
+
+
+class _GatherPoints(torch.autograd.Function):
+    """all_gather over the point group, joined on `dim` in axis order.
+
+    Backward, for a step in which each rank of the group backpropagates
+    1 / P of the same loss: a rank's cotangent of the gathered tensor is its
+    share of the whole one, so the shares are summed over the group
+    (all_reduce), then the rank keeps the rows it contributed."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return all_gather_cat(x, mesh, POINT_AXIS, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=axis_group(ctx.mesh, POINT_AXIS))
+        return point_shard(g, ctx.mesh, ctx.dim), None, None
+
+
+def gather_points(x: torch.Tensor, mesh: DeviceMesh, dim: int = 1) -> torch.Tensor:
+    """The point group's shards of `x` (equal shapes) joined on `dim`:
+    the inverse of point_shard, differentiable (see _GatherPoints: the
+    backward sums the ranks' cotangents, then takes this rank's rows)."""
+    if axis_size(mesh, POINT_AXIS) == 1:
+        return x
+    return _GatherPoints.apply(x, mesh, dim)
+
+
+def shard_rows(x, mesh: DeviceMesh, axis: str = DATA_AXIS, dim: int = 0):
+    """This rank's rows (along `dim`) of `x`, split evenly over `axis`:
+    rows [i n / size, (i + 1) n / size), i this rank's index along it."""
     n = axis_size(mesh, axis)
-    assert x.shape[0] % n == 0, (x.shape, axis, n)
-    rows = x.shape[0] // n
-    i = axis_index(mesh, axis)
-    return x[i * rows:(i + 1) * rows]
+    assert x.shape[dim] % n == 0, (x.shape, axis, n)
+    rows = x.shape[dim] // n
+    return x.narrow(dim, axis_index(mesh, axis) * rows, rows)
 
 
 def batch_pair_sharding(mesh: DeviceMesh) -> Tuple[Tuple, ...]:
     """The DTensor placements of a (src, tgt, R, t) batch over the mesh's
     (data, point) dims: pairs split over "data", replicated over "point"
-    (the JAX package also splits the clouds' points over "point"; the port's
-    point group shares its pairs, see the module docstring)."""
+    (the JAX package places the clouds' points split over "point"; the
+    port's point group holds whole clouds and splits the work within the
+    step, see the module docstring)."""
     pairs = (Shard(0), Replicate())
     return pairs, pairs, pairs, pairs
 

@@ -58,7 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--init-trans-jitter", type=float, default=None,
                    help="override the warm-start translation jitter (residual recipe: 0.5)")
     p.add_argument("--keypoint-selection", default=None, choices=["topk", "salient_fps"],
-                   help="keypoint policy (salient_fps is not ported)")
+                   help="keypoint policy: topk (reference parity) or salient_fps "
+                        "(spread-enforcing; the fix for density-gradient lidar clouds)")
     return p
 
 

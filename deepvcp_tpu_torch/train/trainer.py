@@ -15,9 +15,14 @@ parallel: each data rank runs its B / data pairs, BatchNorm's statistics
 and the loss's mean residual are those of the global batch (reduced over
 the data group with autograd), and the gradients are all-reduced over the
 data group before the clip and Adam, so every rank takes the single-device
-step of the global batch. `Trainer.fit` runs the heartbeat and stall
-watchdog of parallel/heartbeat.py with cfg.heartbeat_interval > 0, and
-under a process group only rank 0 writes checkpoints and metrics.
+step of the global batch. Where the mesh's point group has P > 1 ranks and
+the model's gate passes (DeepVCP.partitions), the ranks of a point group
+split the forward's per-point work (models.point_partition): BatchNorm's
+statistics are reduced over the whole data x point group, each rank
+backpropagates 1 / P of the loss, and the gradients are summed over the
+point group before the data group's mean. `Trainer.fit` runs the heartbeat
+and stall watchdog of parallel/heartbeat.py with cfg.heartbeat_interval >
+0, and under a process group only rank 0 writes checkpoints and metrics.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ import torch.distributed as dist
 from deepvcp_tpu_torch.config import DeepVCPConfig, TrainConfig
 from deepvcp_tpu_torch.data.synthetic import rotation_geodesic_deg, translation_error
 from deepvcp_tpu_torch.loss import deepvcp_loss, svd_refine
-from deepvcp_tpu_torch.models import DeepVCP, batch_norm_group
+from deepvcp_tpu_torch.models import DeepVCP, batch_norm_group, point_partition
 from deepvcp_tpu_torch.train.metrics import MetricsLogger
 from deepvcp_tpu_torch.train.optim import clip_by_global_norm_, global_norm, learning_rate_schedule, make_adam
 from deepvcp_tpu_torch.utils.rotations import random_small_rotation
@@ -105,13 +110,29 @@ def build_train_step(model: DeepVCP, schedule: Callable[[int], float], cfg: Trai
     are averaged over it before the clip (each rank's loss is its share of
     the global loss, whose mean over the group is the global one, and the
     reductions' autograd sums every rank's part of the gradient), and the
-    metrics are the global batch's."""
+    metrics are the global batch's.
+
+    Under a point partition (a point group of P > 1 ranks, the model's gate
+    passed on this batch's shapes) the ranks of a point group hold the same
+    pairs and each computes its share of the forward (point_partition):
+    BatchNorm reduces over the data x point group, whose ranks hold the
+    other rows, each rank backpropagates loss / P (its gathers' backward
+    sums the ranks' cotangents: parallel.mesh.gather_points), and the
+    gradients are summed over the point group, then averaged over the data
+    group. A point group of one rank takes the data-parallel step above
+    unchanged."""
     data_group, shards, index = None, 1, 0
+    point_group, all_ranks, points = None, None, 1
     if mesh is not None:
-        from deepvcp_tpu_torch.parallel.mesh import DATA_AXIS, axis_group, axis_index, axis_size
+        from deepvcp_tpu_torch.parallel.mesh import (
+            DATA_AXIS, POINT_AXIS, axis_group, axis_index, axis_size)
 
         data_group = axis_group(mesh, DATA_AXIS)
         shards, index = axis_size(mesh, DATA_AXIS), axis_index(mesh, DATA_AXIS)
+        points = axis_size(mesh, POINT_AXIS)
+        if points > 1:
+            # make_mesh spans every rank of the process group
+            point_group, all_ranks = axis_group(mesh, POINT_AXIS), dist.group.WORLD
 
     def train_step(state: TrainState, src, tgt, R_gt, t_gt, R_init=None, t_init=None):
         if (R_init is None) != (t_init is None):
@@ -123,13 +144,15 @@ def build_train_step(model: DeepVCP, schedule: Callable[[int], float], cfg: Trai
         # never updates them (eval() only gates BN here)
         model.train(not cfg.freeze_batch_stats)
         opt.zero_grad(set_to_none=True)
-        with batch_norm_group(data_group):
+        split = point_group is not None and model.partitions(mesh, src.shape[1], tgt.shape[1])
+        with batch_norm_group(all_ranks if split else data_group), \
+                point_partition(mesh if split else None):
             kp, vcp, aux = model(src, tgt, R_init, t_init)
         res = deepvcp_loss(
             kp, vcp, R_gt, t_gt, alpha=cfg.alpha, inlier_ratio=cfg.inlier_ratio,
             weights=aux["keypoint_saliency"] if cfg.use_saliency_weights else None,
             vcp_weight=cfg.vcp_loss_weight, rot_weight=cfg.rot_loss_weight, group=data_group)
-        res.loss.backward()
+        (res.loss / points if split else res.loss).backward()
         params = [p for group in opt.param_groups for p in group["params"]]
         for p in params:
             # jax.grad gives zeros where no gradient reaches (the saliency
@@ -139,6 +162,8 @@ def build_train_step(model: DeepVCP, schedule: Callable[[int], float], cfg: Trai
         grads = [p.grad for p in params]
         if data_group is not None:
             flat = torch.cat([g.reshape(-1) for g in grads])
+            if split:
+                dist.all_reduce(flat, group=point_group)
             dist.all_reduce(flat, group=data_group)
             flat /= shards
             for g, part in zip(grads, torch.split(flat, [g.numel() for g in grads])):
@@ -177,8 +202,9 @@ def make_train_step(model: DeepVCP, schedule: Callable[[int], float], cfg: Train
     step is build_train_step's data-parallel one: each rank
     passes its rows of the global batch (parallel.shard_batch) and gets the
     global batch's step and metrics. The ranks of one point group share
-    their pairs; the model's knn_mesh, where set, runs their candidate KNN
-    as the ring."""
+    their pairs and split the per-point work of the forward where the
+    model's gate passes (build_train_step); the model's knn_mesh, where
+    set, runs their candidate KNN as the ring."""
     if mesh is not None:
         from deepvcp_tpu_torch.parallel.mesh import broadcast_module
 

@@ -20,13 +20,29 @@ def _numpy(d):
     return {k: v.detach().cpu().numpy().copy() for k, v in d.items()}
 
 
+def _record_inputs(model):
+    """Forward hooks that record the input shape of each call of the
+    modules that run per point or per keypoint: {name: [shapes]}."""
+    seen = {}
+    modules = {"dfe": model.dfe, "cpg": model.cpg, "wl": model.wl, "proj": model.fe.proj}
+    modules.update({f"sa{i}.dense1": getattr(model.fe, f"sa{i}").dense1
+                    for i in range(1, model.fe.n_sa + 1)})
+    for name, m in modules.items():
+        m.register_forward_hook(
+            lambda mod, args, out, name=name: seen.setdefault(name, []).append(
+                tuple(args[0].shape)))
+    return seen
+
+
 def train_step(shape, cfg: DeepVCPConfig, tcfg: TrainConfig, state, batch, ring=False,
                local=None):
     """One sharded train step on a (data, point) mesh from `state` (model
     state dict as numpy) on the global `batch`; with `local` ("host-local"
     loading), the batch is instead this rank's stride of `local` = (dataset
     kwargs, per-host batch size), read through batch_iterator. Returns the
-    metrics, the parameters and running statistics after the step."""
+    metrics, the parameters and running statistics after the step, whether
+    the point partition's gate passed and the input shapes of the per-point
+    modules (_record_inputs)."""
     from deepvcp_tpu_torch.data import SyntheticDataset, batch_iterator
     from deepvcp_tpu_torch.parallel.mesh import DATA_AXIS, axis_index, axis_size
     from deepvcp_tpu_torch.train import create_train_state, make_train_step
@@ -36,6 +52,7 @@ def train_step(shape, cfg: DeepVCPConfig, tcfg: TrainConfig, state, batch, ring=
     model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
     ts, schedule = create_train_state(model, tcfg)
     step = make_train_step(model, schedule, tcfg, mesh=mesh)
+    inputs = _record_inputs(model)
     if local is None:
         args = shard_batch(mesh, batch)
     else:
@@ -49,7 +66,32 @@ def train_step(shape, cfg: DeepVCPConfig, tcfg: TrainConfig, state, batch, ring=
     print(f"rank {torch.distributed.get_rank()}: loss {out['loss']:.8f}", flush=True)
     return {"metrics": out, "params": _numpy(dict(model.named_parameters())),
             "stats": _numpy({n: b for n, b in model.named_buffers() if "running" in n}),
-            "step": ts.step}
+            "step": ts.step, "inputs": inputs,
+            "split": model.partitions(mesh, args[0].shape[1], args[1].shape[1])}
+
+
+def gather_grads(shape, x, w):
+    """parallel.mesh's point_shard and gather_points in a loss of the kind
+    the partitioned step computes: x [B, N, C] whole on every rank, w [C];
+    this rank's rows h = point_shard(x) * w, g = gather_points(h) ** 2
+    (replicated), the rank's rows of g's cumulative sum over the points,
+    gathered again, summed into the loss. Each rank backpropagates loss / P.
+    Returns the loss and the gradients of x and w, summed over the point
+    group as the step sums its parameters'."""
+    import torch.distributed as dist
+
+    from deepvcp_tpu_torch.parallel.mesh import (
+        POINT_AXIS, axis_group, axis_size, gather_points, point_shard)
+
+    mesh = make_mesh(*shape, device="cpu")
+    P = axis_size(mesh, POINT_AXIS)
+    x, w = torch.from_numpy(x).requires_grad_(), torch.from_numpy(w).requires_grad_()
+    g = gather_points(point_shard(x, mesh) * w, mesh) ** 2
+    loss = gather_points(point_shard(torch.cumsum(g, dim=1), mesh), mesh).sin().sum()
+    (loss / P).backward()
+    grads = torch.cat([x.grad.reshape(-1), w.grad])
+    dist.all_reduce(grads, group=axis_group(mesh, POINT_AXIS))
+    return float(loss), grads[:x.numel()].reshape(x.shape).numpy(), grads[x.numel():].numpy()
 
 
 def ring_knn(shape, ref, query, k, batch_axis=None):
@@ -94,6 +136,16 @@ def landmark_ba(shape, graph, R0, t0, lm0, obs, num_iters):
                                LandmarkObs(*(torch.from_numpy(a) for a in obs)), mesh=mesh,
                                num_iters=num_iters)
     return tuple(a.numpy() for a in out)
+
+
+def late_mesh(shape, delay_s):
+    """The last rank sleeps `delay_s` before make_mesh(*shape); no rank
+    issues a collective after it. Returns this rank's mesh coordinate."""
+    import time
+
+    if torch.distributed.get_rank() == torch.distributed.get_world_size() - 1:
+        time.sleep(delay_s)
+    return make_mesh(*shape, device="cpu").get_coordinate()
 
 
 def run_cases(cases):
