@@ -203,6 +203,7 @@ Run from the root of a checkout, with no arguments:  python3 chip_smoke.py
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import os
@@ -276,7 +277,28 @@ DP_STEP = 100              # kitti25_recipe's warmup_steps: lr at its peak
 # two gloo ranks against the single-process step: tests/test_parallel.py's
 # bounds, and the running statistics within 1e-5 of each tensor's max
 DP_LOSS_RTOL, DP_GRAD_RTOL, DP_RRE_ATOL, DP_STAT_RTOL = 1e-4, 1e-3, 0.05, 1e-5
-TWO_RANK_TIMEOUT_S = 240
+DP_BOUNDS = (DP_LOSS_RTOL, DP_GRAD_RTOL, DP_RRE_ATOL, DP_STAT_RTOL)
+# bf16 against bf16. The single-process bf16 step is itself chaotic: one
+# f32 ulp of one cloud's coordinates flips bf16 roundings through the
+# model and moves its loss and grad norm by more than one bf16 step (2^-8)
+# (engine_refs prints by how much), and the split's BatchNorm statistics,
+# summed over the ranks in another order, move those roundings as much.
+# So a bf16 split is held to BF16_SPREAD_X times the single-process step's
+# own spread under such a nudge, measured in the same run, never to less
+# than the data-parallel bounds
+BF16_SPREAD_X = 4.0
+F32_ULP = 2.0 ** -23
+# phase 22's point splits beyond the exact slab in f32, each against the
+# single-process step of its config: (checkpoint, config changes, its K1
+# and K2 launches a rank a step)
+ENGINE_SPLITS = {
+    "windowed": ("campaign_r4b-q5w", {}, 0),
+    "dense": ("campaign_r4b-q5w", {"neighbor_method": "dense"}, 0),
+    "static band": ("kitti25-rot", {"use_pallas_band_max": False}, 0),
+    "bf16": ("kitti25-rot", {"compute_dtype": "bfloat16"}, LAUNCHES_PER_CALL),
+}
+Q5W_POINTS = 2048          # campaign_r4b-q5w's trained N
+TWO_RANK_TIMEOUT_S = 420
 
 
 def fail(msg: str) -> None:
@@ -2430,15 +2452,34 @@ def msg_fp(torch, dev, clouds, total: dict) -> None:
     print(f"MSG + FP per call: {ms:.3f} ms (median of 5 synced calls)")
 
 
+def q5w_trainer(dev, cfg_changes: dict, metrics=None):
+    """A Trainer of model_q5w (its config changed by `cfg_changes`) under
+    its campaign recipe (residual_tcfg, scripts/campaign_r4_common.py:85),
+    its weights loaded: (trainer, recipe)."""
+    from deepvcp_tpu_torch import convert, pretrained
+    from deepvcp_tpu_torch.train import TrainConfig, Trainer
+
+    tcfg = TrainConfig(batch_size=1, learning_rate=1e-3, vcp_loss_weight=1.0,
+                       lr_schedule="cosine", warmup_steps=100, total_steps=768,
+                       use_saliency_weights=True, init_translation="gt",
+                       init_rot_jitter_deg=12.0, init_trans_jitter=0.5, log_every=1)
+    name = "campaign_r4b-q5w"
+    trainer = Trainer(pretrained.campaign_config(name, **cfg_changes), tcfg, device=dev,
+                      metrics=metrics)
+    trainer.setup()
+    trainer.model.load_state_dict(convert.flax_to_torch(pretrained.load_variables(name)),
+                                  strict=True)
+    return trainer, tcfg
+
+
 def windowed_training(torch, dev, total: dict) -> None:
     """Phase 21, windowed training: 2 Trainer steps of model_q5w at N = 2048
     under its campaign recipe (residual_tcfg,
     scripts/campaign_r4_common.py:85) on the first 2 of its training clouds."""
     import numpy as np
 
-    from deepvcp_tpu_torch import convert, pretrained
     from deepvcp_tpu_torch.data import SyntheticDataset, batch_iterator
-    from deepvcp_tpu_torch.train import MetricsLogger, TrainConfig, Trainer
+    from deepvcp_tpu_torch.train import MetricsLogger
 
     records = []
 
@@ -2446,17 +2487,8 @@ def windowed_training(torch, dev, total: dict) -> None:
         def log(self, record):
             records.append(record)
 
-    tcfg = TrainConfig(batch_size=1, learning_rate=1e-3, vcp_loss_weight=1.0,
-                       lr_schedule="cosine", warmup_steps=100, total_steps=768,
-                       use_saliency_weights=True, init_translation="gt",
-                       init_rot_jitter_deg=12.0, init_trans_jitter=0.5, log_every=1)
-    name = "campaign_r4b-q5w"
-    trainer = Trainer(pretrained.campaign_config(name), tcfg, device=dev,
-                      metrics=Records(None, echo=False))
-    trainer.setup()
-    trainer.model.load_state_dict(convert.flax_to_torch(pretrained.load_variables(name)),
-                                  strict=True)
-    data = SyntheticDataset(num_clouds=2, num_points=2048, extent=1.0, seed=0)
+    trainer, _ = q5w_trainer(dev, {}, metrics=Records(None, echo=False))
+    data = SyntheticDataset(num_clouds=2, num_points=Q5W_POINTS, extent=1.0, seed=0)
     batches = list(batch_iterator(data, 1, epoch=0, seed=0))
     params0 = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
 
@@ -2561,15 +2593,27 @@ def engines_phase(torch, dev, pairs, exact: dict) -> dict:
     return total
 
 
-def dp_setup(torch, dev):
+def dp_setup(torch, dev, split=None):
     """Phase 22's step inputs, the same in every process: kitti25-rot under
     its recipe (fine_tuning), one B = 2 batch of 25 m lidar-like pairs, at
-    step DP_STEP (past the warmup: lr > 0). Returns (trainer, recipe, the
-    saved model and optimizer state, the batch on dev)."""
-    from deepvcp_tpu_torch.data import LidarLikeDataset, batch_iterator
+    step DP_STEP (past the warmup: lr > 0); or, for an ENGINE_SPLITS name,
+    its checkpoint and config under its recipe, model_q5w on a B = 2 batch
+    of its training clouds. Returns (trainer, recipe, the saved model and
+    optimizer state, the batch on dev)."""
+    import copy
 
-    trainer, tcfg, _, _, saved = fine_tuning("kitti25-rot", {}, 1, dev)
-    data = LidarLikeDataset(num_clouds=2, num_points=N_POINTS, max_range=25.0, seed=12)
+    from deepvcp_tpu_torch.data import LidarLikeDataset, SyntheticDataset, batch_iterator
+    from deepvcp_tpu_torch.train import MetricsLogger
+
+    name, changes = ("kitti25-rot", {}) if split is None else ENGINE_SPLITS[split][:2]
+    if name == "kitti25-rot":
+        trainer, tcfg, _, _, saved = fine_tuning(name, changes, 1, dev)
+        data = LidarLikeDataset(num_clouds=2, num_points=N_POINTS, max_range=25.0, seed=12)
+    else:
+        trainer, tcfg = q5w_trainer(dev, changes, metrics=MetricsLogger(None, echo=False))
+        saved = (copy.deepcopy(trainer.model.state_dict()),
+                 copy.deepcopy(trainer.state.optimizer.state_dict()), trainer.state.step)
+        data = SyntheticDataset(num_clouds=2, num_points=Q5W_POINTS, extent=1.0, seed=0)
     batch = tuple(torch.from_numpy(a).to(dev) for a in next(batch_iterator(data, 2, seed=0)))
     return trainer, tcfg, saved, batch
 
@@ -2607,21 +2651,17 @@ def sharded_step_agrees(torch, dev, mesh) -> tuple:
     schedule = learning_rate_schedule(tcfg)
     model = trainer.model
     plain = make_train_step(model, schedule, tcfg)
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            ref = step_result(torch, trainer, plain, saved, batch)
-            sharded = make_train_step(model, schedule, tcfg, mesh=mesh)
-            got, counts = counted_all(
-                torch, lambda: step_result(torch, trainer, sharded, saved, batch))
-            ms = {what: host_median_ms(torch, lambda: step_result(torch, trainer, fn, saved, batch),
-                                       reps=3)
-                  for what, fn in (("unsharded", plain), ("sharded", sharded))}
-    finally:
-        torch.use_deterministic_algorithms(False)
+    with deterministic(torch):
+        ref = step_result(torch, trainer, plain, saved, batch)
+        sharded = make_train_step(model, schedule, tcfg, mesh=mesh)
+        got, counts = counted_all(
+            torch, lambda: step_result(torch, trainer, sharded, saved, batch))
+        ms = {what: host_median_ms(torch, lambda: step_result(torch, trainer, fn, saved, batch),
+                                   reps=3)
+              for what, fn in (("unsharded", plain), ("sharded", sharded))}
     # the unsharded B = 2 step's memory, as the gloo ranks of part 2 measure theirs
     _, ref["peak"] = step_peak(torch, lambda: step_result(torch, trainer, plain, saved, batch))
+    ref["ms"] = ms["unsharded"]
     lr = schedule(DP_STEP)
     m_p, m_s = ref["metrics"], got["metrics"]
     own = {n: g.abs().max().item() for n, g in ref["grads"].items()}
@@ -2648,6 +2688,21 @@ def sharded_step_agrees(torch, dev, mesh) -> tuple:
     if counts["k1"] != LAUNCHES_PER_CALL or counts["k2"] != LAUNCHES_PER_CALL:
         fail(f"expected {LAUNCHES_PER_CALL} K1 and K2 launches in the sharded step")
     return counts, ref, lr
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """Within the block, deterministic algorithms (gather's backward without
+    atomics; cuBLAS under CUBLAS_WORKSPACE_CONFIG, set in main and inherited
+    by the ranks), their warnings silenced: a step run twice is the same
+    bit for bit."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
 
 
 def step_peak(torch, fn) -> tuple:
@@ -2755,8 +2810,8 @@ def gloo_on_card(torch, dist, dev) -> None:
     """In each of two gloo ranks on `dev`: all_reduce and broadcast of CUDA
     tensors (the collectives of the data-parallel step, BatchNorm, the loss
     and the sharded solves) and all_gather (ring_knn's, of its index
-    shards) give the values they must; raises otherwise, which fails the
-    rank and the phase."""
+    shards; the point split's, of f32 and bf16 rows) give the values they
+    must; raises otherwise, which fails the rank and the phase."""
     rank, world = dist.get_rank(), dist.get_world_size()
     x = torch.full((4,), float(rank + 1), device=dev)
     dist.all_reduce(x)
@@ -2764,36 +2819,45 @@ def gloo_on_card(torch, dist, dev) -> None:
     dist.broadcast(y, 0)
     parts = [torch.empty(4, device=dev) for _ in range(world)]
     dist.all_gather(parts, torch.full((4,), float(rank), device=dev))
+    # bf16, bit for bit: the point split gathers bf16 features as they are
+    def bf16_of(r):
+        return (torch.tensor([1.0, 3.0039, -7.1e-3, 2.0 ** -130], device=dev)
+                * (r + 1)).to(torch.bfloat16)
+
+    halves = [torch.empty(4, dtype=torch.bfloat16, device=dev) for _ in range(world)]
+    dist.all_gather(halves, bf16_of(rank))
     want = world * (world + 1) / 2
+    bf16_right = all(torch.equal(h.view(torch.int16), bf16_of(r).view(torch.int16))
+                     for r, h in enumerate(halves))
     if not (bool((x == want).all()) and bool((y == 1.0).all()) and all(
-            bool((p == r).all()) for r, p in enumerate(parts))):
+            bool((p == r).all()) for r, p in enumerate(parts)) and bf16_right):
         raise RuntimeError(f"gloo collectives on CUDA tensors gave all_reduce {x.tolist()}, "
-                           f"broadcast {y.tolist()}, all_gather {[p.tolist() for p in parts]}")
-    print(f"rank {rank}: gloo all_reduce, broadcast and all_gather on {dev} tensors: right",
-          flush=True)
+                           f"broadcast {y.tolist()}, all_gather {[p.tolist() for p in parts]}, "
+                           f"bf16 all_gather {[h.tolist() for h in halves]}")
+    print(f"rank {rank}: gloo all_reduce, broadcast and all_gather (f32, bf16 bit for bit) on "
+          f"{dev} tensors: right", flush=True)
 
 
-def partitioned_step(torch, dist, trainer, tcfg, saved, batch, dev) -> dict:
-    """In one of phase 22's two gloo ranks: a 1 x 2 mesh, and dp_setup's
-    whole B = 2 batch through make_train_step(mesh=...), the point group's
+def partitioned_step(torch, dist, trainer, tcfg, saved, batch, mesh, what: str) -> dict:
+    """In one of phase 22's two gloo ranks: the whole B = 2 batch through
+    make_train_step(mesh=...) on the 1 x 2 `mesh`, the point group's
     per-point work split over the two ranks (K1 / K2 launches counted, the
     step's peak memory, whether the model's gate passed); then its synced
     time, median of 3."""
-    from deepvcp_tpu_torch.parallel import make_mesh, shard_batch
+    from deepvcp_tpu_torch.parallel import shard_batch
     from deepvcp_tpu_torch.train import make_train_step
     from deepvcp_tpu_torch.train.optim import learning_rate_schedule
 
-    mesh = make_mesh(1, 2, device=dev)
     step = make_train_step(trainer.model, learning_rate_schedule(tcfg), tcfg, mesh=mesh)
     args = shard_batch(mesh, batch)
     split = trainer.model.partitions(mesh, args[0].shape[1], args[1].shape[1])
     (result, peak), counts = counted_all(torch, lambda: step_peak(
         torch, lambda: step_result(torch, trainer, step, saved, args)))
     ms = host_median_ms(torch, lambda: step_result(torch, trainer, step, saved, args), reps=3)
-    print(f"rank {dist.get_rank()}: point-partitioned step on a 1 x 2 mesh (B={args[0].shape[0]}, "
-          f"gate passed: {split}): K1 {counts['k1']}, K2 {counts['k2']} launches, peak "
-          f"{peak[0]:.1f} MiB above the step's start ({peak[1]:.1f} MiB in all), "
-          f"{ms:.3f} ms a step", flush=True)
+    print(f"rank {dist.get_rank()}: {what} point-partitioned step on a 1 x 2 mesh "
+          f"(B={args[0].shape[0]}, N={args[0].shape[1]}, gate passed: {split}): K1 "
+          f"{counts['k1']}, K2 {counts['k2']} launches, peak {peak[0]:.1f} MiB above the "
+          f"step's start ({peak[1]:.1f} MiB in all), {ms:.3f} ms a step", flush=True)
     return {**result, "counts": counts, "split": split, "peak": peak, "ms": ms}
 
 
@@ -2803,7 +2867,8 @@ def two_rank_body(graph) -> dict:
     collectives on CUDA tensors, then a 2 x 1 mesh; this rank's B = 1 of
     dp_setup's batch through make_train_step(mesh=...) (its K1 / K2
     launches counted and printed), the sharded solves, and the point-
-    partitioned step on a 1 x 2 mesh (partitioned_step)."""
+    partitioned step on a 1 x 2 mesh (partitioned_step), on the exact slab
+    in f32 and under each of ENGINE_SPLITS."""
     import torch
     import torch.distributed as dist
 
@@ -2821,36 +2886,110 @@ def two_rank_body(graph) -> dict:
         torch, lambda: step_result(torch, trainer, step, saved, local)))
     print(f"rank {dist.get_rank()}: K1 {counts['k1']}, K2 {counts['k2']} launches in its step "
           f"(B={local[0].shape[0]}), peak {peak[0]:.1f} MiB above the step's start", flush=True)
-    return {**result, "counts": counts, "peak": peak,
-            **solves(torch, solve_inputs(torch, graph, dev), mesh),
-            "partitioned": partitioned_step(torch, dist, trainer, tcfg, saved, batch, dev)}
+    point_mesh = make_mesh(1, 2, device=dev)
+    out = {**result, "counts": counts, "peak": peak,
+           **solves(torch, solve_inputs(torch, graph, dev), mesh),
+           "partitioned": partitioned_step(torch, dist, trainer, tcfg, saved, batch,
+                                           point_mesh, "kitti25-rot exact slab")}
+    del trainer
+    return {**out, "splits": engine_splits(torch, dist, dev, point_mesh)}
 
 
-def dp_step_agrees(torch, got: dict, ref: dict, lr: float, what: str) -> None:
-    """Fail unless a rank's step `got` is the single-process B = 2 step
-    `ref` within the data-parallel bounds (loss DP_LOSS_RTOL, grad norm
-    DP_GRAD_RTOL, RRE DP_RRE_ATOL, parameters SHARDED_PARAM_LR x lr,
-    running statistics DP_STAT_RTOL of each tensor's max) and launched
-    LAUNCHES_PER_CALL K1 and K2; print it, with its peak memory beside
-    `ref`'s."""
+def engine_splits(torch, dist, dev, mesh) -> dict:
+    """In one of phase 22's two gloo ranks: partitioned_step on the 1 x 2
+    `mesh` under each of ENGINE_SPLITS, under deterministic algorithms as
+    engine_refs' steps: {name: its result}."""
+    splits = {}
+    for name, (ckpt, *_) in ENGINE_SPLITS.items():
+        with deterministic(torch):
+            splits[name] = partitioned_step(torch, dist, *dp_setup(torch, dev, name), mesh,
+                                            f"{ckpt} {name}")
+        torch.cuda.empty_cache()
+    return splits
+
+
+def engine_refs(torch, dev) -> dict:
+    """Phase 22's single-process B = 2 steps of ENGINE_SPLITS, each from its
+    saved state at DP_STEP (step_result) under deterministic algorithms (so
+    that a run's deviations repeat in the next), with its step_peak under
+    "peak", its synced time under "ms" (median of 3), its lr and the bounds
+    its split is held to: DP_BOUNDS in f32; in bf16, BF16_SPREAD_X times
+    the step's own deviation (the larger of two) when the source cloud's
+    coordinates are nudged up by one f32 ulp or the target's down, no less
+    than DP_BOUNDS. {name: result}."""
+    from deepvcp_tpu_torch.train import make_train_step
+    from deepvcp_tpu_torch.train.optim import learning_rate_schedule
+
+    refs = {}
+    for name, (ckpt, changes, _) in ENGINE_SPLITS.items():
+        trainer, tcfg, saved, batch = dp_setup(torch, dev, name)
+        plain = make_train_step(trainer.model, learning_rate_schedule(tcfg), tcfg)
+        with deterministic(torch):
+            ref, peak = step_peak(torch, lambda: step_result(torch, trainer, plain, saved, batch))
+            ms = host_median_ms(torch, lambda: step_result(torch, trainer, plain, saved, batch),
+                                reps=3)
+            nudges = []
+            if changes.get("compute_dtype") == "bfloat16":
+                src, tgt, R, t = batch
+                nudges = [step_deviation(step_result(torch, trainer, plain, saved, nudged), ref)
+                          for nudged in ((src * (1 + F32_ULP), tgt, R, t),
+                                         (src, tgt * (1 - F32_ULP), R, t))]
+        bounds = DP_BOUNDS
+        if nudges:
+            spread = [max(d) for d in zip(*nudges)]
+            bounds = (max(DP_LOSS_RTOL, BF16_SPREAD_X * spread[0]),
+                      max(DP_GRAD_RTOL, BF16_SPREAD_X * spread[1]), DP_RRE_ATOL,
+                      max(DP_STAT_RTOL, BF16_SPREAD_X * spread[4]))
+            print(f"single-process {ckpt} {name} step nudged by one f32 ulp of a cloud's "
+                  f"coordinates: loss rel {spread[0]:.2e}, grad norm rel {spread[1]:.2e}, RRE "
+                  f"{spread[2]:.2e} deg, parameters {spread[3]:.3e}, statistics {spread[4]:.2e} "
+                  f"of their max; its split held to loss rel {bounds[0]:.2e}, grad norm rel "
+                  f"{bounds[1]:.2e}, statistics {bounds[3]:.2e}")
+        refs[name] = {**ref, "peak": peak, "ms": ms, "bounds": bounds,
+                      "lr": learning_rate_schedule(tcfg)(DP_STEP)}
+        print(f"single-process {ckpt} {name} step, B=2, N={batch[0].shape[1]}: peak "
+              f"{peak[0]:.1f} MiB above the step's start ({peak[1]:.1f} in all), {ms:.3f} ms "
+              f"a step")
+        del trainer, plain
+        torch.cuda.empty_cache()
+    return refs
+
+
+def step_deviation(got: dict, ref: dict) -> tuple:
+    """How far step `got` is from `ref`: (loss, grad norm, each relative to
+    its own size; RRE in degrees; the parameters' max|d|; the running
+    statistics' max|d| over each tensor's max)."""
     m, m_p = got["metrics"], ref["metrics"]
-    loss_rel = abs(m["loss"] - m_p["loss"]) / abs(m_p["loss"])
-    norm_rel = abs(m["grad_norm"] - m_p["grad_norm"]) / m_p["grad_norm"]
-    rre_err = abs(m["rre_deg"] - m_p["rre_deg"])
-    param_err = max((got["params"][n] - p).abs().max().item() for n, p in ref["params"].items())
-    stat_rel = max((got["stats"][n] - s).abs().max().item() / s.abs().max().item()
-                   for n, s in ref["stats"].items())
+    return (abs(m["loss"] - m_p["loss"]) / abs(m_p["loss"]),
+            abs(m["grad_norm"] - m_p["grad_norm"]) / m_p["grad_norm"],
+            abs(m["rre_deg"] - m_p["rre_deg"]),
+            max((got["params"][n] - p).abs().max().item() for n, p in ref["params"].items()),
+            max((got["stats"][n] - s).abs().max().item() / s.abs().max().item()
+                for n, s in ref["stats"].items()))
+
+
+def dp_step_agrees(torch, got: dict, ref: dict, lr: float, what: str,
+                   launches: int = LAUNCHES_PER_CALL, bounds=DP_BOUNDS) -> None:
+    """Fail unless a rank's step `got` is the single-process B = 2 step
+    `ref` within `bounds` (loss, grad norm, of their own size; RRE in
+    degrees; running statistics, of each tensor's max: DP_BOUNDS, the
+    data-parallel bounds, unless given), the parameters within
+    SHARDED_PARAM_LR x lr, and launched `launches` K1 and K2; print it,
+    with its peak memory beside `ref`'s."""
+    loss_tol, norm_tol, rre_tol, stat_tol = bounds
+    m, m_p = got["metrics"], ref["metrics"]
+    loss_rel, norm_rel, rre_err, param_err, stat_rel = step_deviation(got, ref)
     print(f"{what} vs the single-process B=2 step: loss {m['loss']:.7f} vs {m_p['loss']:.7f} "
           f"(rel {loss_rel:.2e}), grad norm rel {norm_rel:.2e}, RRE {m['rre_deg']:.4f} vs "
           f"{m_p['rre_deg']:.4f} deg, parameters max|d| {param_err:.3e} ({param_err / lr:.3f} "
           f"lr), running statistics within {stat_rel:.2e} of their max; peak {got['peak'][0]:.1f} "
           f"MiB above the step's start ({got['peak'][1]:.1f} in all) against the single-process "
           f"step's {ref['peak'][0]:.1f} ({got['peak'][0] / ref['peak'][0]:.3f}x)")
-    if (loss_rel > DP_LOSS_RTOL or norm_rel > DP_GRAD_RTOL or rre_err > DP_RRE_ATOL
-            or param_err > SHARDED_PARAM_LR * lr or stat_rel > DP_STAT_RTOL):
+    if (loss_rel > loss_tol or norm_rel > norm_tol or rre_err > rre_tol
+            or param_err > SHARDED_PARAM_LR * lr or stat_rel > stat_tol):
         fail(f"{what} disagrees with the single-process step")
-    if got["counts"]["k1"] != LAUNCHES_PER_CALL or got["counts"]["k2"] != LAUNCHES_PER_CALL:
-        fail(f"{what}: expected {LAUNCHES_PER_CALL} K1 and K2 launches in its step")
+    if got["counts"]["k1"] != launches or got["counts"]["k2"] != launches:
+        fail(f"{what}: expected {launches} K1 and K2 launches in its step")
 
 
 def ranks_equal(torch, ranks: list, names, what: str) -> None:
@@ -2860,7 +2999,23 @@ def ranks_equal(torch, ranks: list, names, what: str) -> None:
         fail(f"the two ranks took different {what} steps")
 
 
-def two_ranks_on_card(torch, ref: dict, lr: float, graph, solved: dict) -> dict:
+def partitioned_agree(torch, what: str, part: list, ref: dict, launches: int,
+                      card: str) -> None:
+    """Fail unless both ranks' point-partitioned steps `part` passed the
+    gate, each is the single-process step `ref` within its "bounds" (its
+    "lr" and "ms" beside it) with `launches` K1 and K2 (dp_step_agrees),
+    and the ranks are equal."""
+    for r, got in enumerate(part):
+        if not got["split"]:
+            fail(f"rank {r}: the point partition's gate refused the 1 x 2 {what} step")
+        dp_step_agrees(torch, got, ref, ref["lr"],
+                       f"rank {r} of 2 (gloo, cuda:0, 1 x 2 point-partitioned, {what}, B=2, "
+                       f"{got['ms']:.3f} ms a step against the single process's "
+                       f"{ref['ms']:.3f}; {card})", launches, ref["bounds"])
+    ranks_equal(torch, part, ref["params"], f"point-partitioned {what}")
+
+
+def two_ranks_on_card(torch, ref: dict, lr: float, graph, solved: dict, refs: dict) -> dict:
     """Phase 22, part 2: two gloo ranks sharing cuda:0 (gloo takes CUDA
     tensors for all_reduce, broadcast and all_gather, the only collectives
     of these paths). Against the single-process B = 2 step `ref`
@@ -2868,29 +3023,31 @@ def two_ranks_on_card(torch, ref: dict, lr: float, graph, solved: dict) -> dict:
     mesh, each rank B = 1 of the B = 2 batch; and the point-partitioned
     step on a 1 x 2 mesh, both ranks the whole batch, each its half of the
     per-point work (the model's gate must pass), with each rank's peak
-    memory beside the single-process step's and its synced time (printed).
-    The sharded solves against the unsharded `solved`. A rank that fails or
-    outlasts TWO_RANK_TIMEOUT_S fails the phase. Returns the two ranks'
-    launches."""
+    memory beside the single-process step's and its synced time (printed);
+    the same for each of ENGINE_SPLITS against its own single-process step
+    in `refs` (engine_refs), with its launches and bounds. The sharded
+    solves against the unsharded `solved`. A rank that fails or outlasts
+    TWO_RANK_TIMEOUT_S fails the phase. Returns the two ranks' launches."""
     from deepvcp_tpu_torch.parallel.launch import run_ranks
 
     t0 = time.perf_counter()
     ranks = run_ranks("chip_smoke:two_rank_body", 2, kwargs={"graph": graph}, device="cuda",
                       backend="gloo", timeout_s=TWO_RANK_TIMEOUT_S, echo=True)
-    print(f"card: {card_line()}")
+    card = card_line()
+    print(f"card: {card}")
     for r, got in enumerate(ranks):
         dp_step_agrees(torch, got, ref, lr, f"rank {r} of 2 (gloo, cuda:0, 2 x 1, B=1 each)")
         solves_agree(torch, got, solved, f"rank {r}'s sharded solves over 2 ranks")
     ranks_equal(torch, ranks, ref["params"], "data-parallel")
-    part = [got["partitioned"] for got in ranks]
-    for r, got in enumerate(part):
-        if not got["split"]:
-            fail(f"rank {r}: the point partition's gate refused the 1 x 2 step")
-        dp_step_agrees(torch, got, ref, lr, f"rank {r} of 2 (gloo, cuda:0, 1 x 2 point-"
-                                            f"partitioned, B=2, {got['ms']:.3f} ms a step)")
-    ranks_equal(torch, part, ref["params"], "point-partitioned")
-    print(f"two gloo ranks on cuda:0: {time.perf_counter() - t0:.1f} s, process starts included")
-    return {k: sum(got["counts"][k] + got["partitioned"]["counts"][k] for got in ranks)
+    partitioned_agree(torch, "kitti25-rot exact slab", [got["partitioned"] for got in ranks],
+                      {**ref, "lr": lr, "bounds": DP_BOUNDS}, LAUNCHES_PER_CALL, card)
+    for name, (ckpt, _, launches) in ENGINE_SPLITS.items():
+        partitioned_agree(torch, f"{ckpt} {name}", [got["splits"][name] for got in ranks],
+                          refs[name], launches, card)
+    print(f"two gloo ranks on cuda:0: {time.perf_counter() - t0:.1f} s, process starts included "
+          f"(two processes share one card: their step times say nothing of two cards)")
+    return {k: sum(got["counts"][k] + got["partitioned"]["counts"][k]
+                   + sum(s["counts"][k] for s in got["splits"].values()) for got in ranks)
             for k in ("k1", "k2")}
 
 
@@ -2992,7 +3149,7 @@ def multi_device_phase(torch, dev, reg, pairs, odo) -> dict:
         tools = tooling_on_card(torch, dev, reg, pairs[0])
     finally:
         dist.destroy_process_group()
-    two = two_ranks_on_card(torch, ref, lr, graph, solved)
+    two = two_ranks_on_card(torch, ref, lr, graph, solved, engine_refs(torch, dev))
     print(f"phase 22: {time.perf_counter() - t0:.1f} s")
     return {k: step[k] + tools[k] + two[k] for k in ("k1", "k2")}
 

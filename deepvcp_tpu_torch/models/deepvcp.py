@@ -14,13 +14,17 @@ the CPG in bf16 with f32 parameters, as flax's dtype=bf16 modules do.
 
 Inside `with point_partition(mesh)` (the sharded train step opens it) a
 forward whose shapes pass DeepVCP.partitions splits its per-point work over
-the mesh's point group, as GSPMD splits the JAX step's: each rank runs the
-SA stages' projections and tails on its rows of each sorted cloud
-(models/layers.py::FeatureExtraction), the saliency on its rows, and the
-source descriptors, candidate neighbourhoods, DFE and CPG for its
-keypoints; the features, the saliency, the VCPs and the candidate weights
-are all-gathered (parallel.mesh.gather_points), and what needs the whole
-set (the sort, K1, top-K, the loss) runs whole on every rank.
+the mesh's point group, as GSPMD splits the JAX step's, under every FE
+engine and compute dtype: each rank runs the SA stages on its rows of each
+cloud, sorted (banded, windowed) or as given (dense)
+(models/layers.py::FeatureExtraction): the projections and tails, the
+gather engines' neighbour search, grouping and MLP for its queries, and
+the static band's pooling over the tiles that hold its rows; then the
+saliency on its rows, and the source descriptors, candidate
+neighbourhoods, DFE and CPG for its keypoints. The features, the
+saliency, the VCPs and the candidate weights are all-gathered
+(parallel.mesh.gather_points), and what needs the whole set (the sort, K1,
+top-K, the loss) runs whole on every rank.
 
 The forward is split at the warm start. `encode` is everything that does not
 depend on the pose (both FE passes, saliency, keypoints and the source
@@ -137,16 +141,20 @@ class DeepVCP(nn.Module):
 
     def partitions(self, mesh, *n_points: int) -> bool:
         """The point partition's gate, static as the ring's: a point group
-        of P > 1 ranks that divides K and each cloud's N, on the banded
-        engine's exact slab (K1 / K2) in f32. Other shapes and engines run
-        the whole forward on every rank of the group."""
+        of P > 1 ranks that divides K and each cloud's N, and SA stages that
+        keep every point as a centroid (npoint >= N on the banded engine,
+        which never samples; npoint == N on the gather engines, whose FPS
+        and centroids are not split). Any FE engine (banded on the exact
+        slab or the static band, windowed, dense) and compute dtype. Other
+        shapes run the whole forward on every rank of the group."""
         from deepvcp_tpu_torch.parallel.mesh import POINT_AXIS, axis_size
 
         cfg = self.cfg
         p = axis_size(mesh, POINT_AXIS)
+        banded = cfg.neighbor_method == "banded"
         return (p > 1 and cfg.num_keypoints % p == 0 and all(n % p == 0 for n in n_points)
-                and cfg.neighbor_method == "banded" and cfg.use_pallas_band_max
-                and cfg.compute_dtype == "float32")
+                and all(layer.npoint >= n if banded else layer.npoint == n
+                        for layer in cfg.sa_layers for n in n_points))
 
     def _point_mesh(self, *n_points: int):
         """The mesh of the enclosing point_partition if this forward's

@@ -101,14 +101,31 @@ def _tile_d2(q: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return ((dx + dy) + dz).to(q.dtype)
 
 
-def _static_band(sorted_xyz: torch.Tensor, C: int, radius: float, window: int, tile: int):
+def _band_tiles(T: int, w: int, rows, reach: int, device) -> torch.Tensor:
+    """The tiles (of w points, T of them) that hold rows [lo, hi) of the
+    cloud, widened by `reach` tiles on each side, torus wrapped, ascending
+    and each once; every tile when rows is None."""
+    if rows is None:
+        return torch.arange(T, device=device)
+    lo, hi = rows
+    t = torch.arange(lo // w - reach, (hi - 1) // w + reach + 1, device=device)
+    return torch.unique(t % T)
+
+
+def _static_band(sorted_xyz: torch.Tensor, C: int, radius: float, window: int, tile: int,
+                 rows=None, reach: bool = False):
     """The static band of a sorted cloud, a block of tiles at a time, so
     that no [B, T, w, band, C] block is built. Returns (w, T, blocks): the
     tile width, the tile count after padding with points at 1e7 (as JAX),
-    and a generator of (slice of tiles, the tiles' indices, band) where band
+    and a generator of (the block's tiles' indices, band) where band
     yields, for each band tile in the JAX order (band_of), (its tiles'
     indices, the in-radius mask [B, tiles, w, w]). r^2 is rounded to the
-    cloud's dtype, as JAX's jnp.asarray(r * r, dtype)."""
+    cloud's dtype, as JAX's jnp.asarray(r * r, dtype).
+
+    The blocks cover the tiles that hold `rows` [lo, hi) (every tile when
+    None) and, with `reach`, the tiles whose band meets those (the receivers
+    of their queries' cotangents). The tiles and the band are always the
+    whole cloud's: rows need not align with tiles."""
     B, N, _ = sorted_xyz.shape
     w = min(tile, N)
     T = -(-N // w)
@@ -116,7 +133,7 @@ def _static_band(sorted_xyz: torch.Tensor, C: int, radius: float, window: int, t
     per_block = max(1, _BAND_BLOCK // (B * w * w * max(C, 1)))
     r2 = float(torch.tensor(float(np.float32(radius * radius))).to(sorted_xyz.dtype))
     q = pad_to_tiles(sorted_xyz, w, 1e7).reshape(B, T, w, 3)
-    tiles = torch.arange(T, device=sorted_xyz.device)
+    tiles = _band_tiles(T, w, rows, half if reach else 0, sorted_xyz.device)
 
     def band(t):
         for s in range(half, -half - 1, -1):
@@ -124,53 +141,61 @@ def _static_band(sorted_xyz: torch.Tensor, C: int, radius: float, window: int, t
             yield src, _tile_d2(q[:, t], q[:, src]) <= r2
 
     def blocks():
-        for t0 in range(0, T, per_block):
+        for t0 in range(0, tiles.numel(), per_block):
             t = tiles[t0:t0 + per_block]
-            yield slice(t0, t0 + per_block), t, band(t)
+            yield t, band(t)
 
     return w, T, blocks()
 
 
 @torch.no_grad()
 def static_band_max(sorted_xyz: torch.Tensor, u: torch.Tensor, radius: float,
-                    window: int, tile: int) -> torch.Tensor:
+                    window: int, tile: int, rows=None) -> torch.Tensor:
     """The JAX package's xla_banded_max: for each point of a sorted cloud,
     the per-channel max of u over the in-radius points of its band (see
     band_of); -1e30 where none. sorted_xyz [B, N, 3], u [B, N, C], both f32
-    or both bf16 -> [B, N, C] in u's dtype. A max: any order is exact."""
+    or both bf16 -> [B, N, C] in u's dtype. A max: any order is exact.
+
+    With `rows` [lo, hi) only the tiles that hold those rows are pooled
+    (a point-partitioned stage keeps its rows): the other rows are -1e30."""
     B, N, _ = sorted_xyz.shape
     C = u.shape[-1]
-    w, T, blocks = _static_band(sorted_xyz, C, radius, window, tile)
+    w, T, blocks = _static_band(sorted_xyz, C, radius, window, tile, rows)
     ut = pad_to_tiles(u, w, 0.0).reshape(B, T, w, C)
     out = torch.full_like(ut, NEG)
-    for blk, _, band in blocks:
-        acc = out[:, blk]
+    for t, band in blocks:
+        acc = out[:, t]
         for src, inr in band:
             acc = torch.maximum(acc, torch.where(inr[..., None], ut[:, src, None], NEG).amax(dim=3))
-        out[:, blk] = acc
+        out[:, t] = acc
     return out.reshape(B, T * w, C)[:, :N]
 
 
 @torch.no_grad()
 def static_band_max_grad(sorted_xyz: torch.Tensor, u: torch.Tensor, out: torch.Tensor,
-                         g: torch.Tensor, radius: float, window: int, tile: int) -> torch.Tensor:
+                         g: torch.Tensor, radius: float, window: int, tile: int,
+                         rows=None) -> torch.Tensor:
     """The JAX package's static-band backward (fused_sa.py::_bmp_bwd on its
     CPU path): grad_u[n, c] = sum over the queries q of n's band of
     g[q, c] * [in radius] * [u[n, c] == out[q, c]], summed in f32 and
     returned in u's dtype (XLA sums bf16 in f32). A band that holds a tile
     more than once counts its queries that many times, as the JAX formula
-    does (at N <= tile the band is 2 * half + 1 copies of the one tile)."""
+    does (at N <= tile the band is 2 * half + 1 copies of the one tile).
+
+    With `rows` [lo, hi), g is zero outside those rows (a point-partitioned
+    stage's cotangent): only the tiles whose band meets theirs are summed,
+    the others are 0."""
     B, N, _ = sorted_xyz.shape
     C = u.shape[-1]
-    w, T, blocks = _static_band(sorted_xyz, C, radius, window, tile)
+    w, T, blocks = _static_band(sorted_xyz, C, radius, window, tile, rows, reach=True)
     ut, ot, gt = (pad_to_tiles(x, w, 0.0).reshape(B, T, w, C) for x in (u, out, g))
     grad = torch.zeros(ut.shape, dtype=torch.float32, device=u.device)
-    for blk, t, band in blocks:
-        acc = grad[:, blk]
+    for t, band in blocks:
+        acc = grad[:, t]
         for src, inr in band:
             took = inr[..., None] & (ut[:, t, :, None] == ot[:, src, None])
             acc = acc + torch.where(took, gt[:, src, None].float(), 0.0).sum(dim=3)
-        grad[:, blk] = acc
+        grad[:, t] = acc
     return grad.reshape(B, T * w, C)[:, :N].to(u.dtype)
 
 
@@ -178,10 +203,10 @@ class _StaticBandMaxPool(torch.autograd.Function):
     """The static band forward with the JAX formula's backward."""
 
     @staticmethod
-    def forward(ctx, sorted_xyz, u, radius, window, tile):
-        out = static_band_max(sorted_xyz, u, radius, window, tile)
+    def forward(ctx, sorted_xyz, u, radius, window, tile, rows):
+        out = static_band_max(sorted_xyz, u, radius, window, tile, rows)
         ctx.save_for_backward(sorted_xyz, u, out)
-        ctx.args = (radius, window, tile)
+        ctx.args = (radius, window, tile, rows)
         return out
 
     @staticmethod
@@ -191,13 +216,15 @@ class _StaticBandMaxPool(torch.autograd.Function):
         grad_u = None
         if ctx.needs_input_grad[1]:
             grad_u = static_band_max_grad(sorted_xyz, u, out, g, *ctx.args)
-        return None, grad_u, None, None, None
+        return None, grad_u, None, None, None, None
 
 
 def static_band_max_pool(sorted_xyz: torch.Tensor, u: torch.Tensor, radius: float,
-                         window: int, tile: int) -> torch.Tensor:
-    """Differentiable static-band masked max: [B, N, 3], [B, N, C] -> [B, N, C]."""
-    return _StaticBandMaxPool.apply(sorted_xyz, u, float(radius), int(window), int(tile))
+                         window: int, tile: int, rows=None) -> torch.Tensor:
+    """Differentiable static-band masked max: [B, N, 3], [B, N, C] -> [B, N, C].
+    With `rows` [lo, hi) only those rows of the result are computed (and
+    may carry a cotangent): static_band_max."""
+    return _StaticBandMaxPool.apply(sorted_xyz, u, float(radius), int(window), int(tile), rows)
 
 
 def linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -314,33 +341,39 @@ class BandedSetAbstraction(nn.Module):
         (sorted order). `window`: the static band's one-sided coverage in
         points, window_for(N, ...) of this call's N.
 
-        With a `mesh` (the exact slab only) this rank computes its rows of
-        the point group's split (parallel.mesh.point_shard): `features` and
-        the result are its rows [B, N / P, ...], sorted_xyz the whole
-        cloud. The projections and the tail run on its rows; K1 pools over
-        the whole cloud, on u all-gathered over the group, and the rank
-        keeps its rows of the max."""
+        With a `mesh` this rank computes its rows of the point group's
+        split (parallel.mesh.point_shard): `features` and the result are
+        its rows [B, N / P, ...], sorted_xyz the whole cloud. The
+        projections and the tail run on its rows; u is all-gathered over the
+        group and pooled over the whole cloud, by K1 over the exact slab
+        (every row) or over the static band (the tiles that hold the rank's
+        rows only), and the rank keeps its rows of the max."""
         dt = self.dtype
         # f32 keeps the input's own (at least f32) precision, as batch_norm
         xyz = sorted_xyz if dt == torch.float32 else sorted_xyz.to(dt)
         own = xyz
         if mesh is not None:
-            from deepvcp_tpu_torch.parallel.mesh import gather_points, point_shard
+            from deepvcp_tpu_torch.parallel.mesh import (
+                POINT_AXIS, axis_rows, gather_points, point_shard)
 
-            if not self.use_kernel:
-                raise ValueError("a point-partitioned stage pools over the exact slab only")
             own = point_shard(xyz, mesh)
         p = linear(self.proj_xyz, own, dt)
         u = p if features is None else p + linear(self.proj_feat, features, dt)
-        if mesh is not None:
-            max_u = point_shard(banded_max_pool(xyz, gather_points(u, mesh), self.layer.radius),
-                                mesh)
-        elif self.use_kernel:
-            max_u = banded_max_pool(xyz.float(), u.float(), self.layer.radius)
-        elif window is None:
+        if not self.use_kernel and window is None:
             raise ValueError("the static band needs a window")
+        if mesh is None:
+            max_u = (banded_max_pool(xyz.float(), u.float(), self.layer.radius)
+                     if self.use_kernel else
+                     static_band_max_pool(xyz, u, self.layer.radius, window, self.tile))
+        elif self.use_kernel:
+            # K1 / K2 on f32 copies of the (bf16-rounded) values, as the
+            # whole path
+            max_u = point_shard(banded_max_pool(
+                xyz.float(), gather_points(u.float(), mesh), self.layer.radius), mesh)
         else:
-            max_u = static_band_max_pool(xyz, u, self.layer.radius, window, self.tile)
+            max_u = point_shard(static_band_max_pool(
+                xyz, gather_points(u, mesh), self.layer.radius, window, self.tile,
+                rows=axis_rows(mesh, POINT_AXIS, xyz.shape[1])), mesh)
         # relu(max) == max(relu); relu also clamps an empty row's -1e30. In
         # bf16 the f32 bias0 promotes the sum to f32, as in flax
         h = torch.relu(max_u.to(dt) - p + self.bias0)

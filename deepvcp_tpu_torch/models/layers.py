@@ -61,16 +61,31 @@ class SetAbstraction(nn.Module):
         return torch.relu(x)
 
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor],
-                sorted_cloud: Optional[SortedCloud] = None, window: Optional[int] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                sorted_cloud: Optional[SortedCloud] = None, window: Optional[int] = None,
+                mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """xyz [B, N, 3], features [B, N, D] or None -> (new_xyz [B, S, 3],
         features [B, S, mlp[-1]]). With a sorted cloud, xyz and features are
         in its order and so are the outputs; `window` is window_for(N, ...)
-        of this call's N."""
+        of this call's N.
+
+        With a `mesh` (npoint == N: DeepVCP.partitions) the queries are this
+        rank's rows of xyz (parallel.mesh.point_shard): `features` and both
+        results are its rows [B, N / P, ...], xyz and the sorted cloud the
+        whole cloud. The neighbour search runs for its queries over the
+        whole cloud, the projected features of every rank's rows are
+        all-gathered before the neighbours' gather, and the MLP and the max
+        run on its rows."""
         cfg, dt = self.layer, self.dtype
         N = xyz.shape[1]
-        new_xyz = xyz if cfg.npoint == N else index_points(
-            xyz, farthest_point_sample(xyz, cfg.npoint))
+        if mesh is not None:
+            from deepvcp_tpu_torch.parallel.mesh import gather_points, point_shard
+
+            if cfg.npoint != N:
+                raise ValueError("a point-partitioned stage keeps every point as a centroid")
+            new_xyz = point_shard(xyz, mesh)
+        else:
+            new_xyz = xyz if cfg.npoint == N else index_points(
+                xyz, farthest_point_sample(xyz, cfg.npoint))
         if sorted_cloud is not None and window is not None and cfg.npoint == N:
             idx, count = windowed_ball_query(sorted_cloud, new_xyz, cfg.radius, cfg.nsample,
                                              window, return_count=True)
@@ -81,7 +96,8 @@ class SetAbstraction(nn.Module):
                 return_count=True)
         h = linear(self.proj_xyz, local_xyz, dt)                      # [B, S, ns, c0]
         if features is not None:
-            h = h + index_points(linear(self.proj_feat, features, dt), idx)
+            f = linear(self.proj_feat, features, dt)
+            h = h + index_points(f if mesh is None else gather_points(f, mesh), idx)
         h = torch.where((count > 0)[..., None, None], h, 0.0)
         h = self._norm_act(h, 0)
         for i in range(1, self.n_dense + 1):
@@ -125,45 +141,34 @@ class FeatureExtraction(nn.Module):
                 mesh=None) -> torch.Tensor:
         """xyz [B, N, 3], normals [B, N, 3] or None -> features [B, N, feat_dim].
 
-        With a `mesh` (banded stages on the exact slab) the cloud is sorted
-        whole, each stage runs on this rank's rows of the sorted cloud
-        (BandedSetAbstraction), the features stay split between stages and
-        through the projection, and are all-gathered once, then
-        unpermuted: every rank of the point group returns the whole
-        result."""
+        With a `mesh` (DeepVCP.partitions passed) each stage runs on this
+        rank's rows of the cloud, sorted whole (banded, windowed) or as
+        given (dense): its queries and its rows of the features
+        (BandedSetAbstraction, SetAbstraction). The features stay split
+        between stages and through the projection, and are all-gathered
+        once, then unpermuted: every rank of the point group returns the
+        whole result."""
         if mesh is not None:
-            return self._partitioned(xyz, normals, mesh)
-        if self.method == "dense":
-            feats = normals
-            for i in range(1, self.n_sa + 1):
-                xyz, feats = getattr(self, f"sa{i}")(xyz, feats)
-            return linear(self.proj, feats, self.dtype)
-        cloud = sort_cloud(xyz)
-        feats = None if normals is None else index_points(normals, cloud.perm)
-        x = cloud.xyz
+            from deepvcp_tpu_torch.parallel.mesh import gather_points, point_shard
+        cloud = None if self.method == "dense" else sort_cloud(xyz)
+        if cloud is not None:
+            xyz = cloud.xyz
+            normals = None if normals is None else index_points(normals, cloud.perm)
+        feats = normals if mesh is None or normals is None else point_shard(normals, mesh)
         for i in range(1, self.n_sa + 1):
             sa = getattr(self, f"sa{i}")
-            window = window_for(x.shape[1], sa.layer.radius, self.spatial_extent,
-                                self.window_safety)
+            window = None if cloud is None else window_for(
+                xyz.shape[1], sa.layer.radius, self.spatial_extent, self.window_safety)
             if self.method == "banded":
-                feats = sa(x, feats, window)
-            else:
-                x, feats = sa(x, feats, sorted_cloud=cloud, window=window)
+                feats = sa(xyz, feats, window, mesh=mesh)
+                continue
+            new_xyz, feats = sa(xyz, feats, sorted_cloud=cloud, window=window, mesh=mesh)
+            if mesh is None:
+                xyz = new_xyz     # a stage's centroids are the next one's cloud
         feats = linear(self.proj, feats, self.dtype)
-        return _unsort(feats, cloud)
-
-    def _partitioned(self, xyz: torch.Tensor, normals: Optional[torch.Tensor],
-                     mesh) -> torch.Tensor:
-        from deepvcp_tpu_torch.parallel.mesh import gather_points, point_shard
-
-        cloud = sort_cloud(xyz)
-        feats = None if normals is None else point_shard(index_points(normals, cloud.perm), mesh)
-        x = cloud.xyz
-        for i in range(1, self.n_sa + 1):
-            sa = getattr(self, f"sa{i}")
-            feats = sa(x, feats, window_for(x.shape[1], sa.layer.radius, self.spatial_extent,
-                                            self.window_safety), mesh=mesh)
-        return _unsort(gather_points(linear(self.proj, feats, self.dtype), mesh), cloud)
+        if mesh is not None:
+            feats = gather_points(feats, mesh)
+        return feats if cloud is None else _unsort(feats, cloud)
 
 
 def _unsort(feats: torch.Tensor, cloud: SortedCloud) -> torch.Tensor:

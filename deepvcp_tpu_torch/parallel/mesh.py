@@ -10,7 +10,8 @@ np.asarray(devices).reshape(data, point):
 - the ranks of one "point" group hold the same pairs, whole (sorting a
   cloud is one global op). Within the train step they split the per-point
   work as GSPMD splits the JAX step's: rank r of a group of P owns rows
-  [r N / P, (r + 1) N / P) of each sorted cloud and keypoints
+  [r N / P, (r + 1) N / P) of each cloud (sorted along x, except on the
+  dense engine) and keypoints
   [r K / P, (r + 1) K / P), and all-gathers what an op needs whole
   (point_shard / gather_points; models.point_partition). The candidate
   KNN runs as the ring over the point group (ops/distributed.ring_knn)
@@ -89,12 +90,15 @@ def point_shard(x: torch.Tensor, mesh: DeviceMesh, dim: int = 1) -> torch.Tensor
 
 
 class _GatherPoints(torch.autograd.Function):
-    """all_gather over the point group, joined on `dim` in axis order.
+    """all_gather over the point group, joined on `dim` in axis order. A
+    bf16 tensor is gathered as it is, bit for bit (gloo takes bf16
+    collectives on CPU and CUDA tensors).
 
     Backward, for a step in which each rank of the group backpropagates
     1 / P of the same loss: a rank's cotangent of the gathered tensor is its
     share of the whole one, so the shares are summed over the group
-    (all_reduce), then the rank keeps the rows it contributed."""
+    (all_reduce, in at least f32: a bf16 cotangent is rounded once, after
+    the sum), then the rank keeps the rows it contributed."""
 
     @staticmethod
     def forward(ctx, x, mesh, dim):
@@ -103,9 +107,10 @@ class _GatherPoints(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g, group=axis_group(ctx.mesh, POINT_AXIS))
-        return point_shard(g, ctx.mesh, ctx.dim), None, None
+        total = g.to(torch.promote_types(g.dtype, torch.float32),
+                     memory_format=torch.contiguous_format, copy=True)
+        dist.all_reduce(total, group=axis_group(ctx.mesh, POINT_AXIS))
+        return point_shard(total.to(g.dtype), ctx.mesh, ctx.dim), None, None
 
 
 def gather_points(x: torch.Tensor, mesh: DeviceMesh, dim: int = 1) -> torch.Tensor:
@@ -117,13 +122,20 @@ def gather_points(x: torch.Tensor, mesh: DeviceMesh, dim: int = 1) -> torch.Tens
     return _GatherPoints.apply(x, mesh, dim)
 
 
+def axis_rows(mesh: DeviceMesh, axis: str, n: int) -> Tuple[int, int]:
+    """This rank's rows [lo, hi) of n, split evenly over `axis`:
+    [i n / size, (i + 1) n / size), i this rank's index along it."""
+    size = axis_size(mesh, axis)
+    assert n % size == 0, (n, axis, size)
+    lo = axis_index(mesh, axis) * (n // size)
+    return lo, lo + n // size
+
+
 def shard_rows(x, mesh: DeviceMesh, axis: str = DATA_AXIS, dim: int = 0):
-    """This rank's rows (along `dim`) of `x`, split evenly over `axis`:
-    rows [i n / size, (i + 1) n / size), i this rank's index along it."""
-    n = axis_size(mesh, axis)
-    assert x.shape[dim] % n == 0, (x.shape, axis, n)
-    rows = x.shape[dim] // n
-    return x.narrow(dim, axis_index(mesh, axis) * rows, rows)
+    """This rank's rows (along `dim`) of `x`, split evenly over `axis`
+    (axis_rows)."""
+    lo, hi = axis_rows(mesh, axis, x.shape[dim])
+    return x.narrow(dim, lo, hi - lo)
 
 
 def batch_pair_sharding(mesh: DeviceMesh) -> Tuple[Tuple, ...]:

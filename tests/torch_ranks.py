@@ -1,5 +1,6 @@
 """Rank bodies of the port's multi-process tests (tests/test_torch_parallel.py,
-test_torch_ring_knn.py, test_torch_distributed_ba.py, test_torch_tooling.py).
+test_torch_ring_knn.py, test_torch_distributed_ba.py, test_torch_tooling.py,
+test_torch_point_partition.py, test_torch_point_partition_engines.py).
 
 Each runs in a spawned process of deepvcp_tpu_torch.parallel.launch.run_ranks,
 inside an initialised gloo process group on the CPU, and returns numpy
@@ -8,6 +9,8 @@ tests/conftest.py): the tests compute their JAX references in the parent.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -20,18 +23,36 @@ def _numpy(d):
     return {k: v.detach().cpu().numpy().copy() for k, v in d.items()}
 
 
-def _record_inputs(model):
-    """Forward hooks that record the input shape of each call of the
-    modules that run per point or per keypoint: {name: [shapes]}."""
-    seen = {}
-    modules = {"dfe": model.dfe, "cpg": model.cpg, "wl": model.wl, "proj": model.fe.proj}
-    modules.update({f"sa{i}.dense1": getattr(model.fe, f"sa{i}").dense1
-                    for i in range(1, model.fe.n_sa + 1)})
-    for name, m in modules.items():
-        m.register_forward_hook(
-            lambda mod, args, out, name=name: seen.setdefault(name, []).append(
-                tuple(args[0].shape)))
-    return seen
+@contextlib.contextmanager
+def _recording_inputs(model, seen):
+    """Within the block, record the input shape of each call of the modules
+    that run per point or per keypoint into seen {name: [shapes]}: the DFE,
+    the CPG and the saliency by forward hooks, each SA stage's first tail
+    layer and the FE projection at models.fused_sa.linear (in bf16 it
+    multiplies by the layer's weights without calling the module)."""
+    from unittest import mock
+
+    from deepvcp_tpu_torch.models import fused_sa, layers
+
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out, name=name: seen.setdefault(name, []).append(tuple(args[0].shape)))
+        for name, m in {"dfe": model.dfe, "cpg": model.cpg, "wl": model.wl}.items()]
+    dense = {model.fe.proj: "proj"}
+    dense.update({getattr(model.fe, f"sa{i}").dense1: f"sa{i}.dense1"
+                  for i in range(1, model.fe.n_sa + 1)})
+
+    def linear(layer, x, dtype, inner=fused_sa.linear):
+        if layer in dense:
+            seen.setdefault(dense[layer], []).append(tuple(x.shape))
+        return inner(layer, x, dtype)
+
+    try:
+        with mock.patch.object(fused_sa, "linear", linear), \
+                mock.patch.object(layers, "linear", linear):
+            yield
+    finally:
+        for h in hooks:
+            h.remove()
 
 
 def train_step(shape, cfg: DeepVCPConfig, tcfg: TrainConfig, state, batch, ring=False,
@@ -42,7 +63,7 @@ def train_step(shape, cfg: DeepVCPConfig, tcfg: TrainConfig, state, batch, ring=
     kwargs, per-host batch size), read through batch_iterator. Returns the
     metrics, the parameters and running statistics after the step, whether
     the point partition's gate passed and the input shapes of the per-point
-    modules (_record_inputs)."""
+    modules (_recording_inputs)."""
     from deepvcp_tpu_torch.data import SyntheticDataset, batch_iterator
     from deepvcp_tpu_torch.parallel.mesh import DATA_AXIS, axis_index, axis_size
     from deepvcp_tpu_torch.train import create_train_state, make_train_step
@@ -52,7 +73,7 @@ def train_step(shape, cfg: DeepVCPConfig, tcfg: TrainConfig, state, batch, ring=
     model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
     ts, schedule = create_train_state(model, tcfg)
     step = make_train_step(model, schedule, tcfg, mesh=mesh)
-    inputs = _record_inputs(model)
+    inputs = {}
     if local is None:
         args = shard_batch(mesh, batch)
     else:
@@ -61,7 +82,8 @@ def train_step(shape, cfg: DeepVCPConfig, tcfg: TrainConfig, state, batch, ring=
         args = shard_batch(mesh, next(batch_iterator(
             ds, per_host, epoch=0, seed=0, host_id=axis_index(mesh, DATA_AXIS),
             num_hosts=axis_size(mesh, DATA_AXIS))), local=True)
-    ts, metrics = step(ts, *args)
+    with _recording_inputs(model, inputs):
+        ts, metrics = step(ts, *args)
     out = {k: float(v) for k, v in metrics.items()}
     print(f"rank {torch.distributed.get_rank()}: loss {out['loss']:.8f}", flush=True)
     return {"metrics": out, "params": _numpy(dict(model.named_parameters())),
