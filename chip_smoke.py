@@ -19,8 +19,9 @@ the dense engine (N = 2048), campaign_r4's model_r1c (keypoints branch),
 SetAbstractionMSG / FeaturePropagation, windowed training and the training
 CLI's --save-vis; and the multi-device modules over a process group of one
 NCCL rank: the sharded train step, ring_knn, the sharded pose graph and BA,
-Trainer.fit with a heartbeat, plot and profile_stages. It checks on the
-way:
+Trainer.fit with a heartbeat, plot and profile_stages; and the examples,
+the trained-checkpoint regression and a 350-step convergence run, with K3
+and the flat KNN held to the native host oracles. It checks on the way:
 
   1. device      a CUDA card is present; prints nvidia-smi's name and power limit
   2. build       builds every CUDA kernel of the paths from csrc/ with nvcc
@@ -193,6 +194,23 @@ way:
                  timeout fails the run. ring_knn over more than one rank is
                  not run on the card: gloo takes no CUDA tensors for its
                  point-to-point sends (batch_isend_irecv)
+ 23. oracles and examples  the native host library (native/pointcloud.cc,
+                 built by the port) against the card: K3 on cloud 0 of each
+                 of phase 12's clouds against the native FPS, indices
+                 identical; the flat candidate KNN (approx_knn in f32, TF32
+                 off) on pair 0's 13 824 candidates x 10 000 points, k = 32,
+                 against the native knn: the same neighbour set on every row
+                 but those whose k-th and (k+1)-th squared distances lie
+                 within the matmul expansion's error bound (counted), with
+                 the host oracle's time beside the card's. The
+                 register_pair example in its three modes at N = 2048: finite
+                 poses, 2 K3 launches with --full-so3; train_synthetic
+                 --tiny --steps 3: 18 K1 + 18 K2. campaign_r4-fine at N =
+                 1024 under tests/test_trained_checkpoint.py's assertions
+                 (RRE <= 5 deg, RTE <= 0.15, the guard monotone), the pose
+                 within 1e-4 of the CPU's (selections pinned). The 350-step
+                 overfit run of tests/test_convergence.py: the pose
+                 recovered GT-free, 6 K1 + 6 K2 a step, its time printed
  11. no jax      neither jax nor the JAX package deepvcp_tpu was imported
                  (checked last)
 
@@ -299,6 +317,10 @@ ENGINE_SPLITS = {
 }
 Q5W_POINTS = 2048          # campaign_r4b-q5w's trained N
 TWO_RANK_TIMEOUT_S = 420
+# phase 23: the examples' cloud size (register_pair's default) and
+# tests/test_convergence.py's overfit run
+EXAMPLE_POINTS = 2048
+CONVERGENCE_STEPS = 350
 
 
 def fail(msg: str) -> None:
@@ -1040,18 +1062,13 @@ def band_phase(torch, dev) -> dict:
     return res
 
 
-def k3_phase(torch, dev) -> dict:
-    """Phase 12: K3 against its plain version at the global path's shapes,
-    on a tie cloud and past the old 16 384-point limit; median CUDA-event
-    times; the pick protocol alone at each cluster size. Returns the
-    numbers of the two shapes one so3_global_init call runs ([2, N, 3] at
-    4096 and 128)."""
+def fps_cases() -> list:
+    """K3's test clouds, (name, xyz [B, N, 3] numpy, npoint): B 1 m
+    lidar-like clouds per FPS_SHAPES and FPS_LARGE entry, then a lattice
+    with every point twice (exact distance ties)."""
     import numpy as np
 
     from deepvcp_tpu_torch.data import lidar_like_cloud
-    from deepvcp_tpu_torch.ops.kernels import fps
-    from deepvcp_tpu_torch.ops.kernels.fps import (
-        farthest_point_sample, farthest_point_sample_reference)
 
     rng = np.random.default_rng(1)
     g = np.arange(17, dtype=np.float32) * 0.125
@@ -1062,8 +1079,23 @@ def k3_phase(torch, dev) -> dict:
              for B, N, k in FPS_SHAPES + FPS_LARGE]
     cases.append((f"tie cloud [1, {len(lattice)}, 3] (a 17^3 lattice, every point twice) "
                   f"npoint 4096", lattice[None], 4096))
+    return cases
+
+
+def k3_phase(torch, dev) -> dict:
+    """Phase 12: K3 against its plain version at the global path's shapes,
+    on a tie cloud and past the old 16 384-point limit; median CUDA-event
+    times; the pick protocol alone at each cluster size. Returns the
+    numbers of the two shapes one so3_global_init call runs ([2, N, 3] at
+    4096 and 128)."""
+    import numpy as np
+
+    from deepvcp_tpu_torch.ops.kernels import fps
+    from deepvcp_tpu_torch.ops.kernels.fps import (
+        farthest_point_sample, farthest_point_sample_reference)
+
     init = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0, "max_abs_err": 0}
-    for name, xyz, k in cases:
+    for name, xyz, k in fps_cases():
         x = torch.from_numpy(np.ascontiguousarray(xyz, dtype=np.float32)).to(dev)
         B, N, _ = x.shape
         before = farthest_point_sample.launches
@@ -3154,6 +3186,271 @@ def multi_device_phase(torch, dev, reg, pairs, odo) -> dict:
     return {k: step[k] + tools[k] + two[k] for k in ("k1", "k2")}
 
 
+def k3_vs_native(torch, dev) -> None:
+    """Phase 23: K3 on cloud 0 of each of phase 12's clouds against the
+    native FPS on the host: indices identical (both compute ((dx*dx) +
+    (dy*dy)) + (dz*dz) rounded step by step, and a tie goes to the lowest
+    index). Launches made here only compare and are not counted."""
+    from deepvcp_tpu_torch import native
+    from deepvcp_tpu_torch.ops.kernels.fps import farthest_point_sample
+
+    for name, xyz, k in fps_cases():
+        cloud = xyz[0].astype("float32")
+        x = torch.from_numpy(cloud)[None].to(dev)
+        got = farthest_point_sample(x, k)[0].cpu().numpy()
+        t0 = time.perf_counter()
+        want = native.farthest_point_sample(cloud, k)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        card_ms = cuda_median_ms(torch, lambda: farthest_point_sample(x, k), reps=5, warmup=1)
+        same = bool((got == want).all())
+        print(f"K3 vs the native FPS, cloud 0 of {name}: indices "
+              f"{'identical' if same else 'DIFFER'} | card {card_ms:.4f} ms, host oracle "
+              f"{host_ms:.3f} ms")
+        if not same:
+            fail(f"K3 disagrees with the native FPS on cloud 0 of {name}, first at pick "
+                 f"{int((got != want).nonzero()[0][0])}")
+
+
+def expansion_bound(q64, r64, d2_kth):
+    """Per query row, how far two of its squared distances can move apart
+    between the matmul expansion (ops/distance.py: |q|^2 + |r|^2 - 2 q.r
+    in f32, each dot of 3 terms) and the exact value, plus the elementwise
+    f32 oracle's own error: each expansion term carries gamma_3 of its
+    size, the two sums u each, so |err| <= gamma_6 (|q| + |r|)^2 for any r
+    (|r| <= the cloud's largest norm); the oracle's three rounded squares
+    and two sums give gamma_5 d^2. Two distances cross only where their
+    gap is at most twice the sum."""
+    import numpy as np
+
+    u = 2.0 ** -24
+
+    def gamma(n):
+        return n * u / (1 - n * u)
+
+    r_max = np.linalg.norm(r64, axis=-1).max()
+    return 2 * (gamma(6) * (np.linalg.norm(q64, axis=-1) + r_max) ** 2 + gamma(5) * d2_kth)
+
+
+def flat_knn_vs_native(torch, dev, reg, pair) -> None:
+    """Phase 23: the flat candidate KNN (ops/knn.py::approx_knn in f32, the
+    kitti25-rot path's own call and chunk, TF32 off) on pair 0's K * C
+    candidates of the identity-init refinement against the native knn: the
+    same neighbour set on every row but those whose oracle k-th and
+    (k+1)-th squared distances lie within expansion_bound (counted)."""
+    import numpy as np
+
+    from deepvcp_tpu_torch import native
+    from deepvcp_tpu_torch.ops.knn import approx_knn
+
+    cfg = reg.model.cfg
+    if not cfg.use_approx_knn or cfg.knn_select_dtype_effective is not None:
+        fail("kitti25-rot's candidate KNN is not the flat f32 approx_knn")
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 matmuls are on: the card's distances would not be f32")
+    src, tgt = pair[0], pair[1]
+    with torch.no_grad():
+        enc = reg.model.encode(src, tgt)
+        _, cand = reg.model.candidates(enc, torch.eye(3, device=dev)[None],
+                                       torch.zeros(1, 3, device=dev))
+    ref, query, k = enc.tgt_xyz, cand.reshape(1, -1, 3), cfg.num_neighbors
+
+    def run():
+        return approx_knn(ref, query, k, chunk=cfg.knn_query_chunk, select_dtype=None)
+
+    idx = run()[1][0].cpu().numpy()
+    card_ms = cuda_median_ms(torch, run, reps=10)
+    ref_np, q_np = ref[0].cpu().numpy(), query[0].cpu().numpy()
+    t0 = time.perf_counter()
+    _, want = native.knn(ref_np, q_np, k + 1)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    r64, q64 = ref_np.astype(np.float64), q_np.astype(np.float64)
+    d2 = [((r64[want[:, j]] - q64) ** 2).sum(-1) for j in (k - 1, k)]
+    bound = expansion_bound(q64, r64, d2[1])
+    near = d2[1] - d2[0] <= bound
+    differ = (np.sort(idx, -1) != np.sort(want[:, :k], -1)).any(-1)
+    print(f"flat candidate KNN vs the native knn, {q_np.shape[0]} candidates x "
+          f"{ref_np.shape[0]} points, k = {k}: rows differing {int(differ.sum())}, near-ties "
+          f"exempt {int(near.sum())} (their k-th and (k+1)-th squared distances within the "
+          f"expansion's bound, {float(bound.min()):.3e}-{float(bound.max()):.3e} m^2 at "
+          f"coordinates up to {float(np.abs(q64).max()):.1f} m), differing outside them "
+          f"{int((differ & ~near).sum())} | card {card_ms:.3f} ms (CUDA events), host oracle "
+          f"{host_ms:.1f} ms (one thread)")
+    if (differ & ~near).any():
+        fail("the flat candidate KNN's neighbour sets differ from the native knn's away from "
+             "near-ties")
+
+
+def cpu_flag(dev) -> list:
+    """The examples' --cpu where dev is the CPU (a rehearsal of the phase)."""
+    return ["--cpu"] if dev.type == "cpu" else []
+
+
+def register_pair_on_card(torch, dev, total: dict) -> None:
+    """Phase 23: the register_pair example in its three modes at N =
+    EXAMPLE_POINTS (the example's default) on
+    the card: finite poses, K3 launched in --full-so3 (one so3_global_init:
+    2), K1 in every mode; RRE / RTE printed by the example."""
+    from deepvcp_tpu_torch.examples import register_pair
+
+    for flags in ([], ["--full-so3"], ["--kitti"]):
+        what = "register_pair " + (" ".join(flags) or "(modelnet-fine)")
+        print(f"{what}:")
+        res, counts = counted_all(torch, lambda: register_pair.main(
+            ["--num-points", str(EXAMPLE_POINTS), *flags, *cpu_flag(dev)]))
+        add_counts(total, counts)
+        out = res["out"]
+        finite = bool(torch.isfinite(out.R).all() and torch.isfinite(out.t).all())
+        print(f"  mean RRE {res['rre'].mean():.4f} deg, mean RTE {res['rte'].mean():.5f}; "
+              f"launches K1 {counts['k1']}, K3 {counts['k3']}")
+        if not finite or counts["k1"] == 0:
+            fail(f"{what}: pose not finite or no K1 launch")
+        if ("--full-so3" in flags) != (counts["k3"] == 2):
+            fail(f"{what}: {counts['k3']} K3 launches (2 with --full-so3, else 0)")
+
+
+def train_synthetic_on_card(torch, dev, total: dict) -> None:
+    """Phase 23: the train_synthetic example, --tiny --steps 3, on the card:
+    finite summary, a metrics line a step, 6 K1 + 6 K2 a step."""
+    import math
+    import tempfile
+
+    from deepvcp_tpu_torch.examples import train_synthetic
+
+    with tempfile.TemporaryDirectory() as tmp:
+        metrics = os.path.join(tmp, "synthetic_metrics.jsonl")
+        summary, counts = counted_all(torch, lambda: train_synthetic.main(
+            ["--tiny", "--steps", "3", "--metrics", metrics, *cpu_flag(dev)]))
+        with open(metrics) as fh:
+            lines = fh.read().splitlines()
+    add_counts(total, counts)
+    print(f"train_synthetic --tiny --steps 3: {len(lines)} metrics lines; launches K1 "
+          f"{counts['k1']}, K2 {counts['k2']}")
+    values = [v for end in ("first", "last") for v in summary[end].values()]
+    if len(lines) != 3 or not all(math.isfinite(v) for v in values) or \
+            (counts["k1"], counts["k2"]) != (18, 18):
+        fail("train_synthetic: want 3 finite steps, 18 K1 and 18 K2 launches")
+
+
+def trained_checkpoint_on_card(torch, dev, total: dict) -> None:
+    """Phase 23: campaign_r4-fine at N = 1024 on tests/test_trained_
+    checkpoint.py's held sample (identity init, guard, refine_iters 2, one
+    B = 2 call): RRE <= 5 deg and RTE <= 0.15 per pair, the best-so-far
+    score non-increasing and below the identity's; the card's pose within
+    CARD_CPU_POSE of the CPU's, the CPU's candidate selections pinned to the
+    card's after the near-tie check (pinned_pose: the bf16 tile)."""
+    import numpy as np
+
+    from deepvcp_tpu_torch import pretrained
+    from deepvcp_tpu_torch.data import SyntheticDataset, batch_iterator, rotation_geodesic_deg
+
+    n = 1024
+
+    def registrar(device):
+        return pretrained.campaign_registrar(
+            "campaign_r4-fine", device=device, cfg_changes={"num_points": n},
+            use_saliency_weights=True, refine_iters=2)
+
+    ds = SyntheticDataset(num_clouds=2, num_points=n, extent=1.0, seed=100,
+                          max_rotation_deg=10.0, max_translation=0.5)
+    src, tgt, R, t = (torch.from_numpy(a).to(dev)
+                      for a in next(batch_iterator(ds, 2, epoch=0, seed=0)))
+    reg = registrar(dev)
+    out, counts = counted_all(torch, lambda: reg(src, tgt))
+    add_counts(total, counts)
+    rre = rotation_geodesic_deg(out.R, R).cpu().numpy()
+    rte = torch.linalg.norm(out.t - t, dim=-1).cpu().numpy()
+    sc = out.scores.cpu().numpy()
+    best = np.minimum.accumulate(sc, axis=1)
+    print(f"campaign_r4-fine, N = {n}, GT-free: RRE {rre} deg, RTE {rte}, guard scores "
+          f"{sc.tolist()}; K1 {counts['k1']}")
+    if rre.max() > 5.0 or rte.max() > 0.15:
+        fail("campaign_r4-fine: RRE > 5 deg or RTE > 0.15")
+    if not ((np.diff(best, axis=1) <= 1e-7).all() and (best[:, -1] < sc[:, 0] - 1e-4).all()):
+        fail("campaign_r4-fine: the guard's best score rose, or did not beat the identity's")
+    out_d, out_c = pinned_pose(torch, reg, registrar("cpu"), src, tgt, "campaign_r4-fine")
+    dR = (out_d.R.cpu() - out_c.R).abs().max().item()
+    dt = (out_d.t.cpu() - out_c.t).abs().max().item()
+    print(f"campaign_r4-fine card vs CPU: max|dR| {dR:.3e}, max|dt| {dt:.3e}")
+    if dR > CARD_CPU_POSE or dt > CARD_CPU_POSE:
+        fail("campaign_r4-fine: the pose differs between the card and the CPU")
+
+
+def convergence_on_card(torch, dev, total: dict) -> None:
+    """Phase 23: tests/test_convergence.py::test_overfit_recovers_pose_gt_free's
+    recipe on the card (tiny, N = 64, B = 2, vcp_loss_weight 1, cosine over
+    CONVERGENCE_STEPS steps) and its assertions on the eval-mode
+    identity-init solve: RTE below a quarter of its start and below 0.1,
+    RRE below 2 deg; 6 K1 + 6 K2 a step."""
+    import math
+
+    from deepvcp_tpu_torch.config import DeepVCPConfig, TrainConfig
+    from deepvcp_tpu_torch.data import (
+        SyntheticDataset, batch_iterator, rotation_geodesic_deg, translation_error)
+    from deepvcp_tpu_torch.loss import svd_refine
+    from deepvcp_tpu_torch.train import Trainer
+
+    steps = CONVERGENCE_STEPS
+    trainer = Trainer(DeepVCPConfig.tiny(num_points=64, use_normal=False), TrainConfig(
+        num_epochs=1, batch_size=2, learning_rate=3e-3, metrics_path=None, log_every=10000,
+        vcp_loss_weight=1.0, lr_schedule="cosine", total_steps=steps,
+        use_saliency_weights=True), dev)
+    trainer.setup()
+    ds = SyntheticDataset(num_clouds=2, num_points=64, extent=2.0, max_rotation_deg=5.0,
+                          max_translation=0.4)
+    src, tgt, R_gt, t_gt = (torch.from_numpy(a).to(dev)
+                            for a in next(batch_iterator(ds, 2, epoch=0, seed=0)))
+
+    def gt_free():
+        model = trainer.model.eval()
+        with torch.no_grad():
+            kp, vcp, _ = model(src, tgt, torch.eye(3, device=dev).expand(2, 3, 3),
+                               torch.zeros_like(t_gt))
+            ref = svd_refine(kp, vcp)
+        model.train()
+        return (torch.mean(rotation_geodesic_deg(ref.R, R_gt)).item(),
+                torch.mean(translation_error(ref.t, t_gt)).item())
+
+    def run():
+        rre0, rte0 = gt_free()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            trainer.state, m = trainer._train_step(trainer.state, src, tgt, R_gt, t_gt)
+        loss = m["loss"].item()
+        return rre0, rte0, time.perf_counter() - t0, loss, *gt_free()
+
+    (rre0, rte0, seconds, loss, rre1, rte1), counts = counted_all(torch, run)
+    add_counts(total, counts)
+    print(f"convergence ({steps} steps, tiny, N = 64, B = 2): GT-free RRE {rre0:.4f} -> "
+          f"{rre1:.4f} deg, RTE {rte0:.5f} -> {rte1:.5f}, last loss {loss:.5f}; "
+          f"{seconds:.2f} s ({seconds / steps * 1e3:.2f} ms a step); K1 {counts['k1']}, K2 "
+          f"{counts['k2']}")
+    if not (math.isfinite(loss) and rte1 < 0.25 * rte0 and rte1 < 0.1 and rre1 < 2.0):
+        fail("convergence: the overfit pair's pose was not recovered GT-free")
+    if (counts["k1"], counts["k2"]) != (6 * steps + 12, 6 * steps):
+        fail(f"convergence: want {6 * steps + 12} K1 and {6 * steps} K2 launches")
+
+
+def oracle_phase(torch, dev, reg, pairs) -> dict:
+    """Phase 23: K3 and the flat candidate KNN against the native host
+    oracles, then the examples, the trained checkpoint and the convergence
+    run on the card. Returns each kernel's launches in those runs."""
+    from deepvcp_tpu_torch import native
+
+    t0 = time.perf_counter()
+    if not native.available():
+        fail("the native host library did not build or load")
+    k3_vs_native(torch, dev)
+    flat_knn_vs_native(torch, dev, reg, pairs[0])
+    total = {}
+    register_pair_on_card(torch, dev, total)
+    train_synthetic_on_card(torch, dev, total)
+    trained_checkpoint_on_card(torch, dev, total)
+    convergence_on_card(torch, dev, total)
+    print(f"phase 23 launches: " + ", ".join(f"{k.upper()} {v}" for k, v in total.items())
+          + f"; phase 23: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main() -> None:
     started = time.perf_counter()
     # cuBLAS reads this when it starts; the train-path comparison (phase 9)
@@ -3250,6 +3547,10 @@ def main() -> None:
     # the tooling over a process group of one NCCL rank
     multi = multi_device_phase(torch, dev, reg, pairs, odo)
 
+    # 23. the native oracles against K3 and the flat KNN; the examples, the
+    # trained checkpoint and the convergence run
+    ora = oracle_phase(torch, dev, reg, pairs)
+
     (k1_bound, k1_by), (k2_bound, k2_by) = band["k1_bound"], band["k2_bound"]
     print(f"bounds at the 3 serving SA shapes: K1 {k1_bound:.5f} ms ({k1_by}), K2 {k2_bound:.5f} "
           f"ms ({k2_by}); K3 at one init call's 2 shapes {k3['bound_ms']:.5f} ms "
@@ -3268,14 +3569,14 @@ def main() -> None:
     # K4 and K5 at the two-level path's shapes (library_ms: torch.gather,
     # torch.scatter_add); launches: the main-path runs' (serving, training,
     # global, two-level serving and training, odometry, the engines,
-    # multi-device)
+    # multi-device, the examples, the trained checkpoint and convergence)
     print(json.dumps({"kernels": [{
         "name": "banded_masked_max",
         "route": "cuda",
         "source": "deepvcp_tpu_torch/csrc/band_max.cu",
         "replaces": "deepvcp_tpu/ops/pallas/band_max_kernel.py:148",
         "launches": (launches + train["k1"] + glob["k1"] + two["k1"] + two_train["k1"]
-                     + odo["k1"] + eng["k1"] + multi["k1"]),
+                     + odo["k1"] + eng["k1"] + multi["k1"] + ora.get("k1", 0)),
         "max_abs_err": band["k1_err"],
         "ms": band["k1_ms"],
         "plain_ms": band["k1_plain_ms"],
@@ -3287,7 +3588,7 @@ def main() -> None:
         "route": "cuda",
         "source": "deepvcp_tpu_torch/csrc/band_max_grad.cu",
         "replaces": "deepvcp_tpu/ops/pallas/band_max_kernel.py:267",
-        "launches": train["k2"] + two_train["k2"] + eng["k2"] + multi["k2"],
+        "launches": train["k2"] + two_train["k2"] + eng["k2"] + multi["k2"] + ora.get("k2", 0),
         "max_abs_err": band["k2_err"],
         "ms": band["k2_ms"],
         "plain_ms": band["k2_plain_ms"],
@@ -3299,7 +3600,7 @@ def main() -> None:
         "route": "cuda",
         "source": "deepvcp_tpu_torch/csrc/fps.cu",
         "replaces": "deepvcp_tpu/ops/pallas/fps_kernel.py:81",
-        "launches": glob["k3"] + eng["k3"],
+        "launches": glob["k3"] + eng["k3"] + ora.get("k3", 0),
         "max_abs_err": k3["max_abs_err"],
         "ms": k3["ms"],
         "plain_ms": k3["plain_ms"],

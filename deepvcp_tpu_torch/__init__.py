@@ -20,11 +20,14 @@ Layout:
     pretrained    registry checkpoints exported to weights/*.npz
     convert       flax variables (and optax Adam state) -> torch
     data/         synthetic, KITTI and ModelNet40 datasets, pair construction
-    native        ctypes binding of native/pointcloud.cc (velodyne reading)
+    native        ctypes binding of native/pointcloud.cc (velodyne reading and
+                  the host geometry oracles: knn, FPS, ball query, make_pair)
     odometry/     sequence odometry, pose graph, bundle adjustment, CLI
                   (python -m deepvcp_tpu_torch.odometry)
     train/        train and eval steps, Trainer, CLI (python -m deepvcp_tpu_torch.train)
     utils/        rotations, pose metrics, warm-start jitter
+    examples/     walkthroughs: python -m deepvcp_tpu_torch.examples.register_pair,
+                  python -m deepvcp_tpu_torch.examples.train_synthetic
 """
 
 import torch

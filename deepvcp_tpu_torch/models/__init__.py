@@ -1,6 +1,7 @@
 """PyTorch modules of the port (the exports of deepvcp_tpu/models)."""
 
-from deepvcp_tpu_torch.models.deepvcp import DeepVCP, Encoding, point_partition  # noqa: F401
+from deepvcp_tpu_torch.models.deepvcp import (  # noqa: F401
+    DeepVCP, Encoding, create_deepvcp, point_partition)
 from deepvcp_tpu_torch.models.extra_layers import (  # noqa: F401
     FeaturePropagation, SetAbstractionMSG)
 from deepvcp_tpu_torch.models.fused_sa import (  # noqa: F401

@@ -312,3 +312,10 @@ class DeepVCP(nn.Module):
     def forward(self, src: torch.Tensor, tgt: torch.Tensor, R_init: torch.Tensor,
                 t_init: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
         return self.correspond(self.encode(src, tgt), R_init, t_init)
+
+
+def create_deepvcp(cfg: DeepVCPConfig, knn_mesh=None) -> DeepVCP:
+    """The model of cfg (counterpart of the JAX `create_deepvcp(cfg,
+    axis_name)`: the ring KNN's axis there is the point group of
+    `knn_mesh` here)."""
+    return DeepVCP(cfg, knn_mesh=knn_mesh)

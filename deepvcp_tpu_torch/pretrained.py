@@ -142,12 +142,13 @@ CASCADES: Dict[str, Dict[str, Any]] = {
 
 
 # Campaign checkpoints outside the registry (REGISTRY stays equal to the JAX
-# package's), exported because they run the non-default engines: name ->
+# package's), exported because they run the non-default engines or carry
+# the trained-checkpoint regression (campaign_r4-fine): name ->
 # checkpoint directory (its `.arch.json` applies), the point count and the
 # config fields of the script that trained it, and the GT-free (RRE deg,
 # RTE) of that campaign's eval step (one identity-init forward and the
 # unweighted trimmed Kabsch solve; a TPU with approx_min_k selection) on
-# `uniform_small`. Both are weak models, printed for orientation only.
+# `uniform_small`, printed for orientation only.
 CAMPAIGN: Dict[str, Dict[str, Any]] = {
     "campaign_r4b-q5w": {
         "path": "artifacts/campaign_r4b/model_q5w/final",
@@ -169,6 +170,20 @@ CAMPAIGN: Dict[str, Dict[str, Any]] = {
         "notes": "the reference-semantics ablation: banded engine, "
                  "dfe_src_neighbors='keypoints', uncentred grid, no derotation "
                  "(from its .arch.json)",
+    },
+    "campaign_r4-fine": {
+        "path": "artifacts/campaign_r4/model_fine/final",
+        "num_points": 10000,
+        "cfg": {"spatial_extent": 2.5, "search_radius": 0.6, "voxel_len": 0.2},
+        # registry "modelnet-fine" serves the same checkpoint: its export is this one's,
+        # byte for byte
+        "weights": "modelnet-fine",
+        "source": "scripts/campaign_r4.py:245-249 (cfg_fine of cfg_fixed, :76-78; fine_src "
+                  "model_r1 in artifacts/campaign_r4/summary.json)",
+        "gt_free": {"uniform_small": (2.5199, 0.067)},
+        "notes": "the fine-grid fine-tune of model_r1 (banded engine, r = 0.6, s = 0.2); "
+                 "the trained-checkpoint regression runs it at N = 1024 with the guard "
+                 "and refine_iters 2",
     },
 }
 
@@ -240,8 +255,9 @@ def _apply_arch(name: str, cfg: DeepVCPConfig, path: str) -> DeepVCPConfig:
 
 def load_variables(name: str) -> Dict[str, Any]:
     """{"params": ..., "batch_stats": ...} nested dicts of numpy arrays from
-    weights/<name>.npz (a REGISTRY or a CAMPAIGN name)."""
-    path = os.path.join(WEIGHTS_DIR, f"{name}.npz")
+    weights/<name>.npz (a REGISTRY or a CAMPAIGN name; a CAMPAIGN entry with
+    "weights" reads that file, the export of the same checkpoint)."""
+    path = os.path.join(WEIGHTS_DIR, f"{CAMPAIGN.get(name, {}).get('weights', name)}.npz")
     if not os.path.exists(path):
         raise FileNotFoundError(
             f"no exported weights for {name!r} at {path}; run "

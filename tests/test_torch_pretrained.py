@@ -60,7 +60,8 @@ def test_exported_odometry_and_routing_weights_equal_checkpoint(name):
 @pytest.mark.parametrize("name", sorted(pretrained.CAMPAIGN))
 def test_exported_campaign_weights_equal_checkpoint(name):
     """Each exported campaign checkpoint (not registry entries: the windowed
-    model_q5w and the reference-semantics model_r1c) holds its orbax
+    model_q5w, the reference-semantics model_r1c and the fine-grid
+    model_fine of the trained-checkpoint regression) holds its orbax
     checkpoint array for array, and its config is its campaign script's
     with the checkpoint's .arch.json applied."""
     entry = pretrained.CAMPAIGN[name]
@@ -79,9 +80,15 @@ def test_exported_campaign_weights_equal_checkpoint(name):
         assert (cfg.num_points, cfg.neighbor_method, cfg.window_safety, cfg.spatial_extent) == \
             (2048, "windowed", 6.0, 2.5)
         assert "proj_xyz/bias" in " ".join(got) and "bias0" not in " ".join(got)
-    else:
+    elif name == "campaign_r4-r1c":
         assert (cfg.num_points, cfg.neighbor_method, cfg.dfe_src_neighbors, cfg.centered_grid,
                 cfg.derotate_tgt_neighborhoods) == (10000, "banded", "keypoints", False, False)
+    else:
+        # the config tests/test_trained_checkpoint.py builds for this checkpoint
+        from deepvcp_tpu import DeepVCPConfig as JConfig
+        want_cfg = JConfig(num_points=10000, use_normal=False, spatial_extent=2.5,
+                           search_radius=0.6, voxel_len=0.2)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(want_cfg)
 
 
 def _assert_exported_equals_checkpoint(name):
