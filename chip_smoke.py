@@ -21,7 +21,8 @@ CLI's --save-vis; and the multi-device modules over a process group of one
 NCCL rank: the sharded train step, ring_knn, the sharded pose graph and BA,
 Trainer.fit with a heartbeat, plot and profile_stages; and the examples,
 the trained-checkpoint regression and a 350-step convergence run, with K3
-and the flat KNN held to the native host oracles. It checks on the way:
+and the flat KNN held to the native host oracles; and the headline bench
+(`python -m deepvcp_tpu_torch.bench`) at B = 1, 2, 4, 8. It checks on the way:
 
   1. device      a CUDA card is present; prints nvidia-smi's name and power limit
   2. build       builds every CUDA kernel of the paths from csrc/ with nvcc
@@ -211,6 +212,21 @@ and the flat KNN held to the native host oracles. It checks on the way:
                  within 1e-4 of the CPU's (selections pinned). The 350-step
                  overfit run of tests/test_convergence.py: the pose
                  recovered GT-free, 6 K1 + 6 K2 a step, its time printed
+ 24. bench       the port's headline bench, deepvcp_tpu_torch.bench.run, at
+                 N = 10 000 and B = 1, 2, 4, 8 (default config, random init
+                 from a seed, SyntheticDataset pairs of extent 10): 6 K1
+                 launches a call and no other kernel; finite outputs of the
+                 batch's shapes; each pair of a B-pair call against its own
+                 B = 1 call (the same keypoints; candidate selection rows
+                 that differ must be near-ties of the k-th distance, counted
+                 and pinned; then R, t, vcps, scores within 1e-4); at B = 4
+                 every K1 call of the path bit-exact against the plain
+                 version and the call through the plain versions within
+                 1e-4. Per B, printed: per-call latency (median, min, max),
+                 stream pairs/s, the first call's time, profiler busy time
+                 and idle share, peak device memory. Then `python -m
+                 deepvcp_tpu_torch.bench --iters 3 --warmup 1` as a
+                 subprocess: exit 0 and the four-key JSON line last
  11. no jax      neither jax nor the JAX package deepvcp_tpu was imported
                  (checked last)
 
@@ -321,6 +337,14 @@ TWO_RANK_TIMEOUT_S = 420
 # tests/test_convergence.py's overfit run
 EXAMPLE_POINTS = 2048
 CONVERGENCE_STEPS = 350
+# phase 24: the port's headline bench (deepvcp_tpu_torch.bench) at these
+# batch sizes, each run with these timed calls and warmup; a pair alone vs in
+# the batch (R, t, vcps, scores), and B = BENCH_PLAIN_B through the plain
+# versions
+BENCH_BATCHES = (1, 2, 4, 8)
+BENCH_ITERS, BENCH_WARMUP = 5, 2
+BENCH_ATOL = 1e-4
+BENCH_PLAIN_B = 4
 
 
 def fail(msg: str) -> None:
@@ -2134,35 +2158,45 @@ def neighbours_agree(torch, fn, xyz_dev, radius: float, what: str) -> None:
         fail(f"{what}: neighbour sets differ away from the radius")
 
 
-def selection_near_tie(cfg, ref, query, b: int, m: int, k: int, swapped: list) -> bool:
-    """Whether the points `swapped` between the card's and the CPU's k
-    nearest of ref to query row (b, m) all lie at a near-tie of the k-th
-    distance, ranked as the model's selection ranks them: approx_knn's bf16
-    tile (centred, bf16 inputs, f32 product, cast to bf16) or knn's f32
-    matmul form. The devices' f32 sums differ in their last bits, so a bf16
-    value rounds to the same number or the next one on each, and a swap
-    lies within 2 bf16 steps of the k-th; in f32, within 2 x 8 ulps of
-    |q|^2 + max |r|^2, the scale of the terms the matmul form adds."""
-    import math
-
+def selection_d2(cfg, ref, query, b: int, m: int, center=None):
+    """Query row (b, m)'s squared distances to ref[b] [N], ranked as the
+    model's selection ranks them: approx_knn's bf16 tile (centred on
+    `center`, by default ref[b]'s mean, bf16 inputs, f32 product, cast to
+    bf16) or knn's f32 matmul form."""
     import torch
 
     from deepvcp_tpu_torch.ops.distance import square_distance
 
     sel = cfg.knn_select_dtype_effective if cfg.use_approx_knn else None
     if sel is None:
-        q, r = query[b, m][None], ref[b]
-        d2 = square_distance(q, r)[0]
+        return square_distance(query[b, m][None], ref[b])[0]
+    sel = getattr(torch, sel)
+    if center is None:
+        center = ref[b].mean(dim=0, keepdim=True)
+    qc, rc = query[b, m][None] - center, ref[b] - center
+    cross = qc.to(sel).float() @ rc.to(sel).float().T
+    return ((qc * qc).sum(-1)[:, None] + (rc * rc).sum(-1)[None] - 2.0 * cross).to(sel)[0]
+
+
+def selection_near_tie(cfg, ref, query, b: int, m: int, k: int, swapped: list,
+                       center=None) -> bool:
+    """Whether the points `swapped` between two selections of the k
+    nearest of ref to query row (b, m) all lie at a near-tie of the k-th
+    distance, ranked by selection_d2. The two computations' f32 sums differ
+    in their last bits, so a bf16 value rounds to the same number or the
+    next one on each, and a swap lies within 2 bf16 steps of the k-th; in
+    f32, within 2 x 8 ulps of |q|^2 + max |r|^2, the scale of the terms the
+    matmul form adds."""
+    import math
+
+    import torch
+
+    d2 = selection_d2(cfg, ref, query, b, m, center)
+    kth = torch.sort(d2.float()).values[k - 1].item()
+    if d2.dtype == torch.float32:
+        q, r = query[b, m], ref[b]
         tol = 16 * 2.0 ** -24 * ((q * q).sum() + (r * r).sum(-1).max()).item()
     else:
-        sel = getattr(torch, sel)
-        center = ref[b].mean(dim=0, keepdim=True)
-        qc, rc = query[b, m][None] - center, ref[b] - center
-        cross = qc.to(sel).float() @ rc.to(sel).float().T
-        d2 = ((qc * qc).sum(-1)[:, None] + (rc * rc).sum(-1)[None] - 2.0 * cross).to(sel)[0]
-        tol = None
-    kth = torch.sort(d2.float()).values[k - 1].item()
-    if tol is None:
         tol = 2 * 2.0 ** (math.floor(math.log2(max(kth, 1e-30))) - 7)
     return (d2.float()[swapped] - kth).abs().max().item() <= tol
 
@@ -3451,6 +3485,194 @@ def oracle_phase(torch, dev, reg, pairs) -> dict:
     return total
 
 
+def batch_rows_agree(torch, reg, src, tgt, what: str) -> None:
+    """Each pair of one B-pair Registrar call against the pair's own B = 1
+    call: the same keypoints, then the B = 1 call's candidate selections
+    (each call of the model's _knn) replaced by the B-pair call's rows
+    after checking that each row that differs is explained by rounding:
+    its swapped points lie at a near-tie of the k-th distance
+    (selection_near_tie: a B-row product may round differently from a
+    single-row one), or the bf16 tile centred on the batch's cloud mean (a
+    B-row reduction, whose last bits may differ from the pair's own, and a
+    coordinate at a bf16 rounding boundary then rounds the other way)
+    gives the batch's row up to such near-ties. Then R, t, vcps and scores
+    within BENCH_ATOL."""
+    from deepvcp_tpu_torch.models.deepvcp import DeepVCP
+
+    model, cfg = reg.model, reg.model.cfg
+    picked = []
+
+    def record(ref, query, chunked, parts=1):
+        out = DeepVCP._knn(model, ref, query, chunked, parts)
+        picked.append((out[1], ref.mean(dim=-2, keepdim=True)))
+        return out
+
+    with torch.no_grad():
+        kp_b = model.encode(src, tgt).keypoint_idx
+    model._knn = record
+    try:
+        out_b = reg(src, tgt)
+    finally:
+        del model._knn
+    rows = ties = recentred = centres = 0
+    worst = 0.0
+    for b in range(src.shape[0]):
+        with torch.no_grad():
+            kp_1 = model.encode(src[b:b + 1], tgt[b:b + 1]).keypoint_idx
+        if not torch.equal(torch.sort(kp_1[0]).values, torch.sort(kp_b[b]).values):
+            fail(f"{what}: pair {b} picks other keypoints alone than in the batch")
+        batch = iter(picked)
+
+        def pin(ref, query, chunked, parts=1):
+            nonlocal rows, ties, recentred, centres
+            dist, idx = DeepVCP._knn(model, ref, query, chunked, parts)
+            want, centre = next(batch)
+            want, centre, k = want[b:b + 1], centre[b], idx.shape[-1]
+            centres += not torch.equal(centre, ref.mean(dim=-2, keepdim=True)[0])
+            differ = (torch.sort(idx, -1).values != torch.sort(want, -1).values).any(-1)
+            for _, m in differ.nonzero().tolist():
+                rows += 1
+                swapped = sorted(set(idx[0, m].tolist()) ^ set(want[0, m].tolist()))
+                if selection_near_tie(cfg, ref, query, 0, m, k, swapped):
+                    ties += 1
+                    continue
+                redo = torch.topk(selection_d2(cfg, ref, query, 0, m, centre), k, largest=False)
+                left = sorted(set(redo.indices.tolist()) ^ set(want[0, m].tolist()))
+                recentred += not left or selection_near_tie(cfg, ref, query, 0, m, k, left, centre)
+            return dist, want
+
+        model._knn = pin
+        try:
+            out_1 = reg(src[b:b + 1], tgt[b:b + 1])
+        finally:
+            del model._knn
+        if next(batch, None) is not None:
+            fail(f"{what}: pair {b} made fewer candidate selections alone than in the batch")
+        for field in ("R", "t", "vcps", "scores"):
+            d = (getattr(out_1, field)[0] - getattr(out_b, field)[b]).abs().max().item()
+            worst = max(worst, d)
+    print(f"{what}: each pair alone vs in the batch: keypoints identical; {rows} candidate "
+          f"selection rows differ: {ties} at a near-tie of the k-th distance, {recentred} "
+          f"reproduced by the batch's cloud mean as the tile's centre (the mean's bits differ "
+          f"alone and in the batch in {centres} of {len(picked) * src.shape[0]} selections); "
+          f"pinned to the batch's rows, max|d| of R, t, vcps, scores {worst:.3e}")
+    if ties + recentred != rows:
+        fail(f"{what}: candidate selections differ between a pair alone and in the batch "
+             f"beyond rounding")
+    if worst > BENCH_ATOL:
+        fail(f"{what}: a pair's pose alone differs from its pose in the batch by {worst:.3e}")
+
+
+def k1_exact_on_path(torch, reg, src, tgt, what: str) -> None:
+    """Every K1 call of one Registrar call against the plain version on the
+    same inputs, bit for bit."""
+    from deepvcp_tpu_torch.models import fused_sa
+    from deepvcp_tpu_torch.ops.kernels.band_max import banded_masked_max_reference
+
+    seen = []
+    kernel = fused_sa.banded_masked_max
+
+    def record(xyz, u, radius):
+        out = kernel(xyz, u, radius)
+        seen.append((xyz, u, radius, out))
+        return out
+
+    fused_sa.banded_masked_max = record
+    try:
+        reg(src, tgt)
+    finally:
+        fused_sa.banded_masked_max = kernel
+    differ = sum(not torch.equal(out, banded_masked_max_reference(xyz, u, r))
+                 for xyz, u, r, out in seen)
+    print(f"{what}: K1 against its plain version on the path's {len(seen)} calls "
+          f"({', '.join(str(tuple(u.shape)) for _, u, _, _ in seen)}): {differ} differ")
+    if differ or not seen:
+        fail(f"{what}: K1 is not bit-exact against its plain version on the path")
+
+
+def bench_cli(dev) -> None:
+    """`python -m deepvcp_tpu_torch.bench --iters 3 --warmup 1` from the
+    root of the checkout: exit 0 and a last standard-output line of the
+    four keys with a finite positive value."""
+    import math
+
+    cmd = [sys.executable, "-m", "deepvcp_tpu_torch.bench", "--iters", "3", "--warmup", "1"]
+    if dev.type == "cpu":   # a rehearsal of the phase
+        cmd += ["--cpu", "--num-points", str(N_POINTS)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    tail = " | ".join(proc.stderr.strip().splitlines()[-3:])
+    print(f"bench CLI ({' '.join(cmd[1:])}): exit {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s; {tail}")
+    if proc.returncode != 0 or not lines:
+        fail(f"the bench CLI failed: {proc.stderr[-2000:]}")
+    last = json.loads(lines[-1])
+    print(f"bench CLI last line: {lines[-1]}")
+    if set(last) != {"metric", "value", "unit", "vs_baseline"} or not (
+            math.isfinite(last["value"]) and last["value"] > 0):
+        fail(f"the bench CLI's last line is not the four-key result: {lines[-1]}")
+
+
+def bench_phase(torch, dev, card: str) -> dict:
+    """Phase 24: the port's headline bench (deepvcp_tpu_torch.bench.run) at
+    N = 10 000 and B = 1, 2, 4, 8 under the default config with a random
+    init: K1 launches a call, per-call latency and its spread, stream
+    pairs/s, profiler busy time and idle share, peak device memory (above
+    what earlier phases hold); each
+    pair of a call alone vs in the batch (batch_rows_agree), B = 4 through
+    the kernels vs the plain versions (K1 bit-exact, pose within 1e-4), and
+    the CLI. Returns each kernel's launches in the bench runs."""
+    from deepvcp_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    total = {}
+    for B in BENCH_BATCHES:
+        what = f"bench B={B}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        res, counts = counted_all(torch, lambda: bench.run(N_POINTS, B, BENCH_ITERS,
+                                                           BENCH_WARMUP, dev))
+        peak = torch.cuda.max_memory_allocated() - base
+        add_counts(total, counts)
+        calls = res["calls"]
+        if counts["k1"] != LAUNCHES_PER_CALL * calls or any(
+                v for k, v in counts.items() if k != "k1"):
+            fail(f"{what}: launches {counts} over {calls} calls, want {LAUNCHES_PER_CALL} K1 a "
+                 f"call and no other kernel")
+        reg, src, tgt, out = res["registrar"], res["src"], res["tgt"], res["out"]
+        shapes = {"R": (B, 3, 3), "t": (B, 3), "keypoints": (B, 64, 3), "vcps": (B, 64, 3),
+                  "saliency": (B, N_POINTS), "scores": (B, reg.refine_iters + 1)}
+        for field, shape in shapes.items():
+            val = getattr(out, field)
+            if tuple(val.shape) != shape or not torch.isfinite(val).all():
+                fail(f"{what}: {field} has shape {tuple(val.shape)} (want {shape}) or "
+                     f"non-finite values")
+        lat = res["latency_ms"]
+        med = statistics.median(lat)
+        busy, _ = device_time_per_call(torch, lambda: reg(src, tgt), calls=5)
+        idle = f"{1 - busy / med:.3f}" if busy > 0 else "not measured"
+        print(f"{what}, N={N_POINTS}: K1 {counts['k1'] / calls:g} a call over {calls} calls; "
+              f"per-call latency median {med:.3f} ms (min {min(lat):.3f}, max {max(lat):.3f}, "
+              f"{len(lat)} calls), stream {res['stream_ms']:.3f} ms a call = {res['value']} "
+              f"pairs/s ({res['stream_ms'] / med:.3f}x per call); first call "
+              f"{res['first_call_s']:.2f} s; busy {busy:.3f} ms a call (torch.profiler), idle "
+              f"share {idle}; peak device memory {peak / 2**20:.1f} MiB above the phase's "
+              f"start | {card}")
+        batch_rows_agree(torch, reg, src, tgt, what)
+        if B == BENCH_PLAIN_B:
+            k1_exact_on_path(torch, reg, src, tgt, what)
+            registrar_paths_agree(torch, reg, src, tgt, what)
+        del res, reg, src, tgt, out
+        torch.cuda.empty_cache()
+    bench_cli(dev)
+    print(f"phase 24 launches: " + ", ".join(f"{k.upper()} {v}" for k, v in total.items())
+          + f"; phase 24: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main() -> None:
     started = time.perf_counter()
     # cuBLAS reads this when it starts; the train-path comparison (phase 9)
@@ -3551,6 +3773,9 @@ def main() -> None:
     # trained checkpoint and the convergence run
     ora = oracle_phase(torch, dev, reg, pairs)
 
+    # 24. the headline bench at N = 10 000 and B = 1, 2, 4, 8, and its CLI
+    bnch = bench_phase(torch, dev, card)
+
     (k1_bound, k1_by), (k2_bound, k2_by) = band["k1_bound"], band["k2_bound"]
     print(f"bounds at the 3 serving SA shapes: K1 {k1_bound:.5f} ms ({k1_by}), K2 {k2_bound:.5f} "
           f"ms ({k2_by}); K3 at one init call's 2 shapes {k3['bound_ms']:.5f} ms "
@@ -3569,14 +3794,15 @@ def main() -> None:
     # K4 and K5 at the two-level path's shapes (library_ms: torch.gather,
     # torch.scatter_add); launches: the main-path runs' (serving, training,
     # global, two-level serving and training, odometry, the engines,
-    # multi-device, the examples, the trained checkpoint and convergence)
+    # multi-device, the examples, the trained checkpoint and convergence,
+    # the bench)
     print(json.dumps({"kernels": [{
         "name": "banded_masked_max",
         "route": "cuda",
         "source": "deepvcp_tpu_torch/csrc/band_max.cu",
         "replaces": "deepvcp_tpu/ops/pallas/band_max_kernel.py:148",
         "launches": (launches + train["k1"] + glob["k1"] + two["k1"] + two_train["k1"]
-                     + odo["k1"] + eng["k1"] + multi["k1"] + ora.get("k1", 0)),
+                     + odo["k1"] + eng["k1"] + multi["k1"] + ora.get("k1", 0) + bnch["k1"]),
         "max_abs_err": band["k1_err"],
         "ms": band["k1_ms"],
         "plain_ms": band["k1_plain_ms"],

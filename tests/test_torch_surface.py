@@ -1,12 +1,13 @@
 """A mechanical inventory of the JAX package's surface against the port's.
 
-Every module of deepvcp_tpu/ and both examples/*.py scripts are parsed with
-`ast`, never imported. Their surface is: module-level public functions and
+Every module of deepvcp_tpu/, both examples/*.py scripts and the root
+bench.py are parsed with `ast`, never imported. Their surface is: module-level public functions and
 classes, the public methods (and `__call__`) of public classes, the names
 an `__init__` exports, the dataclass fields of config.py, and the flags of
 every `add_argument` call. Each item must have a counterpart of the same
 name in the mirrored port module (deepvcp_tpu/X.py ->
-deepvcp_tpu_torch/X.py, examples/X.py -> deepvcp_tpu_torch/examples/X.py),
+deepvcp_tpu_torch/X.py, examples/X.py -> deepvcp_tpu_torch/examples/X.py,
+bench.py -> deepvcp_tpu_torch/bench.py),
 also parsed, not imported: a name bound at its top level, a method or
 field of the class (or of a base class in the same module), a flag of one
 of its `add_argument` calls.
@@ -28,6 +29,7 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_PKG, PORT_PKG = "deepvcp_tpu", "deepvcp_tpu_torch"
 EXAMPLES = ("examples/register_pair.py", "examples/train_synthetic.py")
+SCRIPTS = ("bench.py",)   # root scripts with a module of the same name in the port
 
 
 def _jax_modules():
@@ -35,7 +37,7 @@ def _jax_modules():
     for dirpath, _, files in os.walk(os.path.join(ROOT, JAX_PKG)):
         found += [os.path.relpath(os.path.join(dirpath, f), ROOT).replace(os.sep, "/")
                   for f in files if f.endswith(".py")]
-    return sorted(found) + list(EXAMPLES)
+    return sorted(found) + list(EXAMPLES) + list(SCRIPTS)
 
 
 JAX_MODULES = _jax_modules()
@@ -139,7 +141,7 @@ def parsed(rel: str):
 
 
 def port_module(rel: str) -> str:
-    if rel.startswith("examples/"):
+    if rel.startswith("examples/") or rel in SCRIPTS:
         return f"{PORT_PKG}/{rel}"
     return PORT_PKG + rel[len(JAX_PKG):]
 
@@ -175,9 +177,9 @@ def surface(rel: str) -> list:
 
 
 def test_inventory_is_whole():
-    """The walk found every JAX subpackage and both examples, and each table
-    entry names an item of the JAX surface (a typo, or an item JAX has
-    since dropped, fails here) with a target or a reason."""
+    """The walk found every JAX subpackage, both examples and bench.py,
+    and each table entry names an item of the JAX surface (a typo, or an
+    item JAX has since dropped, fails here) with a target or a reason."""
     assert len(JAX_MODULES) >= 50
     for sub in ("data", "loss", "models", "odometry", "ops", "ops/pallas", "parallel", "train",
                 "utils"):
