@@ -22,7 +22,9 @@ NCCL rank: the sharded train step, ring_knn, the sharded pose graph and BA,
 Trainer.fit with a heartbeat, plot and profile_stages; and the examples,
 the trained-checkpoint regression and a 350-step convergence run, with K3
 and the flat KNN held to the native host oracles; and the headline bench
-(`python -m deepvcp_tpu_torch.bench`) at B = 1, 2, 4, 8. It checks on the way:
+(`python -m deepvcp_tpu_torch.bench`) at B = 1, 2, 4, 8; and, where 2 or more
+cards are visible, the multi-device paths across them, one rank a card over
+NCCL. It checks on the way:
 
   1. device      a CUDA card is present; prints nvidia-smi's name and power limit
   2. build       builds every CUDA kernel of the paths from csrc/ with nvcc
@@ -192,9 +194,9 @@ and the flat KNN held to the native host oracles; and the headline bench
                  a rank; each rank's peak memory beside the single-process
                  step's, its synced step time and the card's name and power
                  limit (printed). A rank that fails or outlasts its
-                 timeout fails the run. ring_knn over more than one rank is
-                 not run on the card: gloo takes no CUDA tensors for its
-                 point-to-point sends (batch_isend_irecv)
+                 timeout fails the run. ring_knn over more than one rank
+                 runs in phase 25 over NCCL: gloo takes no CUDA tensors for
+                 its point-to-point sends (batch_isend_irecv)
  23. oracles and examples  the native host library (native/pointcloud.cc,
                  built by the port) against the card: K3 on cloud 0 of each
                  of phase 12's clouds against the native FPS, indices
@@ -227,12 +229,50 @@ and the flat KNN held to the native host oracles; and the headline bench
                  and idle share, peak device memory. Then `python -m
                  deepvcp_tpu_torch.bench --iters 3 --warmup 1` as a
                  subprocess: exit 0 and the four-key JSON line last
+ 25. several cards  one rank a card over NCCL (parallel.initialize_multihost
+                 binds rank r to card LOCAL_RANK). On any host: a one-rank
+                 NCCL group of run_ranks(device="cuda") on cuda:0, and two
+                 NCCL ranks that see one card refused with
+                 initialize_multihost's RuntimeError. With 2 or more cards
+                 visible, worlds of 2 and (with 4 cards) 4 ranks, each a
+                 fresh run_ranks, against one card's result in this process:
+                 a. rank r on card r, P distinct PCI bus ids (nvidia-smi's
+                 topology, card 0's NVLink status, NCCL's version and its
+                 channels by transport printed); b. ring_knn over the P
+                 cards on pair 0's 13 824 candidates x 10 000 points, k = 32:
+                 the exact knn's neighbours but for distance ties (counted),
+                 distances exact, its CUDA-event time beside knn's after an
+                 untimed first call; c. (4 ranks) the kitti25-rot registrar
+                 with knn_mesh = 1 x 4 on phase 4's 16 pairs against the
+                 single card: the same keypoints, the single card's candidate
+                 selections pinned to the ring's after a near-tie check,
+                 then R, t within 1e-4, 6 K1 launches a call on each rank;
+                 d. train steps of kitti25-rot under its recipe (phase 22's
+                 inputs) on 2 x 1 and 1 x 2 (2 ranks), 4 x 1 at B = 4, 1 x 4
+                 and 2 x 2 at B = 2 (4 ranks; knn_mesh on every point group
+                 of more than one rank) against the single-card step at the
+                 same global B with phase 22's data-parallel bounds, the
+                 point split's gate passed, the ranks equal, 6 K1 and 6 K2
+                 a rank; each rank's step time and peak on its own card and
+                 the scaling, the device's busy time and the NCCL kernels'
+                 time (printed); e. (4 ranks) the sharded pose graph
+                 and BA on phase 20's graph over a 4 x 1 mesh within phase
+                 22's bounds; f. graft_entry.dryrun_multichip over the ranks:
+                 every rank the same loss. A rank that fails or outlasts its
+                 timeout fails the run
  11. no jax      neither jax nor the JAX package deepvcp_tpu was imported
                  (checked last)
 
 Any failure exits non-zero. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it lists the kernels as JSON.
 Run from the root of a checkout, with no arguments:  python3 chip_smoke.py
+
+With --multicard (2 or more cards, else it exits 1 with the reason on
+standard error) it runs phases 1-2, K1 and K2 at the serving shapes (the
+first part of phase 3: the kernels line's numbers) and phase 25 alone, on
+phase 20's pose graph computed for it; its kernels line holds K1 and K2
+with their launches on the ranks' cards:
+    python3 chip_smoke.py --multicard
 """
 
 from __future__ import annotations
@@ -345,6 +385,14 @@ BENCH_BATCHES = (1, 2, 4, 8)
 BENCH_ITERS, BENCH_WARMUP = 5, 2
 BENCH_ATOL = 1e-4
 BENCH_PLAIN_B = 4
+# phase 25, several cards: one rank a card over NCCL (run_ranks(device=
+# "cuda"): rank r on card r), each path against one card's result. The
+# train steps' meshes in a world of 2 and of 4 ranks, as (data, point,
+# global B); a point group of P > 1 runs the candidate KNN as the ring
+MULTI_STEPS = {2: ((2, 1, 2), (1, 2, 2)), 4: ((4, 1, 4), (1, 4, 2), (2, 2, 2))}
+MULTI_TIMEOUT_S = 600
+RING_REPS = 10
+NCCL_REFUSED = "an NCCL group takes one card a rank"   # initialize_multihost's refusal
 
 
 def fail(msg: str) -> None:
@@ -430,12 +478,12 @@ def host_median_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def device_time_per_call(torch, fn, calls: int):
+def device_time_per_call(torch, fn, calls: int, top: int = 8):
     """Device busy time per call of fn() from torch.profiler: the union of
     the intervals of every kernel, copy and fill on the card. User-annotation
     ranges (such as the optimizer's step) enclose kernels that are counted
-    already and are left out. Also returns the 8 kernels that take most of
-    the time."""
+    already and are left out. Also returns the `top` kernels (None: all)
+    that take most of the time, (name, ms a call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -456,7 +504,7 @@ def device_time_per_call(torch, fn, calls: int):
             reached = end
     rows = [(e.key[:60], e.self_device_time_total / 1e3 / calls)
             for e in prof.key_averages() if on_device(e)]
-    return busy_us / 1e3 / calls, sorted(rows, key=lambda r: -r[1])[:8]
+    return busy_us / 1e3 / calls, sorted(rows, key=lambda r: -r[1])[:top]
 
 
 def host_syncs(torch, fn) -> list:
@@ -920,13 +968,14 @@ def rows_touched(torch, x, radius: float, tile: int) -> tuple:
     return touched, mean * B * ((N + tile - 1) // tile)
 
 
-def band_phase(torch, dev) -> dict:
+def band_phase(torch, dev, serving_only: bool = False) -> dict:
     """Phase 3: K1 and K2 against their plain versions at the serving
     shapes (one FE pass of kitti25-rot on a 25 m lidar-like cloud) and at
     the cascade's (phase 13's first batch of each held set, B = 2), K2
     also with forced ties and run twice, and both at C outside the SA
     stages' widths; times per call and behind a device hold; slabs and
-    bounds. Returns the serving sums for the kernels line."""
+    bounds. With `serving_only` (--multicard), the serving shapes alone.
+    Returns the serving sums for the kernels line."""
     import numpy as np
 
     from deepvcp_tpu_torch.data import lidar_like_cloud
@@ -940,10 +989,11 @@ def band_phase(torch, dev) -> dict:
     rng = np.random.default_rng(0)
     xyz = lidar_like_cloud(rng, N_POINTS, max_range=25.0).astype(np.float32)
     serving = torch.from_numpy(xyz[np.argsort(xyz[:, 0], kind="stable")][None]).to(dev)
-    batches = global_batches(torch, dev)
-    families = {"serving": serving,
-                "cascade lidar_like": sort_x(batches["lidar_like"][0][0][..., :3]),
-                "cascade uniform_cube": sort_x(batches["uniform_cube"][0][0][..., :3])}
+    families = {"serving": serving}
+    if not serving_only:
+        batches = global_batches(torch, dev)
+        families.update({"cascade lidar_like": sort_x(batches["lidar_like"][0][0][..., :3]),
+                         "cascade uniform_cube": sort_x(batches["uniform_cube"][0][0][..., :3])})
     gen = torch.Generator(device=dev).manual_seed(0)
     res = {"k1_err": 0.0, "k2_err": 0.0}
     for fam, x in families.items():
@@ -1063,6 +1113,8 @@ def band_phase(torch, dev) -> dict:
         if fam == "serving":
             res.update(k2_ms=ms_sum, k2_plain_ms=plain_sum, k2_bound=(bound, by))
 
+    if serving_only:
+        return res
     # K1 and K2 at widths outside the SA stages' (any C): a 3 000-point
     # slice of the cube cloud at r = 0.2
     x = families["cascade uniform_cube"][:1, :3000].contiguous()
@@ -1829,6 +1881,27 @@ def odometry_errors(R_est, t_est, R_true, t_true, what: str) -> tuple:
     return float(terr.mean()), float(rerr.mean())
 
 
+def o1_edges(torch, dev, casc, scans) -> tuple:
+    """O1 over `scans` [F, N, 3]: `casc` (kitti-cascade) warm-started frame
+    to frame, then a skip edge i -> i + 2 for each i, warm-started from the
+    two estimates composed. Returns (R1, t1 numpy, the skip edges
+    [(i, j, R, t)], the K1 launches of the sequence and of the skip edges)."""
+    from deepvcp_tpu_torch.odometry import register_sequence
+
+    (R1, t1), c_seq = counted_all(torch, lambda: register_sequence(casc, scans, warm_start=True))
+
+    def skip_edges():
+        edges = []
+        for i in range(len(scans) - 2):
+            Ra, ta, Rb, tb = R1[i], t1[i], R1[i + 1], t1[i + 1]
+            o = casc(*(torch.from_numpy(a).to(dev) for a in (
+                scans[i:i + 1], scans[i + 2:i + 3], (Rb @ Ra)[None], (Rb @ ta + tb)[None])))
+            edges.append((i, i + 2, o.R[0].cpu().numpy(), o.t[0].cpu().numpy()))
+        return edges
+    extra, c_skip = counted_all(torch, skip_edges)
+    return R1, t1, extra, c_seq, c_skip
+
+
 def odometry_phase(torch, dev, reg, pairs, card: str) -> dict:
     """Phase 20: LiDAR odometry (campaign_r5h O1 and O2) on a sequence
     written as KITTI files and read back through the port's loaders,
@@ -1869,22 +1942,12 @@ def odometry_phase(torch, dev, reg, pairs, card: str) -> dict:
 
         # O1: kitti-cascade, warm-started frame to frame
         casc = pretrained.cascade("kitti-cascade", device=dev, num_points=N_POINTS)
-        (R1, t1), c = counted_all(torch, lambda: register_sequence(casc, scans, warm_start=True))
+        R1, t1, extra, c, c_skip = o1_edges(torch, dev, casc, scans)
         k1 += check_k1("O1's sequence", c, len(casc.stages) * (F - 1))
         o1 = odometry_errors(R1, t1, R_true, t_true, "O1 kitti-cascade")
         R_ch, t_ch = chain_poses(torch.from_numpy(R1), torch.from_numpy(t1))
         ate1 = float(absolute_trajectory_error(t_ch, t_gt_t))
-
-        def skip_edges():
-            edges = []
-            for i in range(F - 2):
-                Ra, ta, Rb, tb = R1[i], t1[i], R1[i + 1], t1[i + 1]
-                o = casc(*(torch.from_numpy(a).to(dev) for a in (
-                    scans[i:i + 1], scans[i + 2:i + 3], (Rb @ Ra)[None], (Rb @ ta + tb)[None])))
-                edges.append((i, i + 2, o.R[0].cpu().numpy(), o.t[0].cpu().numpy()))
-            return edges
-        extra, c = counted_all(torch, skip_edges)
-        k1 += check_k1("O1's skip edges", c, len(casc.stages) * (F - 2))
+        k1 += check_k1("O1's skip edges", c_skip, len(casc.stages) * (F - 2))
         graph_cpu = build_graph(torch.from_numpy(R1), torch.from_numpy(t1), extra_edges=extra)
         graph_dev = graph_cpu._replace(**{k: v.to(dev) for k, v in graph_cpu._asdict().items()})
         R_opt, t_opt = optimize_pose_graph(graph_dev, R_ch.to(dev), t_ch.to(dev),
@@ -2222,33 +2285,47 @@ def pinned_pose(torch, reg, reg_cpu, src, tgt, what: str):
         out_d = reg(src, tgt)
     finally:
         del reg.model._knn
-    cfg, card = reg_cpu.model.cfg, iter(picked)
-    rows = ties = 0
-
-    def pin(ref, query, chunked, parts=1):
-        nonlocal rows, ties
-        dist, idx = DeepVCP._knn(reg_cpu.model, ref, query, chunked, parts)
-        idx_d = next(card).cpu()
-        differ = (torch.sort(idx, -1).values != torch.sort(idx_d, -1).values).any(-1)
-        for b, m in differ.nonzero().tolist():
-            swapped = sorted(set(idx[b, m].tolist()) ^ set(idx_d[b, m].tolist()))
-            rows += 1
-            ties += selection_near_tie(cfg, ref, query, b, m, idx.shape[-1], swapped)
-        return dist, idx_d
-
-    reg_cpu.model._knn = pin
+    card = iter(picked)
+    reg_cpu.model._knn, n = pinned_knn(torch, reg_cpu.model, card)
     try:
         out_c = reg_cpu(src.cpu(), tgt.cpu())
     finally:
         del reg_cpu.model._knn
     if len(picked) == 0 or next(card, None) is not None:
         fail(f"{what}: the card and the CPU made different numbers of candidate selections")
-    print(f"{what} pair 0: candidate selections, card vs CPU: {len(picked)} calls, {rows} "
-          f"query rows differ, {ties} of them only at a near-tie of the k-th distance "
+    print(f"{what} pair 0: candidate selections, card vs CPU: {len(picked)} calls, {n['rows']} "
+          f"query rows differ, {n['ties']} of them only at a near-tie of the k-th distance "
           f"(the CPU then takes the card's rows)")
-    if ties != rows:
+    if n["ties"] != n["rows"]:
         fail(f"{what}: candidate selections differ away from a near-tie")
     return out_d, out_c
+
+
+def pinned_knn(torch, model, picked, rows=None):
+    """A stand-in for model._knn that returns the selections `picked` (an
+    iterator of index tensors, one a call) in place of the model's own,
+    after counting the query rows that differ ("rows") and those that
+    differ only at a near-tie of the k-th distance ("ties",
+    selection_near_tie): then both are valid selections. Where `rows` is
+    given, a call whose query has another number of rows keeps the model's
+    own. Returns (the stand-in, the counts)."""
+    from deepvcp_tpu_torch.models.deepvcp import DeepVCP
+
+    n = {"rows": 0, "ties": 0}
+
+    def pin(ref, query, chunked, parts=1):
+        dist, idx = DeepVCP._knn(model, ref, query, chunked, parts)
+        if rows is not None and query.shape[1] != rows:
+            return dist, idx
+        idx_p = next(picked).to(idx.device, torch.long)
+        differ = (torch.sort(idx, -1).values != torch.sort(idx_p, -1).values).any(-1)
+        for b, m in differ.nonzero().tolist():
+            swapped = sorted(set(idx[b, m].tolist()) ^ set(idx_p[b, m].tolist()))
+            n["rows"] += 1
+            n["ties"] += selection_near_tie(model.cfg, ref, query, b, m, idx.shape[-1], swapped)
+        return dist, idx_p
+
+    return pin, n
 
 
 def model_card_vs_cpu(torch, reg, reg_cpu, src, tgt, what: str,
@@ -2659,13 +2736,13 @@ def engines_phase(torch, dev, pairs, exact: dict) -> dict:
     return total
 
 
-def dp_setup(torch, dev, split=None):
+def dp_setup(torch, dev, split=None, batch: int = 2):
     """Phase 22's step inputs, the same in every process: kitti25-rot under
-    its recipe (fine_tuning), one B = 2 batch of 25 m lidar-like pairs, at
-    step DP_STEP (past the warmup: lr > 0); or, for an ENGINE_SPLITS name,
-    its checkpoint and config under its recipe, model_q5w on a B = 2 batch
-    of its training clouds. Returns (trainer, recipe, the saved model and
-    optimizer state, the batch on dev)."""
+    its recipe (fine_tuning), one B = `batch` (2) batch of 25 m lidar-like
+    pairs, at step DP_STEP (past the warmup: lr > 0); or, for an
+    ENGINE_SPLITS name, its checkpoint and config under its recipe,
+    model_q5w on a batch of its training clouds. Returns (trainer, recipe,
+    the saved model and optimizer state, the batch on dev)."""
     import copy
 
     from deepvcp_tpu_torch.data import LidarLikeDataset, SyntheticDataset, batch_iterator
@@ -2674,14 +2751,14 @@ def dp_setup(torch, dev, split=None):
     name, changes = ("kitti25-rot", {}) if split is None else ENGINE_SPLITS[split][:2]
     if name == "kitti25-rot":
         trainer, tcfg, _, _, saved = fine_tuning(name, changes, 1, dev)
-        data = LidarLikeDataset(num_clouds=2, num_points=N_POINTS, max_range=25.0, seed=12)
+        data = LidarLikeDataset(num_clouds=batch, num_points=N_POINTS, max_range=25.0, seed=12)
     else:
         trainer, tcfg = q5w_trainer(dev, changes, metrics=MetricsLogger(None, echo=False))
         saved = (copy.deepcopy(trainer.model.state_dict()),
                  copy.deepcopy(trainer.state.optimizer.state_dict()), trainer.state.step)
-        data = SyntheticDataset(num_clouds=2, num_points=Q5W_POINTS, extent=1.0, seed=0)
-    batch = tuple(torch.from_numpy(a).to(dev) for a in next(batch_iterator(data, 2, seed=0)))
-    return trainer, tcfg, saved, batch
+        data = SyntheticDataset(num_clouds=batch, num_points=Q5W_POINTS, extent=1.0, seed=0)
+    pairs = tuple(torch.from_numpy(a).to(dev) for a in next(batch_iterator(data, batch, seed=0)))
+    return trainer, tcfg, saved, pairs
 
 
 def step_result(torch, trainer, step_fn, saved, batch) -> dict:
@@ -2786,34 +2863,10 @@ def step_peak(torch, fn) -> tuple:
 
 def ring_on_card(torch, dev, reg, pair, mesh) -> None:
     """Phase 22, the op: ring_knn over a point group of one rank on
-    kitti25-rot's candidate query of pair 0 (K * C = 13 824 queries, N =
-    10 000, k = num_neighbors) against the port's exact knn: the neighbour
-    sets equal but for rows whose differing members tie in distance
-    (counted)."""
-    from deepvcp_tpu_torch.ops import knn
-    from deepvcp_tpu_torch.ops.distributed import ring_knn
-
-    model = reg.model
-    src, tgt, R_gt, t_gt = pair
-    with torch.no_grad():
-        enc = model.encode(src, tgt)
-        _, cand = model.candidates(enc, R_gt, t_gt)
-    query = cand.reshape(cand.shape[0], -1, 3)
-    k = model.cfg.num_neighbors
-    d_r, i_r = ring_knn(mesh, enc.tgt_xyz, query, k)
-    d_k, i_k = knn(enc.tgt_xyz, query, k)
-    differ = (torch.sort(i_r, dim=-1).values != torch.sort(i_k, dim=-1).values).any(-1)
-    d_err = (d_r - d_k).abs().max().item()
-    ties_ok = bool(torch.equal(torch.sort(d_r[differ], -1).values,
-                               torch.sort(d_k[differ], -1).values))
-    ring_ms = cuda_median_ms(torch, lambda: ring_knn(mesh, enc.tgt_xyz, query, k), reps=10)
-    knn_ms = cuda_median_ms(torch, lambda: knn(enc.tgt_xyz, query, k), reps=10)
-    print(f"ring_knn, one point rank, {query.shape[1]} queries x {enc.tgt_xyz.shape[1]} points, "
-          f"k={k}: rows differing from knn {int(differ.sum())} (each a distance tie: {ties_ok}), "
-          f"distances max|d| {d_err:.2e}; {ring_ms:.3f} ms against knn's {knn_ms:.3f} ms "
-          f"(CUDA events)")
-    if d_err > 0 or not ties_ok:
-        fail("ring_knn over one rank differs from the exact knn beyond distance ties")
+    kitti25-rot's candidate query of pair 0 against the port's exact knn
+    (ring_reference, ring_run, ring_agrees)."""
+    want = ring_reference(torch, reg, pair)
+    ring_agrees(torch, [ring_run(torch, mesh, dev, want["inputs"])], want, card_line())
 
 
 def solve_inputs(torch, graph, dev) -> tuple:
@@ -3036,16 +3089,16 @@ def step_deviation(got: dict, ref: dict) -> tuple:
 
 def dp_step_agrees(torch, got: dict, ref: dict, lr: float, what: str,
                    launches: int = LAUNCHES_PER_CALL, bounds=DP_BOUNDS) -> None:
-    """Fail unless a rank's step `got` is the single-process B = 2 step
-    `ref` within `bounds` (loss, grad norm, of their own size; RRE in
-    degrees; running statistics, of each tensor's max: DP_BOUNDS, the
-    data-parallel bounds, unless given), the parameters within
-    SHARDED_PARAM_LR x lr, and launched `launches` K1 and K2; print it,
-    with its peak memory beside `ref`'s."""
+    """Fail unless a rank's step `got` is the single-process step `ref` at
+    the same global batch (B = 2 in phase 22) within `bounds` (loss, grad
+    norm, of their own size; RRE in degrees; running statistics, of each
+    tensor's max: DP_BOUNDS, the data-parallel bounds, unless given), the
+    parameters within SHARDED_PARAM_LR x lr, and launched `launches` K1 and
+    K2; print it, with its peak memory beside `ref`'s."""
     loss_tol, norm_tol, rre_tol, stat_tol = bounds
     m, m_p = got["metrics"], ref["metrics"]
     loss_rel, norm_rel, rre_err, param_err, stat_rel = step_deviation(got, ref)
-    print(f"{what} vs the single-process B=2 step: loss {m['loss']:.7f} vs {m_p['loss']:.7f} "
+    print(f"{what} vs the single-process step: loss {m['loss']:.7f} vs {m_p['loss']:.7f} "
           f"(rel {loss_rel:.2e}), grad norm rel {norm_rel:.2e}, RRE {m['rre_deg']:.4f} vs "
           f"{m_p['rre_deg']:.4f} deg, parameters max|d| {param_err:.3e} ({param_err / lr:.3f} "
           f"lr), running statistics within {stat_rel:.2e} of their max; peak {got['peak'][0]:.1f} "
@@ -3059,10 +3112,11 @@ def dp_step_agrees(torch, got: dict, ref: dict, lr: float, what: str,
 
 
 def ranks_equal(torch, ranks: list, names, what: str) -> None:
-    """Fail unless both ranks report the same metrics and parameters."""
-    if ranks[0]["metrics"] != ranks[1]["metrics"] or any(
-            not torch.equal(ranks[0]["params"][n], ranks[1]["params"][n]) for n in names):
-        fail(f"the two ranks took different {what} steps")
+    """Fail unless every rank reports rank 0's metrics and parameters."""
+    if any(got["metrics"] != ranks[0]["metrics"] or any(
+            not torch.equal(got["params"][n], ranks[0]["params"][n]) for n in names)
+           for got in ranks[1:]):
+        fail(f"the ranks took different {what} steps")
 
 
 def partitioned_agree(torch, what: str, part: list, ref: dict, launches: int,
@@ -3097,7 +3151,8 @@ def two_ranks_on_card(torch, ref: dict, lr: float, graph, solved: dict, refs: di
     from deepvcp_tpu_torch.parallel.launch import run_ranks
 
     t0 = time.perf_counter()
-    ranks = run_ranks("chip_smoke:two_rank_body", 2, kwargs={"graph": graph}, device="cuda",
+    # "cuda:0" binds both ranks to card 0 on a host with more cards too
+    ranks = run_ranks("chip_smoke:two_rank_body", 2, kwargs={"graph": graph}, device="cuda:0",
                       backend="gloo", timeout_s=TWO_RANK_TIMEOUT_S, echo=True)
     card = card_line()
     print(f"card: {card}")
@@ -3191,7 +3246,7 @@ def multi_device_phase(torch, dev, reg, pairs, odo) -> dict:
     tooling. Part 2, two gloo ranks sharing cuda:0: the data-parallel step
     and the sharded solves across ranks (NCCL takes one rank a card; ring_knn
     over more than one point rank needs point-to-point sends, which gloo
-    does not take on CUDA tensors, so it is held on the CPU by the tests).
+    does not take on CUDA tensors: phase 25 runs it over NCCL).
     Returns the K1 / K2 launches of its gated steps."""
     import torch.distributed as dist
 
@@ -3673,7 +3728,511 @@ def bench_phase(torch, dev, card: str) -> dict:
     return total
 
 
+def held_pairs(torch, dev) -> list:
+    """Phase 4's 16 held-out 25 m lidar-like pairs (seed 110) on dev, one
+    (src, tgt, R, t) of B = 1 each."""
+    from deepvcp_tpu_torch.data import LidarLikeDataset, batch_iterator
+
+    held = LidarLikeDataset(num_clouds=N_PAIRS, num_points=N_POINTS, max_range=25.0,
+                            seed=110, max_rotation_deg=5.0, max_translation=0.5)
+    return [tuple(torch.from_numpy(a).to(dev) for a in batch)
+            for batch in batch_iterator(held, 1, epoch=0, seed=0, shuffle=False)]
+
+
+def o1_graph(torch, dev) -> tuple:
+    """Phase 20's pose graph without the rest of phase 20 (--multicard):
+    O1's relative poses and skip edges (o1_edges) over odometry_sequence()'s
+    scans as build_graph's PoseGraph on the CPU, and the chained poses:
+    (graph, R_ch, t_ch)."""
+    from deepvcp_tpu_torch import pretrained
+    from deepvcp_tpu_torch.odometry import build_graph, chain_poses
+
+    scans, _, _ = odometry_sequence()
+    casc = pretrained.cascade("kitti-cascade", device=dev, num_points=N_POINTS)
+    R1, t1, extra, _, _ = o1_edges(torch, dev, casc, scans)
+    R_ch, t_ch = chain_poses(torch.from_numpy(R1), torch.from_numpy(t1))
+    return build_graph(torch.from_numpy(R1), torch.from_numpy(t1), extra_edges=extra), R_ch, t_ch
+
+
+def rank_placement(torch, dist) -> dict:
+    """In a rank of run_ranks(device="cuda"): its card (current device,
+    name, PCI bus id) and one all_reduce of ones over the group on it.
+    Raises unless rank r is bound to card r (initialize_multihost, by
+    LOCAL_RANK) and that card is current, which fails the rank and the
+    phase: every rank body of phase 25 starts here."""
+    from deepvcp_tpu_torch.parallel.multihost import bound_card
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    cur = torch.cuda.current_device()
+    props = torch.cuda.get_device_properties(cur)
+    bus = (f"{props.pci_domain_id:04x}:{props.pci_bus_id:02x}:{props.pci_device_id:02x}"
+           if hasattr(props, "pci_bus_id") else str(props.uuid))
+    ones = torch.ones(1, device=torch.device("cuda", cur))
+    dist.all_reduce(ones)
+    print(f"rank {rank} of {world}: current device cuda:{cur} ({props.name}, PCI bus id {bus}), "
+          f"bound to {bound_card()}, backend {dist.get_backend()}, all_reduce of ones "
+          f"{ones.item():g}", flush=True)
+    if cur != rank or bound_card() != torch.device("cuda", rank) or ones.item() != world:
+        raise RuntimeError(f"rank {rank} is on cuda:{cur} (bound to {bound_card()}), not on its "
+                           f"card cuda:{rank}, or its all_reduce gave {ones.item()}")
+    return {"rank": rank, "device": cur, "bus": bus, "backend": dist.get_backend()}
+
+
+def placement_body() -> dict:
+    """A rank of phase 25's one-card checks: rank_placement alone."""
+    import torch
+    import torch.distributed as dist
+
+    return rank_placement(torch, dist)
+
+
+def one_card_checks() -> None:
+    """Phase 25 on any host: a one-rank NCCL group of run_ranks(device=
+    "cuda") binds its rank to card 0 (rank_placement); two NCCL ranks that
+    see one card (CUDA_VISIBLE_DEVICES) are refused by initialize_multihost
+    with its RuntimeError before a group starts, which fails both ranks."""
+    from deepvcp_tpu_torch.parallel.launch import run_ranks
+
+    (one,) = run_ranks("chip_smoke:placement_body", 1, device="cuda", timeout_s=120, echo=True)
+    if one["device"] != 0 or one["backend"] != "nccl":
+        fail(f"a one-rank NCCL group ran on {one}, not NCCL on cuda:0")
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    try:
+        run_ranks("chip_smoke:placement_body", 2, device="cuda", timeout_s=120,
+                  env={"CUDA_VISIBLE_DEVICES": visible})
+    except RuntimeError as e:
+        said = [line.strip() for line in str(e).splitlines() if NCCL_REFUSED in line]
+        if not said:
+            fail(f"two NCCL ranks on one card failed without initialize_multihost's refusal: {e}")
+    else:
+        fail("two NCCL ranks on one card were not refused")
+    print(f"two NCCL ranks seeing one card (CUDA_VISIBLE_DEVICES={visible}): refused, "
+          f"{said[-1]}")
+
+
+def ring_reference(torch, reg, pair) -> dict:
+    """Phase 25b's inputs and reference on one card: kitti25-rot's
+    candidate query of pair 0 (K * C = 13 824 queries) over its 10 000
+    target points, k = num_neighbors, and the exact knn on them with its
+    CUDA-event time (median of RING_REPS)."""
+    from deepvcp_tpu_torch.ops import knn
+
+    model = reg.model
+    src, tgt, R_gt, t_gt = pair
+    with torch.no_grad():
+        enc = model.encode(src, tgt)
+        _, cand = model.candidates(enc, R_gt, t_gt)
+    query = cand.reshape(cand.shape[0], -1, 3)
+    k = model.cfg.num_neighbors
+    d, i = knn(enc.tgt_xyz, query, k)
+    ms = cuda_median_ms(torch, lambda: knn(enc.tgt_xyz, query, k), reps=RING_REPS)
+    return {"inputs": {"ref": enc.tgt_xyz.cpu().numpy(), "query": query.cpu().numpy(), "k": k},
+            "dist": d.cpu(), "idx": i.cpu(), "ms": ms}
+
+
+def ring_run(torch, mesh, dev, ring: dict) -> dict:
+    """ring_knn over the point group of `mesh` on ring_reference's inputs
+    `ring` on dev: the gathered result, the wall time of a first call (for
+    NCCL, which sets up its point-to-point channels on it) and then the
+    CUDA-event time (median of RING_REPS)."""
+    from deepvcp_tpu_torch.ops.distributed import ring_knn
+
+    ref, query = (torch.from_numpy(ring[k]).to(dev) for k in ("ref", "query"))
+
+    def run():
+        return ring_knn(mesh, ref, query, ring["k"])
+
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    first = (time.perf_counter() - t0) * 1e3
+    d, i = run()
+    ms = cuda_median_ms(torch, run, reps=RING_REPS)
+    return {"dist": d.cpu(), "idx": i.cpu(), "ms": ms, "first_ms": first}
+
+
+def ring_rank(torch, dist, ring: dict) -> dict:
+    """Phase 25b in a rank: ring_run over a 1 x P mesh of every rank (NCCL's
+    batch_isend_irecv between cards)."""
+    from deepvcp_tpu_torch.parallel import make_mesh
+    from deepvcp_tpu_torch.parallel.mesh import rank_card
+
+    world = dist.get_world_size()
+    out = ring_run(torch, make_mesh(1, world, device="cuda"), rank_card("cuda"), ring)
+    print(f"rank {dist.get_rank()}: ring_knn over {world} cards, "
+          f"{ring['query'].shape[1] // world} queries x {ring['ref'].shape[1] // world} points "
+          f"a rank: first call {out['first_ms']:.1f} ms, then {out['ms']:.3f} ms (CUDA events)",
+          flush=True)
+    return out
+
+
+def ring_agrees(torch, rings: list, want: dict, card: str) -> None:
+    """Fail unless every rank's ring_run result `rings` is rank 0's, and
+    rank 0's is the one-card knn `want`: neighbour sets equal but for rows
+    whose differing members tie in distance (counted), the distances
+    exact."""
+    d_r, i_r = rings[0]["dist"], rings[0]["idx"]
+    same = all(torch.equal(r["idx"], i_r) and torch.equal(r["dist"], d_r) for r in rings)
+    differ = (torch.sort(i_r, dim=-1).values != torch.sort(want["idx"], dim=-1).values).any(-1)
+    d_err = (d_r - want["dist"]).abs().max().item()
+    ties_ok = bool(torch.equal(torch.sort(d_r[differ], -1).values,
+                               torch.sort(want["dist"][differ], -1).values))
+    ms = [r["ms"] for r in rings]
+    each = ", ".join(f"{m:.3f}" for m in ms)
+    print(f"ring_knn over {len(rings)} rank(s), one a card, vs knn on one card, "
+          f"{i_r.shape[1]} queries, k={i_r.shape[-1]}: ranks equal {same}, rows differing "
+          f"{int(differ.sum())} (each a distance tie: {ties_ok}), distances max|d| {d_err:.2e}; "
+          f"ring {max(ms):.3f} ms a call (slowest rank; {each}), first call "
+          f"{max(r['first_ms'] for r in rings):.1f} ms, against knn's {want['ms']:.3f} ms "
+          f"(CUDA events; {card})")
+    if not same or d_err > 0 or not ties_ok:
+        fail(f"ring_knn over {len(rings)} rank(s) differs from the exact knn beyond distance "
+             f"ties")
+
+
+def ring_forward_rank(torch, dist, mesh) -> dict:
+    """Phase 25c in a rank: the kitti25-rot registrar on this rank's card
+    with knn_mesh = `mesh` (1 x P: its candidate KNN is the ring over the P
+    cards, the serving form) on phase 4's 16 held pairs, B = 1: each
+    pair's R, t and keypoints, the ring's selections (rank 0 only, int16
+    indices), the K1 launches and pair 0's synced latency (median of 5)."""
+    from deepvcp_tpu_torch import pretrained
+    from deepvcp_tpu_torch.ops import distributed
+    from deepvcp_tpu_torch.parallel.mesh import rank_card
+
+    dev = rank_card("cuda")
+    reg = pretrained.registrar("kitti25-rot", device=dev, num_points=N_POINTS)
+    reg.model.knn_mesh = mesh
+    pairs = held_pairs(torch, dev)
+    ring, picked = distributed.ring_knn, []
+
+    def record(*args, **kw):
+        out = ring(*args, **kw)
+        picked.append(out[1].to(torch.int16).cpu())
+        return out
+
+    distributed.ring_knn = record
+    try:
+        outs, counts = counted_all(torch, lambda: [reg(src, tgt) for src, tgt, _, _ in pairs])
+    finally:
+        distributed.ring_knn = ring
+    ms = host_median_ms(torch, lambda: reg(pairs[0][0], pairs[0][1]), reps=5)
+    print(f"rank {dist.get_rank()}: kitti25-rot registrar with the ring over {mesh.shape[1]} "
+          f"cards, {len(pairs)} pairs: K1 {counts['k1']} launches, {len(picked)} ring "
+          f"selections, pair 0 {ms:.3f} ms a call (synced, median of 5)", flush=True)
+    return {"R": [o.R.cpu() for o in outs], "t": [o.t.cpu() for o in outs],
+            "keypoints": [o.keypoints.cpu() for o in outs], "counts": counts, "ms": ms,
+            "selections": picked if dist.get_rank() == 0 else None}
+
+
+def ring_forward_agrees(torch, reg, pairs, ranks: list, card: str) -> None:
+    """Phase 25c against the single-card registrar `reg` on the same pairs:
+    every rank rank 0's poses and keypoints; the single card's candidate
+    selections replaced by the ring's after checking that each differing
+    row differs only at a near-tie of the k-th distance
+    (selection_near_tie, as pinned_pose); then the same keypoints and R, t
+    within CARD_CPU_POSE. The source side's selections (another query
+    size) are the single card's own."""
+    fwd = [r["forward"] for r in ranks]
+    for r, got in enumerate(fwd[1:], 1):
+        if not all(torch.equal(a, b) for key in ("R", "t", "keypoints")
+                   for a, b in zip(got[key], fwd[0][key])):
+            fail(f"rank {r}'s ring forward differs from rank 0's")
+    for r, got in enumerate(fwd):
+        if got["counts"]["k1"] != LAUNCHES_PER_CALL * len(pairs):
+            fail(f"rank {r}: expected {LAUNCHES_PER_CALL} K1 launches a ring forward call")
+    ring = iter(fwd[0]["selections"])
+    reg.model._knn, n = pinned_knn(torch, reg.model, ring,
+                                   rows=fwd[0]["selections"][0].shape[1])
+    try:
+        with torch.no_grad():
+            outs = [reg(src, tgt) for src, tgt, _, _ in pairs]
+    finally:
+        del reg.model._knn
+    if next(ring, None) is not None:
+        fail("the ring forward made more candidate selections than the single card")
+    kp_same = all(torch.equal(o.keypoints.cpu(), k) for o, k in zip(outs, fwd[0]["keypoints"]))
+    dR = max((o.R.cpu() - R).abs().max().item() for o, R in zip(outs, fwd[0]["R"]))
+    dt = max((o.t.cpu() - t).abs().max().item() for o, t in zip(outs, fwd[0]["t"]))
+    print(f"kitti25-rot ring forward over {len(ranks)} cards vs the single-card registrar, "
+          f"{len(pairs)} pairs: ranks equal; keypoints {'equal' if kp_same else 'DIFFER'}; "
+          f"candidate selections: {n['rows']} query rows differ, {n['ties']} of them only at a "
+          f"near-tie of the k-th distance (the single card then takes the ring's rows); max|dR| "
+          f"{dR:.3e}, max|dt| {dt:.3e}; pair 0 {max(f['ms'] for f in fwd):.3f} ms a call "
+          f"(slowest rank; {card})")
+    if not kp_same or n["ties"] != n["rows"] or dR > CARD_CPU_POSE or dt > CARD_CPU_POSE:
+        fail("the ring forward disagrees with the single-card registrar")
+
+
+def step_refs(torch, dev) -> dict:
+    """Phase 25d's single-card steps: kitti25-rot under its recipe from
+    DP_STEP (dp_setup) at each global B of MULTI_STEPS, under deterministic
+    algorithms: {B: step_result with its step_peak ("peak"), synced time
+    ("ms", median of 3), device busy time ("busy") and lr}."""
+    from deepvcp_tpu_torch.train import make_train_step
+    from deepvcp_tpu_torch.train.optim import learning_rate_schedule
+
+    refs = {}
+    for B in sorted({shape[2] for shapes in MULTI_STEPS.values() for shape in shapes}):
+        trainer, tcfg, saved, batch = dp_setup(torch, dev, batch=B)
+        plain = make_train_step(trainer.model, learning_rate_schedule(tcfg), tcfg)
+        with deterministic(torch):
+            ref, peak = step_peak(torch, lambda: step_result(torch, trainer, plain, saved, batch))
+            ms = host_median_ms(torch, lambda: step_result(torch, trainer, plain, saved, batch),
+                                reps=3)
+            busy, _ = device_time_per_call(
+                torch, lambda: step_result(torch, trainer, plain, saved, batch), calls=2)
+        refs[B] = {**ref, "peak": peak, "ms": ms, "busy": busy,
+                   "lr": learning_rate_schedule(tcfg)(DP_STEP)}
+        print(f"single-card kitti25-rot step, B={B}, N={N_POINTS}: {ms:.3f} ms a step, device "
+              f"busy {busy:.3f} ms, peak {peak[0]:.1f} MiB above its start ({peak[1]:.1f} MiB "
+              f"in all)")
+        del trainer, plain
+        torch.cuda.empty_cache()
+    return refs
+
+
+def mesh_steps(torch, dist, shapes) -> dict:
+    """Phase 25d in a rank: for each (data, point, B) of `shapes`, one step
+    of make_train_step(mesh=data x point) from dp_setup's state on its
+    B-pair batch (shard_batch: this rank's rows), under deterministic
+    algorithms; a point group of P > 1 splits the per-point work
+    (point_partition) and runs the candidate KNN as the ring (knn_mesh).
+    {shape: step_result with the gate's verdict, K1 / K2 launches, the
+    step's peak on this rank's card, its synced time (median of 3), and
+    the device's busy time and the NCCL kernels' time a step
+    (device_time_per_call over 2 steps)}."""
+    from deepvcp_tpu_torch.parallel import make_mesh, shard_batch
+    from deepvcp_tpu_torch.parallel.mesh import rank_card
+    from deepvcp_tpu_torch.train import make_train_step
+    from deepvcp_tpu_torch.train.optim import learning_rate_schedule
+
+    dev, rank, setups, out = rank_card("cuda"), dist.get_rank(), {}, {}
+    for data, point, B in shapes:
+        if B not in setups:
+            setups[B] = dp_setup(torch, dev, batch=B)
+        trainer, tcfg, saved, batch = setups[B]
+        mesh = make_mesh(data, point, device="cuda")
+        trainer.model.knn_mesh = mesh if point > 1 else None
+        step = make_train_step(trainer.model, learning_rate_schedule(tcfg), tcfg, mesh=mesh)
+        args = shard_batch(mesh, batch)
+        split = point > 1 and trainer.model.partitions(mesh, args[0].shape[1], args[1].shape[1])
+        with deterministic(torch):
+            (result, peak), counts = counted_all(torch, lambda: step_peak(
+                torch, lambda: step_result(torch, trainer, step, saved, args)))
+            ms = host_median_ms(torch, lambda: step_result(torch, trainer, step, saved, args),
+                                reps=3)
+            busy, kernels = device_time_per_call(
+                torch, lambda: step_result(torch, trainer, step, saved, args), calls=2, top=None)
+        nccl = sum(t for name, t in kernels if "nccl" in name.lower())
+        trainer.model.knn_mesh = None
+        print(f"rank {rank} on {dev}: {data} x {point} mesh, B={B} ({args[0].shape[0]} pairs a "
+              f"rank, point split {split}): K1 {counts['k1']}, K2 {counts['k2']} launches, peak "
+              f"{peak[0]:.1f} MiB above the step's start ({peak[1]:.1f} MiB in all), {ms:.3f} ms "
+              f"a step, device busy {busy:.3f} ms (NCCL kernels {nccl:.3f})", flush=True)
+        out[(data, point, B)] = {**result, "counts": counts, "split": split, "peak": peak,
+                                 "ms": ms, "busy": busy, "nccl": nccl}
+    return out
+
+
+def steps_agree(torch, world: int, ranks: list, refs: dict, card: str) -> dict:
+    """Phase 25d's gates: each rank's step of each mesh against the
+    single-card step at its global B (dp_step_agrees: DP_BOUNDS, 6 K1 + 6
+    K2), the point split's gate passed where the point group has P > 1,
+    every rank equal; prints the scaling (the single card's time over the
+    slowest rank's, and over P times it). Returns the ranks' K1 / K2."""
+    total = {"k1": 0, "k2": 0}
+    for data, point, B in MULTI_STEPS[world]:
+        got = [r["steps"][(data, point, B)] for r in ranks]
+        ref, what = refs[B], f"{data} x {point} mesh over {world} cards (NCCL), B={B}"
+        for r, g in enumerate(got):
+            if point > 1 and not g["split"]:
+                fail(f"rank {r}: the point partition's gate refused the {what} step")
+            dp_step_agrees(torch, g, ref, ref["lr"], f"rank {r} of the {what}")
+        ranks_equal(torch, got, ref["params"], what)
+        ms = max(g["ms"] for g in got)
+        each = ", ".join(f"{g['ms']:.3f}" for g in got)
+        busy = ", ".join(f"{g['busy']:.3f} ({g['nccl']:.3f})" for g in got)
+        print(f"{what}: {ms:.3f} ms a step (slowest rank; {each}), device busy (NCCL kernels) "
+              f"{busy} ms, peak {max(g['peak'][1] for g in got):.1f} MiB on a card; single card "
+              f"at B={B} {ref['ms']:.3f} ms (busy {ref['busy']:.3f}), peak {ref['peak'][1]:.1f} "
+              f"MiB: speed-up {ref['ms'] / ms:.3f}x, {ref['ms'] / (world * ms):.3f} of {world} "
+              f"cards ({card})")
+        for k in total:
+            total[k] += sum(g["counts"][k] for g in got)
+    return total
+
+
+def multicard_body(ring: dict, graph, forward: bool) -> dict:
+    """One rank of phase 25's multi-card part (run_ranks(device="cuda"):
+    NCCL, rank r on card r): a. its placement (rank_placement); b. ring_knn
+    over every rank (ring_rank); c. with `forward`, the registrar's ring
+    forward over a 1 x P mesh (ring_forward_rank); d. the train steps of
+    MULTI_STEPS[P] (mesh_steps); e. with `graph`, the sharded pose graph
+    and BA over a P x 1 mesh (solves)."""
+    import torch
+    import torch.distributed as dist
+
+    from deepvcp_tpu_torch.parallel import make_mesh
+    from deepvcp_tpu_torch.parallel.mesh import rank_card
+
+    world = dist.get_world_size()
+    out = {"placement": rank_placement(torch, dist), "ring": ring_rank(torch, dist, ring)}
+    if forward:
+        out["forward"] = ring_forward_rank(torch, dist, make_mesh(1, world, device="cuda"))
+    out["steps"] = mesh_steps(torch, dist, MULTI_STEPS[world])
+    if graph is not None:
+        out["solves"] = solves(torch, solve_inputs(torch, graph, rank_card("cuda")),
+                               make_mesh(world, 1, device="cuda"))
+    return out
+
+
+def multicard_phase(torch, dev, reg, pairs, graph, card: str) -> dict:
+    """Phase 25: the multi-device paths on several cards, one rank a card
+    over NCCL. On any host, one_card_checks. With 2 or more cards visible,
+    for a world of 2 ranks and, with 4 or more cards, of 4 (each a fresh
+    run_ranks(device="cuda")) against one card's result in this process:
+    a. every rank on its own card (distinct PCI bus ids; nvidia-smi's
+    topology and NCCL's channels printed); b. ring_knn over
+    all the ranks vs the exact knn (ring_agrees); c. (4 ranks) the
+    registrar's ring forward vs the single-card registrar
+    (ring_forward_agrees); d. the train steps of MULTI_STEPS vs the
+    single-card step at the same global B (steps_agree); e. (4 ranks) the
+    sharded solves on phase 20's `graph` vs the unsharded ones
+    (solves_agree); f. dryrun_multichip over the ranks, one loss. Returns
+    the ranks' K1 / K2 launches."""
+    import collections
+    import tempfile
+
+    from deepvcp_tpu_torch.graft_entry import dryrun_multichip
+    from deepvcp_tpu_torch.parallel.launch import run_ranks
+
+    t0 = time.perf_counter()
+    one_card_checks()
+    cards = torch.cuda.device_count()
+    total = {"k1": 0, "k2": 0}
+    if cards < 2:
+        print(f"phase 25: 1 card visible: the one-card checks only; "
+              f"{time.perf_counter() - t0:.1f} s")
+        return total
+    worlds = [w for w in MULTI_STEPS if w <= cards]
+    print(f"phase 25: {cards} cards visible: the one-card checks and the multi-card part over "
+          f"{' and '.join(map(str, worlds))} ranks")
+    for cmd in (["topo", "-m"], ["topo", "-p2p", "n"], ["nvlink", "-s", "-i", "0"]):
+        out = subprocess.run(["nvidia-smi", *cmd], capture_output=True, text=True, timeout=60)
+        print(f"nvidia-smi {' '.join(cmd)}:\n" + (out.stdout or out.stderr).rstrip())
+    print(f"NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}")
+    g_cpu, R_ch, t_ch = graph
+    graph = (tuple(a.numpy() for a in g_cpu), R_ch.numpy(), t_ch.numpy())
+    ring = ring_reference(torch, reg, pairs[0])
+    refs = step_refs(torch, dev)
+    solved = solves(torch, solve_inputs(torch, graph, dev), None)
+    torch.cuda.empty_cache()
+    for world in worlds:
+        big = world == max(MULTI_STEPS)
+        with tempfile.TemporaryDirectory() as tmp:
+            # NCCL's record of the channels it set up between the cards
+            ranks = run_ranks("chip_smoke:multicard_body", world,
+                              kwargs={"ring": ring["inputs"], "graph": graph if big else None,
+                                      "forward": big},
+                              device="cuda", timeout_s=MULTI_TIMEOUT_S, echo=True,
+                              env={"NCCL_DEBUG": "INFO", "NCCL_DEBUG_SUBSYS": "INIT,P2P",
+                                   "NCCL_DEBUG_FILE": os.path.join(tmp, "nccl.%h.%p")})
+            via = collections.Counter(
+                line.split(" via ", 1)[1].split()[0] for name in os.listdir(tmp)
+                for line in open(os.path.join(tmp, name)) if " via " in line)
+        buses = [r["placement"]["bus"] for r in ranks]
+        print(f"{world} ranks: cards {[r['placement']['device'] for r in ranks]}, PCI bus ids "
+              f"{buses}; NCCL's channels between them, by transport: {dict(via) or 'none logged'}")
+        if [r["placement"]["device"] for r in ranks] != list(range(world)) or \
+                len(set(buses)) != world:
+            fail(f"the {world} ranks are not each on their own card")
+        ring_agrees(torch, [r["ring"] for r in ranks], ring, card)
+        if big:
+            ring_forward_agrees(torch, reg, pairs, ranks, card)
+            total["k1"] += sum(r["forward"]["counts"]["k1"] for r in ranks)
+            for r, got in enumerate(ranks):
+                solves_agree(torch, got["solves"], solved,
+                             f"rank {r}'s sharded solves over {world} cards (NCCL)")
+        for k, v in steps_agree(torch, world, ranks, refs, card).items():
+            total[k] += v
+    world = max(worlds)
+    try:
+        loss = dryrun_multichip(world, device="cuda", timeout_s=MULTI_TIMEOUT_S)
+    except (AssertionError, RuntimeError) as e:
+        fail(f"dryrun_multichip over {world} cards: {e}")
+    print(f"dryrun_multichip({world}, device='cuda'): every rank's loss {loss:.6f}")
+    print(f"phase 25: {time.perf_counter() - t0:.1f} s; K1 {total['k1']}, K2 {total['k2']} "
+          f"launches on the ranks' cards")
+    return total
+
+
+def band_entries(band: dict, k1: int, k2: int) -> list:
+    """The kernels line's K1 and K2 entries: band_phase's serving sums and
+    the launches k1, k2."""
+    return [{
+        "name": "banded_masked_max",
+        "route": "cuda",
+        "source": "deepvcp_tpu_torch/csrc/band_max.cu",
+        "replaces": "deepvcp_tpu/ops/pallas/band_max_kernel.py:148",
+        "launches": k1,
+        "max_abs_err": band["k1_err"],
+        "ms": band["k1_ms"],
+        "plain_ms": band["k1_plain_ms"],
+        "bound_ms": band["k1_bound"][0],
+        "bound_by": band["k1_bound"][1],
+        "library_ms": None,
+    }, {
+        "name": "banded_masked_max_grad",
+        "route": "cuda",
+        "source": "deepvcp_tpu_torch/csrc/band_max_grad.cu",
+        "replaces": "deepvcp_tpu/ops/pallas/band_max_kernel.py:267",
+        "launches": k2,
+        "max_abs_err": band["k2_err"],
+        "ms": band["k2_ms"],
+        "plain_ms": band["k2_plain_ms"],
+        "bound_ms": band["k2_bound"][0],
+        "bound_by": band["k2_bound"][1],
+        "library_ms": None,
+    }]
+
+
+def finish(torch, started: float, card: str, kernels: list) -> None:
+    """Check 11 (neither jax nor the JAX package was imported), then the
+    last lines: the card, the kernels line and the contract's line."""
+    imported = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "deepvcp_tpu"))
+    if imported:
+        fail(f"jax or the JAX package was imported: {imported[:8]}")
+    print("jax imported: no; deepvcp_tpu imported: no")
+    print(f"smoke run: {time.perf_counter() - started:.1f} s")
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def multicard_main(torch, dev, card: str, started: float) -> None:
+    """python3 chip_smoke.py --multicard, after phases 1-2: K1 and K2 at
+    the serving shapes (phase 3 without the cascade's clouds: the kernels
+    line's numbers), then phase 25 on phase 4's registrar and pairs and
+    phase 20's pose graph (o1_graph). The kernels line holds K1 and K2, the
+    kernels of phase 25's paths, with their launches on the ranks' cards."""
+    from deepvcp_tpu_torch import pretrained
+
+    band = band_phase(torch, dev, serving_only=True)
+    reg = pretrained.registrar("kitti25-rot", device=dev, num_points=N_POINTS)
+    multi = multicard_phase(torch, dev, reg, held_pairs(torch, dev), o1_graph(torch, dev), card)
+    finish(torch, started, card, band_entries(band, multi["k1"], multi["k2"]))
+
+
 def main() -> None:
+    import argparse
+
+    p = argparse.ArgumentParser(description="Smoke run of the port on CUDA cards.")
+    p.add_argument("--multicard", action="store_true",
+                   help="phases 1-2 and phase 25 only; needs 2 or more cards")
+    args = p.parse_args()
     started = time.perf_counter()
     # cuBLAS reads this when it starts; the train-path comparison (phase 9)
     # runs under deterministic algorithms, which need it
@@ -3683,12 +4242,15 @@ def main() -> None:
     # 1. device
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
+    if args.multicard and torch.cuda.device_count() < 2:
+        print(f"chip_smoke.py --multicard: {torch.cuda.device_count()} CUDA card visible; phase "
+              f"25's multi-card part needs 2 or more", file=sys.stderr)
+        sys.exit(1)
 
     # the port itself: an ImportError here (no checkout around the script)
     # ends the run before anything is printed
     from deepvcp_tpu_torch import pretrained
-    from deepvcp_tpu_torch.data import (
-        LidarLikeDataset, batch_iterator, rotation_geodesic_deg, translation_error)
+    from deepvcp_tpu_torch.data import rotation_geodesic_deg, translation_error
     from deepvcp_tpu_torch.ops.kernels import _build
     from deepvcp_tpu_torch.ops.kernels.band_max import banded_masked_max
 
@@ -3697,22 +4259,21 @@ def main() -> None:
     print(f"toolchain: python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
     dev = torch.device("cuda", 0)
-    kind = torch.cuda.get_device_name(0)
 
     # 2. build
     t0 = time.perf_counter()
     _build.library()
     print(f"build: {time.perf_counter() - t0:.2f} s ({_build.build()})")
+    if args.multicard:
+        multicard_main(torch, dev, card, started)
+        return
 
     # 3. K1 and K2 against their plain versions
     band = band_phase(torch, dev)
 
     # 4. the main path: Registrar on kitti25-rot, 16 held-out pairs
     reg = pretrained.registrar("kitti25-rot", device=dev)
-    held = LidarLikeDataset(num_clouds=N_PAIRS, num_points=N_POINTS, max_range=25.0,
-                            seed=110, max_rotation_deg=5.0, max_translation=0.5)
-    pairs = [tuple(torch.from_numpy(a).to(dev) for a in batch)
-             for batch in batch_iterator(held, 1, epoch=0, seed=0, shuffle=False)]
+    pairs = held_pairs(torch, dev)
     torch.cuda.synchronize()
     banded_masked_max.launches = 0
     outs = [reg(src, tgt) for src, tgt, _, _ in pairs]
@@ -3776,52 +4337,29 @@ def main() -> None:
     # 24. the headline bench at N = 10 000 and B = 1, 2, 4, 8, and its CLI
     bnch = bench_phase(torch, dev, card)
 
+    # 25. several cards: the one-card checks of one rank a card over NCCL,
+    # and with 2 or more cards the multi-device paths across them
+    mc = multicard_phase(torch, dev, reg, pairs, odo["graph"], card)
+
     (k1_bound, k1_by), (k2_bound, k2_by) = band["k1_bound"], band["k2_bound"]
     print(f"bounds at the 3 serving SA shapes: K1 {k1_bound:.5f} ms ({k1_by}), K2 {k2_bound:.5f} "
           f"ms ({k2_by}); K3 at one init call's 2 shapes {k3['bound_ms']:.5f} ms "
           f"({k3['bound_by']})")
 
-    # 11. no jax, nothing of the JAX package
-    imported = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "deepvcp_tpu"))
-    if imported:
-        fail(f"jax or the JAX package was imported: {imported[:8]}")
-    print("jax imported: no; deepvcp_tpu imported: no")
-    print(f"smoke run: {time.perf_counter() - started:.1f} s")
-
-    print(card)
+    # 11. no jax, nothing of the JAX package; then the last lines.
     # ms / plain_ms / bound_ms: K1 and K2 sums at the 3 SA shapes (one FE
     # pass, or one FE backward), K3 sums at the 2 shapes of one init call,
     # K4 and K5 at the two-level path's shapes (library_ms: torch.gather,
     # torch.scatter_add); launches: the main-path runs' (serving, training,
     # global, two-level serving and training, odometry, the engines,
     # multi-device, the examples, the trained checkpoint and convergence,
-    # the bench)
-    print(json.dumps({"kernels": [{
-        "name": "banded_masked_max",
-        "route": "cuda",
-        "source": "deepvcp_tpu_torch/csrc/band_max.cu",
-        "replaces": "deepvcp_tpu/ops/pallas/band_max_kernel.py:148",
-        "launches": (launches + train["k1"] + glob["k1"] + two["k1"] + two_train["k1"]
-                     + odo["k1"] + eng["k1"] + multi["k1"] + ora.get("k1", 0) + bnch["k1"]),
-        "max_abs_err": band["k1_err"],
-        "ms": band["k1_ms"],
-        "plain_ms": band["k1_plain_ms"],
-        "bound_ms": k1_bound,
-        "bound_by": k1_by,
-        "library_ms": None,
-    }, {
-        "name": "banded_masked_max_grad",
-        "route": "cuda",
-        "source": "deepvcp_tpu_torch/csrc/band_max_grad.cu",
-        "replaces": "deepvcp_tpu/ops/pallas/band_max_kernel.py:267",
-        "launches": train["k2"] + two_train["k2"] + eng["k2"] + multi["k2"] + ora.get("k2", 0),
-        "max_abs_err": band["k2_err"],
-        "ms": band["k2_ms"],
-        "plain_ms": band["k2_plain_ms"],
-        "bound_ms": k2_bound,
-        "bound_by": k2_by,
-        "library_ms": None,
-    }, {
+    # the bench, the ranks of several cards)
+    finish(torch, started, card, band_entries(
+        band,
+        launches + train["k1"] + glob["k1"] + two["k1"] + two_train["k1"] + odo["k1"]
+        + eng["k1"] + multi["k1"] + ora.get("k1", 0) + bnch["k1"] + mc["k1"],
+        train["k2"] + two_train["k2"] + eng["k2"] + multi["k2"] + ora.get("k2", 0) + mc["k2"],
+    ) + [{
         "name": "farthest_point_sample",
         "route": "cuda",
         "source": "deepvcp_tpu_torch/csrc/fps.cu",
@@ -3843,9 +4381,7 @@ def main() -> None:
                                         "library_ms")},
     } for name, k, line, launches_ in (
         ("onehot_gather", "K4", 74, two["k4"] + two_train["k4"] + eng["k4"]),
-        ("onehot_scatter_add", "K5", 156, two_train["k5"] + eng["k5"]))]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        ("onehot_scatter_add", "K5", 156, two_train["k5"] + eng["k5"]))])
 
 
 if __name__ == "__main__":

@@ -22,6 +22,7 @@ from deepvcp_tpu_torch.parallel.multihost import (
     host_shard_info,
     initialize_multihost,
     is_primary_host,
+    rank_device,
 )
 
 __all__ = [
@@ -32,6 +33,7 @@ __all__ = [
     "replicated",
     "shard_batch",
     "initialize_multihost",
+    "rank_device",
     "Heartbeat",
     "Watchdog",
     "PeerFailure",

@@ -6,10 +6,13 @@ JAX package runs them from one controller over a virtual device mesh).
                         kwargs={...}, device="cpu", timeout_s=120)
 
 Each rank is a fresh interpreter (`python -m deepvcp_tpu_torch.parallel.launch
-SPEC`): it joins the group through initialize_multihost on a free localhost
-port, calls function(**kwargs), and returns what it returns (pickled; keep
-it on the CPU). CPU ranks share the host's cores equally. A rank that exits non-zero, or a run that outlasts its
-timeout, kills every rank and raises with the ranks' output.
+SPEC`) with LOCAL_RANK set to its rank (one host): it joins the group through
+initialize_multihost on a free localhost port, which binds it to its card
+on "cuda" (card LOCAL_RANK; NCCL refuses more ranks than cards), calls
+function(**kwargs), and returns what it returns (pickled; keep it on the
+CPU). CPU ranks share the host's cores equally. A rank that exits
+non-zero, or a run that outlasts its timeout, kills every rank and raises
+with the ranks' output.
 """
 
 from __future__ import annotations
@@ -34,16 +37,18 @@ def free_port() -> int:
 
 def run_ranks(target: str, world_size: int, *, kwargs: Optional[Dict[str, Any]] = None,
               device: str, backend: Optional[str] = None, timeout_s: float = 120.0,
-              sys_path: Sequence[str] = (), echo: bool = False) -> List[Any]:
+              sys_path: Sequence[str] = (), echo: bool = False,
+              env: Optional[Dict[str, str]] = None) -> List[Any]:
     """Run `target` ("module:function") in `world_size` ranks over
     backend_for(device) (or `backend`); returns the ranks' results in rank
-    order. With `echo`, print each rank's output, prefixed with its rank."""
+    order. `env` adds to the ranks' environment (e.g. CUDA_VISIBLE_DEVICES).
+    With `echo`, print each rank's output, prefixed with its rank."""
     port = free_port()
     with tempfile.TemporaryDirectory(prefix="ranks_") as tmp:
         procs, logs = [], []
-        env = dict(os.environ)
-        env["PYTHONPATH"] = os.pathsep.join(
-            [_ROOT, *sys_path] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+        base = {**os.environ, **(env or {})}
+        base["PYTHONPATH"] = os.pathsep.join(
+            [_ROOT, *sys_path] + ([base["PYTHONPATH"]] if base.get("PYTHONPATH") else []))
         for rank in range(world_size):
             spec = os.path.join(tmp, f"spec_{rank}.pkl")
             with open(spec, "wb") as fh:
@@ -55,7 +60,8 @@ def run_ranks(target: str, world_size: int, *, kwargs: Optional[Dict[str, Any]] 
             logs.append(log)
             procs.append(subprocess.Popen(
                 [sys.executable, "-m", "deepvcp_tpu_torch.parallel.launch", spec],
-                stdout=log, stderr=subprocess.STDOUT, env=env, cwd=_ROOT))
+                stdout=log, stderr=subprocess.STDOUT, env={**base, "LOCAL_RANK": str(rank)},
+                cwd=_ROOT))
         deadline = time.monotonic() + timeout_s
         fault = None
         try:
@@ -109,6 +115,8 @@ def _rank_main(spec_path: str) -> None:
     if spec["device"] == "cpu":
         # the ranks share the host's cores
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // spec["world_size"]))
+    # on "cuda" this binds the rank to its card (LOCAL_RANK's) before the
+    # target can touch the device
     initialize_multihost(f"localhost:{spec['port']}", spec["world_size"], spec["rank"],
                          device=spec["device"], backend=spec["backend"],
                          timeout_s=spec["timeout_s"])

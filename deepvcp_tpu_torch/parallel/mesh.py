@@ -30,17 +30,34 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from torch.distributed.tensor import Replicate, Shard
 
+from deepvcp_tpu_torch.parallel.multihost import bound_card
+
 DATA_AXIS = "data"
 POINT_AXIS = "point"
+
+
+def rank_card(device_type: str) -> torch.device:
+    """This rank's device of `device_type`: on "cuda", the card that
+    initialize_multihost bound the rank to, else the current card."""
+    if device_type != "cuda":
+        return torch.device(device_type)
+    return bound_card() or torch.device("cuda", torch.cuda.current_device())
 
 
 def make_mesh(data: Optional[int] = None, point: int = 1, *, device) -> DeviceMesh:
     """A ("data", "point") DeviceMesh over every rank of the initialised
     process group (parallel.initialize_multihost), data * point == world
     size; data defaults to world size / point. `device` names the ranks'
-    device type ("cuda" or "cpu")."""
+    device type ("cuda" or "cpu"). On "cuda" the current card must be the
+    one initialize_multihost bound the rank to: RuntimeError otherwise
+    (something set another card after it)."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a process group: call initialize_multihost first")
+    card = bound_card()
+    if (torch.device(device).type == "cuda" and card is not None
+            and torch.cuda.current_device() != card.index):
+        raise RuntimeError(f"make_mesh: this rank is bound to {card}, but the current card is "
+                           f"cuda:{torch.cuda.current_device()}")
     world = dist.get_world_size()
     if data is None:
         assert world % point == 0, (world, point)
@@ -159,9 +176,8 @@ def shard_batch(mesh: DeviceMesh, batch: Sequence, local: bool = False) -> Tuple
     rank passes the same batch). With `local`, `batch` is already this
     rank's rows, as each process loads them in a multi-process run
     (batch_iterator(host_id=data index, num_hosts=data size)), and is only
-    moved to the device."""
-    dev = torch.device("cuda", torch.cuda.current_device()) \
-        if mesh.device_type == "cuda" else torch.device(mesh.device_type)
+    moved to the device. The device is the rank's (rank_card)."""
+    dev = rank_card(mesh.device_type)
     out = []
     for a, placements in zip(batch, batch_pair_sharding(mesh)):
         t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))

@@ -170,6 +170,13 @@ def late_mesh(shape, delay_s):
     return make_mesh(*shape, device="cpu").get_coordinate()
 
 
+def launch_env():
+    """This rank's LOCAL_RANK (set by run_ranks) and its global rank."""
+    import os
+
+    return os.environ["LOCAL_RANK"], torch.distributed.get_rank()
+
+
 def run_cases(cases):
     """Several bodies in one run of ranks: cases {name: (body, kwargs)} ->
     {name: the body's result}, in order, so that the tests of a file share
