@@ -9,6 +9,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from deepvcp_tpu_torch.ops import apply_rigid, kabsch
+from deepvcp_tpu_torch.utils.profiling import annotate
 
 
 class RegistrationResult(NamedTuple):
@@ -34,16 +35,17 @@ def svd_refine(x: torch.Tensor, y_pred: torch.Tensor, inlier_ratio: float = 0.8,
     """Kabsch on (x, y_pred), keep the `inlier_ratio` best-fitting
     correspondences by residual to that fit, and solve again on them
     (ground-truth-free). x, y_pred [B, N, 3]; weights [B, N] or None."""
-    N = x.shape[-2]
-    R1, t1 = kabsch(x, y_pred, weights)
-    resid = torch.sum(torch.square(y_pred - apply_rigid(x, R1, t1)), dim=-1)
-    num_in = max(int(N * inlier_ratio), 3)
-    _, in_idx = torch.topk(resid, num_in, dim=-1, largest=False)
-    take = lambda a: torch.gather(a, -2, in_idx[..., None].expand(-1, -1, a.shape[-1]))  # noqa: E731
-    x_in, y_in = take(x), take(y_pred)
-    w_in = torch.gather(weights, -1, in_idx) if weights is not None else None
-    R2, t2 = kabsch(x_in, y_in, w_in)
-    return RefineResult(R=R2, t=t2, x_in=x_in, y_in=y_in, inlier_idx=in_idx)
+    with annotate("deepvcp.solve"):
+        N = x.shape[-2]
+        R1, t1 = kabsch(x, y_pred, weights)
+        resid = torch.sum(torch.square(y_pred - apply_rigid(x, R1, t1)), dim=-1)
+        num_in = max(int(N * inlier_ratio), 3)
+        _, in_idx = torch.topk(resid, num_in, dim=-1, largest=False)
+        take = lambda a: torch.gather(a, -2, in_idx[..., None].expand(-1, -1, a.shape[-1]))  # noqa: E731
+        x_in, y_in = take(x), take(y_pred)
+        w_in = torch.gather(weights, -1, in_idx) if weights is not None else None
+        R2, t2 = kabsch(x_in, y_in, w_in)
+        return RefineResult(R=R2, t=t2, x_in=x_in, y_in=y_in, inlier_idx=in_idx)
 
 
 def deepvcp_loss(x: torch.Tensor, y_pred: torch.Tensor, R_true: torch.Tensor,

@@ -49,6 +49,7 @@ from deepvcp_tpu_torch.models.layers import (
 from deepvcp_tpu_torch.ops import (
     apply_rigid, approx_knn, farthest_point_sample, group_neighbors, index_points, knn, voxelize)
 from deepvcp_tpu_torch.ops.two_level import two_level_rows
+from deepvcp_tpu_torch.utils.profiling import annotate
 
 _EPS = 1e-8
 # the mesh whose point group a forward may split its per-point work over
@@ -165,59 +166,61 @@ class DeepVCP(nn.Module):
     def features(self, pts: torch.Tensor, mesh=None) -> torch.Tensor:
         """FE of one cloud [B, N, 3(+3)] -> [B, N, F] (split over `mesh`'s
         point group, whole on every rank: FeatureExtraction)."""
-        nrm = pts[..., 3:6] if self.cfg.use_normal else None
-        return self.fe(pts[..., :3], nrm, mesh=mesh)
+        with annotate("deepvcp.features"):
+            nrm = pts[..., 3:6] if self.cfg.use_normal else None
+            return self.fe(pts[..., :3], nrm, mesh=mesh)
 
     def encode(self, src: torch.Tensor, tgt: torch.Tensor) -> Encoding:
-        cfg = self.cfg
-        mesh = self._point_mesh(src.shape[1], tgt.shape[1])
-        src_xyz = src[..., :3]
-        src_feat = self.features(src, mesh)
-        if mesh is None:
-            saliency = self.wl(src_feat)
-        else:
-            from deepvcp_tpu_torch.parallel.mesh import gather_points, point_shard
+        with annotate("deepvcp.encode"):
+            cfg = self.cfg
+            mesh = self._point_mesh(src.shape[1], tgt.shape[1])
+            src_xyz = src[..., :3]
+            src_feat = self.features(src, mesh)
+            if mesh is None:
+                saliency = self.wl(src_feat)
+            else:
+                from deepvcp_tpu_torch.parallel.mesh import gather_points, point_shard
 
-            saliency = gather_points(self.wl(point_shard(src_feat, mesh)), mesh)
-        K = cfg.num_keypoints
-        if cfg.keypoint_selection == "salient_fps":
-            # FPS of K over the top-(pool_mult*K) saliency pool: salient
-            # points, spread out (kernel K3 on the card)
-            P = min(cfg.keypoint_pool_mult * K, src_xyz.shape[1])
-            pool_sal, pool_idx = torch.topk(saliency, P, dim=-1)
-            sel = farthest_point_sample(index_points(src_xyz, pool_idx), K)
-            kp_idx = torch.gather(pool_idx, 1, sel)
-            kp_saliency = torch.gather(pool_sal, 1, sel)
-        else:
-            kp_saliency, kp_idx = torch.topk(saliency, K, dim=-1)
-        kp_xyz = index_points(src_xyz, kp_idx)
-        # the keypoints whose descriptors this rank computes
-        kp_own = kp_xyz if mesh is None else point_shard(kp_xyz, mesh)
-        if cfg.dfe_src_neighbors == "cloud":
-            # D13: source neighbourhoods from the keypoint's ns-NN in the
-            # full source cloud, the same construction as the target branch
-            _, nb_idx = self._knn(src_xyz, kp_own, chunked=False)
-            snb = index_points(torch.cat([src_xyz, src_feat.to(src_xyz.dtype)], dim=-1), nb_idx)
-            local_xyz = snb[..., :3] - kp_own[:, :, None, :]
-            nb_feat = snb[..., 3:]
-        else:
-            # the reference's: keypoints grouped among themselves within
-            # group_radius, their own features gathered (D8), a zero-hit
-            # row masked (self-inclusion makes it impossible here)
-            _, local_xyz, nb_idx, nb_count = group_neighbors(
-                cfg.group_radius, cfg.num_neighbors, kp_xyz, kp_own, return_count=True)
-            kp_feat = index_points(src_feat, kp_idx)
-            nb_feat = torch.where((nb_count > 0)[..., None, None],
-                                  index_points(kp_feat, nb_idx), 0.0)
-        d_src = torch.linalg.norm(local_xyz, dim=-1)
-        w_src = d_src / (torch.sum(d_src, dim=-1, keepdim=True) + _EPS)
-        src_cat = torch.cat([local_xyz, nb_feat * w_src[..., None]], dim=-1)
-        tgt_xyz = tgt[..., :3]
-        tgt_feat = self.features(tgt, mesh)
-        return Encoding(
-            keypoints=kp_xyz, keypoint_idx=kp_idx, keypoint_saliency=kp_saliency,
-            saliency=saliency, src_descriptors=self.dfe(src_cat),
-            tgt_xyz=tgt_xyz, tgt_table=torch.cat([tgt_xyz, tgt_feat.to(tgt_xyz.dtype)], dim=-1))
+                saliency = gather_points(self.wl(point_shard(src_feat, mesh)), mesh)
+            K = cfg.num_keypoints
+            if cfg.keypoint_selection == "salient_fps":
+                # FPS of K over the top-(pool_mult*K) saliency pool: salient
+                # points, spread out (kernel K3 on the card)
+                P = min(cfg.keypoint_pool_mult * K, src_xyz.shape[1])
+                pool_sal, pool_idx = torch.topk(saliency, P, dim=-1)
+                sel = farthest_point_sample(index_points(src_xyz, pool_idx), K)
+                kp_idx = torch.gather(pool_idx, 1, sel)
+                kp_saliency = torch.gather(pool_sal, 1, sel)
+            else:
+                kp_saliency, kp_idx = torch.topk(saliency, K, dim=-1)
+            kp_xyz = index_points(src_xyz, kp_idx)
+            # the keypoints whose descriptors this rank computes
+            kp_own = kp_xyz if mesh is None else point_shard(kp_xyz, mesh)
+            if cfg.dfe_src_neighbors == "cloud":
+                # D13: source neighbourhoods from the keypoint's ns-NN in the
+                # full source cloud, the same construction as the target branch
+                _, nb_idx = self._knn(src_xyz, kp_own, chunked=False)
+                snb = index_points(torch.cat([src_xyz, src_feat.to(src_xyz.dtype)], dim=-1), nb_idx)
+                local_xyz = snb[..., :3] - kp_own[:, :, None, :]
+                nb_feat = snb[..., 3:]
+            else:
+                # the reference's: keypoints grouped among themselves within
+                # group_radius, their own features gathered (D8), a zero-hit
+                # row masked (self-inclusion makes it impossible here)
+                _, local_xyz, nb_idx, nb_count = group_neighbors(
+                    cfg.group_radius, cfg.num_neighbors, kp_xyz, kp_own, return_count=True)
+                kp_feat = index_points(src_feat, kp_idx)
+                nb_feat = torch.where((nb_count > 0)[..., None, None],
+                                      index_points(kp_feat, nb_idx), 0.0)
+            d_src = torch.linalg.norm(local_xyz, dim=-1)
+            w_src = d_src / (torch.sum(d_src, dim=-1, keepdim=True) + _EPS)
+            src_cat = torch.cat([local_xyz, nb_feat * w_src[..., None]], dim=-1)
+            tgt_xyz = tgt[..., :3]
+            tgt_feat = self.features(tgt, mesh)
+            return Encoding(
+                keypoints=kp_xyz, keypoint_idx=kp_idx, keypoint_saliency=kp_saliency,
+                saliency=saliency, src_descriptors=self.dfe(src_cat),
+                tgt_xyz=tgt_xyz, tgt_table=torch.cat([tgt_xyz, tgt_feat.to(tgt_xyz.dtype)], dim=-1))
 
     def candidates(self, enc: Encoding, R_init: torch.Tensor,
                    t_init: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -245,69 +248,72 @@ class DeepVCP(nn.Module):
         per-keypoint tables. Under a point partition over `mesh` the
         candidates are this rank's keypoints' (K / P of them), and the
         ring's query shard is exactly these (knn_mesh must be `mesh`)."""
-        cfg = self.cfg
-        B, K, C, _ = candidates.shape
-        P = 1
-        if mesh is not None:
-            from deepvcp_tpu_torch.parallel.mesh import POINT_AXIS, axis_peers, axis_size
+        with annotate("deepvcp.candidate_neighbors"):
+            cfg = self.cfg
+            B, K, C, _ = candidates.shape
+            P = 1
+            if mesh is not None:
+                from deepvcp_tpu_torch.parallel.mesh import POINT_AXIS, axis_peers, axis_size
 
-            P = axis_size(mesh, POINT_AXIS)
-        if self._use_ring(enc.tgt_xyz.shape[1], K * C * P, cfg.num_neighbors):
-            from deepvcp_tpu_torch.ops.distributed import ring_knn
+                P = axis_size(mesh, POINT_AXIS)
+            if self._use_ring(enc.tgt_xyz.shape[1], K * C * P, cfg.num_neighbors):
+                from deepvcp_tpu_torch.ops.distributed import ring_knn
 
-            if mesh is not None and axis_peers(self.knn_mesh, POINT_AXIS) != axis_peers(
-                    mesh, POINT_AXIS):
-                raise ValueError("the ring's point group must be the partition's")
-            _, idx = ring_knn(self.knn_mesh, enc.tgt_xyz, candidates.reshape(B, K * C, 3),
-                              cfg.num_neighbors, gather=mesh is None)
+                if mesh is not None and axis_peers(self.knn_mesh, POINT_AXIS) != axis_peers(
+                        mesh, POINT_AXIS):
+                    raise ValueError("the ring's point group must be the partition's")
+                _, idx = ring_knn(self.knn_mesh, enc.tgt_xyz, candidates.reshape(B, K * C, 3),
+                                  cfg.num_neighbors, gather=mesh is None)
+                return index_points(enc.tgt_table, idx)
+            if cfg.use_two_level_tgt_knn:
+                rows = two_level_rows(enc.tgt_xyz, enc.tgt_table, kp_warm, candidates,
+                                      cfg.num_neighbors, **self.two_level_args())
+                return rows.reshape(B, K * C, cfg.num_neighbors, -1)
+            _, idx = self._knn(enc.tgt_xyz, candidates.reshape(B, K * C, 3), chunked=True, parts=P)
             return index_points(enc.tgt_table, idx)
-        if cfg.use_two_level_tgt_knn:
-            rows = two_level_rows(enc.tgt_xyz, enc.tgt_table, kp_warm, candidates,
-                                  cfg.num_neighbors, **self.two_level_args())
-            return rows.reshape(B, K * C, cfg.num_neighbors, -1)
-        _, idx = self._knn(enc.tgt_xyz, candidates.reshape(B, K * C, 3), chunked=True, parts=P)
-        return index_points(enc.tgt_table, idx)
 
     def match(self, enc: Encoding, candidates: torch.Tensor, tnb: torch.Tensor,
               R_init: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Derotate and weight the candidates' neighbourhoods tnb
         [B, K*C, ns, 3+F], embed them and run the CPG: (vcp [B, K, 3],
         candidate weights [B, K, C])."""
-        B, K, C, _ = candidates.shape
-        local_t = tnb[..., :3] - candidates.reshape(B, K * C, 1, 3)
-        if self.cfg.derotate_tgt_neighborhoods:
-            # D14: row-vector form of R_init^T v, into the source frame
-            local_t = local_t @ R_init[:, None]
-        nb_dist = torch.linalg.norm(local_t, dim=-1)
-        w_tgt = nb_dist / (torch.sum(nb_dist, dim=-1, keepdim=True) + _EPS)
-        tgt_cat = torch.cat([local_t, tnb[..., 3:] * w_tgt[..., None]], dim=-1)
-        tgt_desc = self.dfe(tgt_cat.reshape(B, K, C, tnb.shape[-2], -1))
-        return self.cpg(enc.src_descriptors, tgt_desc, candidates)
+        with annotate("deepvcp.match"):
+            B, K, C, _ = candidates.shape
+            local_t = tnb[..., :3] - candidates.reshape(B, K * C, 1, 3)
+            if self.cfg.derotate_tgt_neighborhoods:
+                # D14: row-vector form of R_init^T v, into the source frame
+                local_t = local_t @ R_init[:, None]
+            nb_dist = torch.linalg.norm(local_t, dim=-1)
+            w_tgt = nb_dist / (torch.sum(nb_dist, dim=-1, keepdim=True) + _EPS)
+            tgt_cat = torch.cat([local_t, tnb[..., 3:] * w_tgt[..., None]], dim=-1)
+            tgt_desc = self.dfe(tgt_cat.reshape(B, K, C, tnb.shape[-2], -1))
+            return self.cpg(enc.src_descriptors, tgt_desc, candidates)
 
     def correspond(self, enc: Encoding, R_init: torch.Tensor,
                    t_init: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
-        mesh = self._point_mesh(enc.saliency.shape[1], enc.tgt_xyz.shape[1])
-        kp_warm, candidates = self.candidates(enc, R_init, t_init)
-        src_desc = enc.src_descriptors
-        if mesh is not None:
-            from deepvcp_tpu_torch.parallel.mesh import point_shard
+        with annotate("deepvcp.correspond"):
+            mesh = self._point_mesh(enc.saliency.shape[1], enc.tgt_xyz.shape[1])
+            kp_warm, candidates = self.candidates(enc, R_init, t_init)
+            src_desc = enc.src_descriptors
+            if mesh is not None:
+                from deepvcp_tpu_torch.parallel.mesh import point_shard
 
-            kp_warm, candidates = point_shard(kp_warm, mesh), point_shard(candidates, mesh)
-        tnb = self.candidate_neighbors(enc, kp_warm, candidates, mesh)
-        vcp, cand_weights = self.match(enc, candidates, tnb, R_init)
-        if mesh is not None:
-            from deepvcp_tpu_torch.parallel.mesh import gather_points
+                kp_warm, candidates = point_shard(kp_warm, mesh), point_shard(candidates, mesh)
+            tnb = self.candidate_neighbors(enc, kp_warm, candidates, mesh)
+            vcp, cand_weights = self.match(enc, candidates, tnb, R_init)
+            if mesh is not None:
+                from deepvcp_tpu_torch.parallel.mesh import gather_points
 
-            vcp, cand_weights, src_desc = (gather_points(a, mesh)
-                                           for a in (vcp, cand_weights, src_desc))
-        aux = {
-            "saliency": enc.saliency,
-            "keypoint_idx": enc.keypoint_idx,
-            "keypoint_saliency": enc.keypoint_saliency,
-            "candidate_weights": cand_weights,
-            "src_descriptors": src_desc,
-        }
-        return enc.keypoints, vcp, aux
+                vcp, cand_weights, src_desc = (gather_points(a, mesh)
+                                               for a in (vcp, cand_weights, src_desc))
+            aux = {
+                "saliency": enc.saliency,
+                "keypoint_idx": enc.keypoint_idx,
+                "keypoint_saliency": enc.keypoint_saliency,
+                "candidate_weights": cand_weights,
+                "src_descriptors": src_desc,
+            }
+            return enc.keypoints, vcp, aux
 
     def forward(self, src: torch.Tensor, tgt: torch.Tensor, R_init: torch.Tensor,
                 t_init: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, Dict]:

@@ -26,6 +26,7 @@ from deepvcp_tpu_torch.loss.registration import svd_refine
 from deepvcp_tpu_torch.models import DeepVCP
 from deepvcp_tpu_torch.ops import apply_rigid, square_distance
 from deepvcp_tpu_torch.ops.neighbors import slab_occupancy_stats, window_for
+from deepvcp_tpu_torch.utils.profiling import annotate
 
 
 class RegistrationOutput(NamedTuple):
@@ -85,10 +86,11 @@ class Registrar:
         """Trimmed mean 1-NN distance of the posed keypoints into the target
         cloud, [B]: the GT-free acceptance metric. The keypoints do not
         depend on the pose, so scores of different poses compare."""
-        nn_d2 = torch.amin(square_distance(apply_rigid(kp, R, t), tgt_xyz), dim=-1)
-        k_in = max(int(nn_d2.shape[-1] * self.inlier_ratio), 3)
-        best, _ = torch.topk(nn_d2, k_in, dim=-1, largest=False)
-        return torch.sqrt(torch.mean(torch.clamp_min(best, 0.0), dim=-1))
+        with annotate("deepvcp.score"):
+            nn_d2 = torch.amin(square_distance(apply_rigid(kp, R, t), tgt_xyz), dim=-1)
+            k_in = max(int(nn_d2.shape[-1] * self.inlier_ratio), 3)
+            best, _ = torch.topk(nn_d2, k_in, dim=-1, largest=False)
+            return torch.sqrt(torch.mean(torch.clamp_min(best, 0.0), dim=-1))
 
     @torch.no_grad()
     def __call__(
@@ -100,38 +102,39 @@ class Registrar:
     ) -> RegistrationOutput:
         """src/tgt [B, N, 3(+3)] channels-last clouds on the registrar's
         device. The init pose defaults to identity."""
-        for name, x in (("src", src), ("tgt", tgt), ("R_init", R_init), ("t_init", t_init)):
-            if x is not None and x.device != self.device:
-                raise ValueError(f"{name} is on {x.device}, the registrar on {self.device}")
-        B = src.shape[0]
-        self._check_extent(src)
-        if R_init is None:
-            R_init = torch.eye(3, dtype=src.dtype, device=self.device).expand(B, 3, 3)
-        if t_init is None:
-            t_init = torch.zeros(B, 3, dtype=src.dtype, device=self.device)
-        enc = self.model.encode(src, tgt)
-        kp = enc.keypoints
-        R_best, t_best = R_init, t_init
-        score_best = self.score(kp, enc.tgt_xyz, R_init, t_init)
-        scores = [score_best]
-        for _ in range(self.refine_iters):
-            kp, vcp, aux = self.model.correspond(enc, R_best, t_best)
-            weights = aux["keypoint_saliency"] if self.use_saliency_weights else None
-            ref = svd_refine(kp, vcp, self.inlier_ratio, weights)
-            if self.guard:
-                s = self.score(kp, enc.tgt_xyz, ref.R, ref.t)
-                scores.append(s)
-                better = s < score_best
-                R_best = torch.where(better[:, None, None], ref.R, R_best)
-                t_best = torch.where(better[:, None], ref.t, t_best)
-                score_best = torch.minimum(s, score_best)
-            else:
-                R_best, t_best = ref.R, ref.t
-                score_best = self.score(kp, enc.tgt_xyz, R_best, t_best)
-                scores.append(score_best)
-        return RegistrationOutput(
-            R=R_best, t=t_best, keypoints=kp, vcps=vcp, inlier_idx=ref.inlier_idx,
-            saliency=enc.saliency, scores=torch.stack(scores, dim=-1))
+        with annotate("deepvcp.register"):
+            for name, x in (("src", src), ("tgt", tgt), ("R_init", R_init), ("t_init", t_init)):
+                if x is not None and x.device != self.device:
+                    raise ValueError(f"{name} is on {x.device}, the registrar on {self.device}")
+            B = src.shape[0]
+            self._check_extent(src)
+            if R_init is None:
+                R_init = torch.eye(3, dtype=src.dtype, device=self.device).expand(B, 3, 3)
+            if t_init is None:
+                t_init = torch.zeros(B, 3, dtype=src.dtype, device=self.device)
+            enc = self.model.encode(src, tgt)
+            kp = enc.keypoints
+            R_best, t_best = R_init, t_init
+            score_best = self.score(kp, enc.tgt_xyz, R_init, t_init)
+            scores = [score_best]
+            for _ in range(self.refine_iters):
+                kp, vcp, aux = self.model.correspond(enc, R_best, t_best)
+                weights = aux["keypoint_saliency"] if self.use_saliency_weights else None
+                ref = svd_refine(kp, vcp, self.inlier_ratio, weights)
+                if self.guard:
+                    s = self.score(kp, enc.tgt_xyz, ref.R, ref.t)
+                    scores.append(s)
+                    better = s < score_best
+                    R_best = torch.where(better[:, None, None], ref.R, R_best)
+                    t_best = torch.where(better[:, None], ref.t, t_best)
+                    score_best = torch.minimum(s, score_best)
+                else:
+                    R_best, t_best = ref.R, ref.t
+                    score_best = self.score(kp, enc.tgt_xyz, R_best, t_best)
+                    scores.append(score_best)
+            return RegistrationOutput(
+                R=R_best, t=t_best, keypoints=kp, vcps=vcp, inlier_idx=ref.inlier_idx,
+                saliency=enc.saliency, scores=torch.stack(scores, dim=-1))
 
     def _check_extent(self, src: torch.Tensor) -> None:
         """Extent monitor, as the JAX Registrar's: warn when the cloud's
@@ -143,21 +146,22 @@ class Registrar:
         once the event has completed (so a warning may come one call late);
         on the CPU it is judged at once. The first call also runs the JAX
         preflight's slab-occupancy audit (_audit_windows)."""
-        if not self._audited:
-            self._audited = True
-            self._audit_windows(src)
-        lo, hi = torch.aminmax(src[..., :3], dim=-2)
-        extent = torch.amax(hi - lo)
-        if extent.device.type == "cpu":
-            self._judge_extent(float(extent))
-            return
-        while self._pending_extents and self._pending_extents[0][0].query():
-            self._judge_extent(float(self._pending_extents.popleft()[1]))
-        host = torch.empty((), dtype=extent.dtype, pin_memory=True)
-        host.copy_(extent, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(extent.device))
-        self._pending_extents.append((done, host))
+        with annotate("deepvcp.extent"):
+            if not self._audited:
+                self._audited = True
+                self._audit_windows(src)
+            lo, hi = torch.aminmax(src[..., :3], dim=-2)
+            extent = torch.amax(hi - lo)
+            if extent.device.type == "cpu":
+                self._judge_extent(float(extent))
+                return
+            while self._pending_extents and self._pending_extents[0][0].query():
+                self._judge_extent(float(self._pending_extents.popleft()[1]))
+            host = torch.empty((), dtype=extent.dtype, pin_memory=True)
+            host.copy_(extent, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(extent.device))
+            self._pending_extents.append((done, host))
 
     def _audit_windows(self, src: torch.Tensor) -> None:
         """The JAX preflight's slab-occupancy audit, once: the windowed
@@ -233,7 +237,8 @@ def _stream(register, pairs: Iterable, depth: int) -> Iterator[RegistrationOutpu
 
     def drain():
         out = inflight.popleft()
-        out.R.cpu()
+        with annotate("deepvcp.drain"):
+            out.R.cpu()
         return out
 
     for pair in pairs:
