@@ -260,6 +260,19 @@ NCCL. It checks on the way:
                  22's bounds; f. graft_entry.dryrun_multichip over the ranks:
                  every rank the same loss. A rank that fails or outlasts its
                  timeout fails the run
+ 26. K6          (run after phase 7) the k <= 32 nearest-point kernel
+                 (ops/kernels/knn_select.py) on the benchmark's stream-b8
+                 pairs (benchmark/generate.py, seed K6_SEED) against
+                 square_distance's tile and its plain version: the flat
+                 stage's candidates at [8, 13 824] and [1, 13 824] queries
+                 and encode's 64 keypoints at [8, 64] and [1, 64], x 10 000
+                 points, k = 32: d2 at the chosen indices equal to the
+                 tile's and every row, in order, to the plain version's
+                 (torch.topk of the tile), at each shape (exact ties
+                 counted); one launch a call; median times of the kernel,
+                 the plain version and square_distance + torch.topk (per
+                 call and held) beside the kernel's bound; then 1 + 3
+                 launches a kitti25-rot registrar call at B = 8 and B = 1
  11. no jax      neither jax nor the JAX package deepvcp_tpu was imported
                  (checked last)
 
@@ -393,6 +406,10 @@ MULTI_STEPS = {2: ((2, 1, 2), (1, 2, 2)), 4: ((4, 1, 4), (1, 4, 2), (2, 2, 2))}
 MULTI_TIMEOUT_S = 600
 RING_REPS = 10
 NCCL_REFUSED = "an NCCL group takes one card a rank"   # initialize_multihost's refusal
+# phase 26, kernel K6: the benchmark's stream-b8 pairs of this seed
+# (benchmark/generate.py), read from the checkout around this script
+K6_SEED = 1234567891
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def fail(msg: str) -> None:
@@ -640,11 +657,12 @@ def train_phase(torch, dev, pairs) -> dict:
     """Phases 8-10: fine-tune kitti25-rot for TRAIN_STEPS steps through the
     Trainer, hold one step's kernel path against its plain path, and time
     the step; then the fine-tuning steps again, by default and twice under
-    deterministic algorithms (fine_tuning_repeats, printed). Returns the K1
-    and K2 launch counts of the 12 gated steps."""
+    deterministic algorithms (fine_tuning_repeats, printed). Returns the K1,
+    K2 and K6 launch counts of the 12 gated steps."""
     import numpy as np
 
     from deepvcp_tpu_torch.ops.kernels import band_max
+    from deepvcp_tpu_torch.ops.kernels.knn_select import knn_select
     from deepvcp_tpu_torch.train import build_train_step
     from deepvcp_tpu_torch.train.optim import learning_rate_schedule
 
@@ -657,12 +675,14 @@ def train_phase(torch, dev, pairs) -> dict:
     t0 = time.perf_counter()
     band_max.banded_masked_max.launches = 0
     band_max.banded_masked_max_grad.launches = 0
+    knn_select.launches = 0
     trainer.train_epoch(iter(batches[:1]), epoch=0)
     torch.cuda.synchronize()
     moved0 = [n for n, p in trainer.model.named_parameters() if not torch.equal(p, params0[n])]
     trainer.train_epoch(iter(batches[1:]), epoch=0)
     torch.cuda.synchronize()
     k1, k2 = band_max.banded_masked_max.launches, band_max.banded_masked_max_grad.launches
+    k6 = knn_select.launches
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**20
     steps = [r for r in records if r["kind"] == "train"]
@@ -679,7 +699,7 @@ def train_phase(torch, dev, pairs) -> dict:
           f"{TRAIN_STEPS} steps: {moved} of {len(params0)}")
     if moved0 or moved == 0:
         fail("step 0 changed the parameters, or the later steps changed none")
-    print(f"launches over the {TRAIN_STEPS} train steps: K1 {k1}, K2 {k2} "
+    print(f"launches over the {TRAIN_STEPS} train steps: K1 {k1}, K2 {k2}, K6 {k6} "
           f"({k1 / TRAIN_STEPS:g} and {k2 / TRAIN_STEPS:g} per step); {wall:.2f} s in all, "
           f"the first step's cold start included; peak device memory {peak:.1f} MiB")
     if k1 != LAUNCHES_PER_CALL * TRAIN_STEPS or k2 != LAUNCHES_PER_CALL * TRAIN_STEPS:
@@ -700,7 +720,7 @@ def train_phase(torch, dev, pairs) -> dict:
     # 10. timing (not gated)
     time_train_step(torch, trainer, step_fn, batches, dev, "train step", reps=10, plain_reps=3,
                     profile=True)
-    return {"k1": k1, "k2": k2}
+    return {"k1": k1, "k2": k2, "k6": k6}
 
 
 def held_accuracy(torch, dev, model, pairs) -> tuple:
@@ -1298,7 +1318,7 @@ def global_batches(torch, dev) -> dict:
 def global_phase(torch, dev) -> dict:
     """Phases 13-15: so3_global_init + modelnet-cascade on the two held sets
     of campaign_r5f W6, the kernel path against the plain path, and timing.
-    Returns the K1 and K3 launch counts of the gated run."""
+    Returns the K1, K3 and K6 launch counts of the gated run."""
     import numpy as np
 
     from deepvcp_tpu_torch import pretrained
@@ -1306,6 +1326,7 @@ def global_phase(torch, dev) -> dict:
     from deepvcp_tpu_torch.initializer import so3_global_init
     from deepvcp_tpu_torch.ops import farthest_point_sample
     from deepvcp_tpu_torch.ops.kernels import band_max, fps, reference_path
+    from deepvcp_tpu_torch.ops.kernels.knn_select import knn_select
 
     casc = pretrained.cascade("modelnet-cascade", device="cuda")   # the current card, dev
     batches = global_batches(torch, dev)
@@ -1315,6 +1336,7 @@ def global_phase(torch, dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     fps.farthest_point_sample.launches = 0
     band_max.banded_masked_max.launches = 0
+    knn_select.launches = 0
     runs = {name: [] for name in batches}
     for name, bs in batches.items():
         for src, tgt, _, _ in bs:
@@ -1322,6 +1344,7 @@ def global_phase(torch, dev) -> dict:
             runs[name].append((init, casc(src, tgt, init.R, init.t)))
     torch.cuda.synchronize()
     k3, k1 = fps.farthest_point_sample.launches, band_max.banded_masked_max.launches
+    k6 = knn_select.launches
     peak = torch.cuda.max_memory_allocated() / 2**20
     n_calls = sum(len(v) for v in runs.values())
     last = casc.stages[-1]
@@ -1426,7 +1449,7 @@ def global_phase(torch, dev) -> dict:
                   + "; ".join(f"{k} {v:.3f}" for k, v in top))
         else:
             print(f"device busy per {what} call: not measured (the profiler saw no device time)")
-    return {"k1": k1, "k3": k3}
+    return {"k1": k1, "k3": k3, "k6": k6}
 
 
 def pose_errors(torch, outs, pairs, refine_iters: int, what: str) -> tuple:
@@ -1520,6 +1543,146 @@ def flushed_median_ms(torch, fn, reps: int, flush, hold: bool = False) -> float:
         times.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in times)
+
+
+def k6_inputs(torch, dev, reg) -> tuple:
+    """Phase 26's inputs: the benchmark's first 8 pairs of the stream-b8
+    traffic (benchmark/generate.py, seed K6_SEED) on dev, and {name: (ref,
+    query)} for the flat candidate KNN (the 13 824 candidates a pair of the
+    identity warm start against the target cloud) and encode's source KNN
+    (the 64 keypoints against the source cloud), at B = 8 and at B = 1
+    (pair 0), encoded by `reg`."""
+    from benchmark.generate import make_pool
+
+    with open(os.path.join(ROOT, "benchmark", "traffic", "stream-b8.json")) as fh:
+        traffic = json.load(fh)
+    pool = make_pool(K6_SEED, traffic, N_POINTS)
+    B = int(traffic["batch"])
+    src = torch.from_numpy(pool.src[:B]).to(dev)
+    tgt = torch.from_numpy(pool.tgt[:B]).to(dev)
+    with torch.no_grad():
+        enc = reg.model.encode(src, tgt)
+        _, cand = reg.model.candidates(enc, torch.eye(3, device=dev).expand(B, 3, 3),
+                                       torch.zeros(B, 3, device=dev))
+    cases = {"flat": (enc.tgt_xyz, cand.reshape(B, -1, 3)), "encode": (src, enc.keypoints)}
+    return (src, tgt), {f"{name} B={b}": (ref[:b].contiguous(), query[:b].contiguous())
+                        for b in (B, 1) for name, (ref, query) in cases.items()}
+
+
+def k6_compare(torch, ref, query, k: int, got_d2, got_idx, chunk: int) -> dict:
+    """Kernel K6's result against square_distance's tile, `chunk` queries at
+    a time: elements whose d2 differs from the tile's at the same index
+    (the d2 bits), rows whose index lists differ, in order, from the plain
+    version's (torch.topk of the tile), and rows with an exact tie at the
+    k-th distance (the k-th and (k+1)-th tile values equal) or inside the
+    list (two of the first k + 1 equal)."""
+    from deepvcp_tpu_torch.ops.distance import square_distance
+
+    out = dict.fromkeys(("d2_bits", "rows_vs_plain", "kth_ties", "list_ties", "rows",
+                         "max_abs_err"), 0)
+    for s in range(0, query.shape[1], chunk):
+        q = query[:, s:s + chunk].contiguous()
+        d2, idx = got_d2[:, s:s + chunk], got_idx[:, s:s + chunk]
+        tile = square_distance(q, ref)
+        at = torch.gather(tile, -1, idx)
+        out["d2_bits"] += int((at != d2).sum())
+        out["max_abs_err"] = max(out["max_abs_err"], float((at - d2).abs().max()))
+        out["rows_vs_plain"] += int(
+            (torch.topk(tile, k, dim=-1, largest=False).indices != idx).any(-1).sum())
+        # the ties from k + 1 entries (torch.topk orders ties by its sort of
+        # the set, another sort past 32 entries: the rows above at k)
+        v = torch.topk(tile, k + 1, dim=-1, largest=False).values
+        out["kth_ties"] += int((v[..., k - 1] == v[..., k]).sum())
+        out["list_ties"] += int((v[..., 1:] == v[..., :-1]).any(-1).sum())
+        out["rows"] += q.shape[0] * q.shape[1]
+        del tile, v
+    return out
+
+
+def knn_select_phase(torch, dev, reg) -> dict:
+    """Phase 26: kernel K6 (ops/kernels/knn_select.py) on the benchmark's
+    pairs (k6_inputs: the flat stage at [8, 13 824] and [1, 13 824]
+    queries, encode's source KNN at [8, 64] and [1, 64], x 10 000 points,
+    k = 32) against square_distance's tile and its plain version: every d2
+    bit and every index row, in order, equal to the plain version's
+    (torch.topk of the tile), or the phase fails; the exact ties counted; one
+    launch a call. Median times of the kernel, of the plain version (under
+    reference_path, chunked as approx_knn chunks it) and of the library
+    yardstick (square_distance + torch.topk over the same chunks: the
+    port's f32 selection before K6), per call and behind a device hold,
+    beside the kernel's bound (tile_ops' 10 operations a pair; the inputs
+    read and the [B, M, k] result written once) and, for the flat stage,
+    benchmark/work.py::candidates_bound_ms (the whole stage, its gather
+    included). Then kitti25-rot's registrar on the 8 pairs and on pair 0:
+    one launch for encode's source KNN and one a refinement's flat stage.
+    Returns {case: numbers}."""
+    from benchmark.work import bound_ms, candidates_bound_ms, tile_ops
+    from deepvcp_tpu_torch.ops.distance import map_query_chunks, square_distance
+    from deepvcp_tpu_torch.ops.kernels import knn_select as k6
+    from deepvcp_tpu_torch.ops.kernels import reference_path
+    from deepvcp_tpu_torch.ops.knn import approx_knn
+
+    cfg = reg.model.cfg
+    if not cfg.use_approx_knn or cfg.knn_select_dtype_effective is not None:
+        fail("kitti25-rot's candidate KNN is not the flat f32 approx_knn")
+    k, chunk = cfg.num_neighbors, cfg.knn_query_chunk
+    with open(os.path.join(ROOT, "benchmark", "configs", "kitti25-rot.json")) as fh:
+        model = json.load(fh)["model"]
+    (src, tgt), cases = k6_inputs(torch, dev, reg)
+    results = {}
+    for name, (ref, query) in cases.items():
+        B, M, _ = query.shape
+        N = ref.shape[1]
+        before = k6.knn_select.launches
+        d2, idx = k6.knn_select(ref, query, k)
+        torch.cuda.synchronize()
+        if k6.knn_select.launches != before + 1:
+            fail(f"K6 {name}: {k6.knn_select.launches - before} launches, not 1")
+        cmp = k6_compare(torch, ref, query, k, d2, idx, chunk)
+        if cmp["d2_bits"] or cmp["rows_vs_plain"]:
+            fail(f"K6 {name}: {cmp['d2_bits']} d2 unlike the tile's, {cmp['rows_vs_plain']} rows "
+                 f"unlike the plain version's (torch.topk's), max |d2 error| "
+                 f"{cmp['max_abs_err']:.3e}")
+
+        def kernel():
+            return k6.knn_select(ref, query, k)
+
+        def plain():
+            with reference_path():
+                return approx_knn(ref, query, k, chunk=chunk)
+
+        def library():
+            return map_query_chunks(
+                lambda q: torch.topk(square_distance(q, ref), k, dim=-1, largest=False),
+                query, chunk)
+
+        times = {"ms": cuda_median_ms(torch, kernel, reps=20),
+                 "held_ms": cuda_median_ms(torch, kernel, reps=20, hold=True),
+                 "plain_ms": cuda_median_ms(torch, plain, reps=5, warmup=1),
+                 "library_ms": cuda_median_ms(torch, library, reps=5, warmup=1),
+                 "library_held_ms": cuda_median_ms(torch, library, reps=5, warmup=1, hold=True)}
+        bound = bound_ms(4 * (B * N * 4 + B * M * 4) + 12 * B * M * k, tile_ops(B * M, N))
+        stage = candidates_bound_ms(model, B) if name.startswith("flat") else None
+        print(f"K6 {name}: [{B}, {M}] x {N}, k = {k} | d2 unlike the tile's {cmp['d2_bits']} of {cmp['rows'] * k}; rows unlike "
+              f"the plain version's (torch.topk's) {cmp['rows_vs_plain']}; exact ties at the k-th {cmp['kth_ties']}, in the list "
+              f"{cmp['list_ties']}, of {cmp['rows']} rows | kernel {times['ms']:.4f} ms (held "
+              f"{times['held_ms']:.4f}), plain {times['plain_ms']:.3f}, library "
+              f"{times['library_ms']:.3f} (held {times['library_held_ms']:.3f}) | bound "
+              f"{bound[0]:.5f} ms ({bound[1]}), {100 * bound[0] / times['held_ms']:.2f}% of it"
+              + ("" if stage is None else f"; the stage's candidates_bound_ms {stage:.5f}"))
+        results[name] = {**cmp, **times, "bound": bound, "stage_bound_ms": stage}
+
+    for b in (src.shape[0], 1):
+        before = k6.knn_select.launches
+        with torch.no_grad():
+            reg(src[:b], tgt[:b])
+        torch.cuda.synchronize()
+        n = k6.knn_select.launches - before
+        print(f"K6 launches in a kitti25-rot call at B = {b}: {n} (encode's source KNN and "
+              f"{reg.refine_iters} flat stages)")
+        if n != 1 + reg.refine_iters:
+            fail(f"K6: {n} launches in a B = {b} call, not {1 + reg.refine_iters}")
+    return results
 
 
 def onehot_phase(torch, dev, reg, pair) -> tuple:
@@ -1694,12 +1857,13 @@ def two_level_phase(torch, dev, pairs) -> dict:
     campaign_r5b W3 (kitti25, tgt_knn="two_level", T=512) on phase 4's 16
     pairs, with flat kitti25 and T=1024 beside it, and the recall at W2's
     operating point; kernel path against plain path; timing. Returns the
-    K1 and K4 launch counts of the gated run and K4's and K5's numbers."""
+    K1, K4 and K6 launch counts of the gated run and K4's and K5's numbers."""
     import dataclasses
 
     from deepvcp_tpu_torch import pretrained
     from deepvcp_tpu_torch.ops.kernels import band_max
     from deepvcp_tpu_torch.ops.kernels import onehot_gather as og
+    from deepvcp_tpu_torch.ops.kernels.knn_select import knn_select
     from deepvcp_tpu_torch.registration import Registrar
 
     flat = pretrained.registrar("kitti25", device=dev)
@@ -1722,9 +1886,11 @@ def two_level_phase(torch, dev, pairs) -> dict:
     torch.cuda.synchronize()
     og.onehot_gather.launches = 0
     band_max.banded_masked_max.launches = 0
+    knn_select.launches = 0
     outs = [reg(src, tgt) for src, tgt, _, _ in pairs]
     torch.cuda.synchronize()
     k4_runs, k1_runs = og.onehot_gather.launches, band_max.banded_masked_max.launches
+    k6_runs = knn_select.launches
     rre, rte = pose_errors(torch, outs, pairs, reg.refine_iters, "two-level kitti25")
     for i in range(len(pairs)):
         print(f"two-level pair {i:2d}: RRE {rre[i]:.4f} deg, RTE {rte[i]:.5f} m")
@@ -1741,7 +1907,7 @@ def two_level_phase(torch, dev, pairs) -> dict:
     if not (mean_rre <= RRE_LIMIT_DEG and mean_rte <= RTE_LIMIT_M):
         fail(f"two-level accuracy: mean RRE {mean_rre} > {RRE_LIMIT_DEG} or RTE {mean_rte} > "
              f"{RTE_LIMIT_M}")
-    print(f"launches in the two-level run: K4 {k4_runs}, K1 {k1_runs} over {len(pairs)} "
+    print(f"launches in the two-level run: K4 {k4_runs}, K1 {k1_runs}, K6 {k6_runs} over {len(pairs)} "
           f"Registrar calls ({k4_runs / len(pairs):g} and {k1_runs / len(pairs):g} per call)")
     if k4_runs != K4_PER_CALL * len(pairs) or k1_runs != LAUNCHES_PER_CALL * len(pairs):
         fail(f"expected {K4_PER_CALL} K4 and {LAUNCHES_PER_CALL} K1 launches per call")
@@ -1763,7 +1929,7 @@ def two_level_phase(torch, dev, pairs) -> dict:
     splits = [stage_split(torch, flat, src, tgt) for _ in range(4)][1:]
     print("flat kitti25 stage split (device ms, median of 3 replays): " + ", ".join(
         f"{k} {statistics.median(s[k] for s in splits):.3f}" for k in splits[0]))
-    return {"k1": k1_runs, "k4": k4_runs, "K4": k4, "K5": k5}
+    return {"k1": k1_runs, "k4": k4_runs, "k6": k6_runs, "K4": k4, "K5": k5}
 
 
 def two_level_training(torch, dev) -> dict:
@@ -1850,17 +2016,17 @@ def write_kitti_sequence(root: str, scans, R_rel, t_rel) -> None:
                np.concatenate([R, t[:, :, None]], axis=-1).reshape(len(R), 12))
 
 
-def check_k1(what: str, counts: dict, stage_calls: int) -> int:
+def check_k1(what: str, counts: dict, stage_calls: int) -> dict:
     """Gate a run's K1 launches (counts from counted_all) at
     LAUNCHES_PER_CALL a stage call (one FE pass on each cloud); returns
-    the count."""
+    the counts."""
     launches = counts["k1"]
     print(f"K1 launches in {what}: {launches} over {stage_calls} stage calls "
           f"({launches / stage_calls:g} per stage call)")
     if launches != LAUNCHES_PER_CALL * stage_calls:
         fail(f"{what}: expected {LAUNCHES_PER_CALL} K1 launches per stage call, got "
              f"{launches / stage_calls:g}")
-    return launches
+    return counts
 
 
 def odometry_errors(R_est, t_est, R_true, t_true, what: str) -> tuple:
@@ -1926,7 +2092,7 @@ def odometry_phase(torch, dev, reg, pairs, card: str) -> dict:
     from deepvcp_tpu_torch.ops.kernels import reference_path
     from deepvcp_tpu_torch.train import Trainer
 
-    k1 = 0
+    total = {}
     scans_true, R_true, t_true = odometry_sequence()
     F = ODO_FRAMES
     with tempfile.TemporaryDirectory() as tmp:
@@ -1943,11 +2109,11 @@ def odometry_phase(torch, dev, reg, pairs, card: str) -> dict:
         # O1: kitti-cascade, warm-started frame to frame
         casc = pretrained.cascade("kitti-cascade", device=dev, num_points=N_POINTS)
         R1, t1, extra, c, c_skip = o1_edges(torch, dev, casc, scans)
-        k1 += check_k1("O1's sequence", c, len(casc.stages) * (F - 1))
+        add_counts(total, check_k1("O1's sequence", c, len(casc.stages) * (F - 1)))
         o1 = odometry_errors(R1, t1, R_true, t_true, "O1 kitti-cascade")
         R_ch, t_ch = chain_poses(torch.from_numpy(R1), torch.from_numpy(t1))
         ate1 = float(absolute_trajectory_error(t_ch, t_gt_t))
-        k1 += check_k1("O1's skip edges", c_skip, len(casc.stages) * (F - 2))
+        add_counts(total, check_k1("O1's skip edges", c_skip, len(casc.stages) * (F - 2)))
         graph_cpu = build_graph(torch.from_numpy(R1), torch.from_numpy(t1), extra_edges=extra)
         graph_dev = graph_cpu._replace(**{k: v.to(dev) for k, v in graph_cpu._asdict().items()})
         R_opt, t_opt = optimize_pose_graph(graph_dev, R_ch.to(dev), t_ch.to(dev),
@@ -1969,7 +2135,7 @@ def odometry_phase(torch, dev, reg, pairs, card: str) -> dict:
         rot = pretrained.registrar("kitti25-rot", device=dev, num_points=N_POINTS,
                                   refine_iters=2)
         (R2, t2), c = counted_all(torch, lambda: register_sequence(rot, scans, warm_start=True))
-        k1 += check_k1("O2's sequence", c, F - 1)
+        add_counts(total, check_k1("O2's sequence", c, F - 1))
         o2 = odometry_errors(R2, t2, R_true, t_true, "O2 kitti25-rot")
         ate2 = float(absolute_trajectory_error(
             chain_poses(torch.from_numpy(R2), torch.from_numpy(t2))[1], t_gt_t))
@@ -1984,7 +2150,7 @@ def odometry_phase(torch, dev, reg, pairs, card: str) -> dict:
         # run_odometry through the kernels against the plain path, 4 frames
         short = scans[:4]
         got, c = counted_all(torch, lambda: run_odometry(rot, short, gt_poses=(R_gt, t_gt)))
-        k1 += check_k1("run_odometry on 4 frames", c, 3)
+        add_counts(total, check_k1("run_odometry on 4 frames", c, 3))
         with reference_path():
             want = run_odometry(rot, short, gt_poses=(R_gt, t_gt))
         d_rel = max(np.abs(got[k] - want[k]).max() for k in ("R_rel", "t_rel"))
@@ -2006,7 +2172,7 @@ def odometry_phase(torch, dev, reg, pairs, card: str) -> dict:
             _, c = counted_all(torch, lambda: odometry_cli([
                 "--device", dev.type, "--root", root, "--sequence", "00", "--checkpoint", ckpt,
                 "--num-points", str(N_POINTS), "--out", os.path.join(tmp, "trajectory.npz")]))
-        k1 += check_k1("the odometry CLI", c, F - 1)
+        add_counts(total, check_k1("the odometry CLI", c, F - 1))
         line = [l for l in out.getvalue().splitlines() if l.startswith("{")][-1]
         print(f"odometry CLI: {line}")
         metrics = json.loads(line)
@@ -2019,9 +2185,9 @@ def odometry_phase(torch, dev, reg, pairs, card: str) -> dict:
     # stream against per-call on phase 4's pairs
     held = [(src, tgt) for src, tgt, _, _ in pairs]
     per_call, c = counted_all(torch, lambda: [reg(*p) for p in held])
-    k1 += check_k1("the per-call run", c, len(held))
+    add_counts(total, check_k1("the per-call run", c, len(held)))
     streamed, c = counted_all(torch, lambda: list(reg.stream(iter(held), depth=4)))
-    k1 += check_k1("the stream run", c, len(held))
+    add_counts(total, check_k1("the stream run", c, len(held)))
     for i, (a, b) in enumerate(zip(per_call, streamed)):
         if not all(torch.equal(getattr(a, f), getattr(b, f)) for f in a._fields):
             fail(f"stream's output {i} differs from the per-call output")
@@ -2043,7 +2209,7 @@ def odometry_phase(torch, dev, reg, pairs, card: str) -> dict:
                for name, ds in sets.items()}
     routed_out, c = counted_all(torch, lambda: {
         name: [routed(src, tgt) for src, tgt, _, _ in bs] for name, bs in batches.items()})
-    k1 += check_k1("the routed run", c, ROUTE_BATCHES * len(sets))
+    add_counts(total, check_k1("the routed run", c, ROUTE_BATCHES * len(sets)))
     g3 = {"uniform_small": (0.80, 0.026), "lidar_small": (2.12, 0.041)}
     worst = 0.0
     for name, bs in batches.items():
@@ -2105,17 +2271,17 @@ def odometry_phase(torch, dev, reg, pairs, card: str) -> dict:
     print(f"  routed registrar, B={ROUTE_B}: vote + weight selection {sel_ms:.4f} ms per call "
           f"({sel_held:.4f} behind a device hold); routed call {r_ms:.3f} ms against its "
           f"expert's {e_ms:.3f} ms (medians of synced calls, 4 turns of 5)")
-    return {"k1": k1, "graph": (graph_cpu, R_ch, t_ch)}
+    return {"k1": total["k1"], "k6": total["k6"], "graph": (graph_cpu, R_ch, t_ch)}
 
 
 def kernel_counters() -> dict:
     """Each kernel's wrapper, whose `launches` attribute counts its launches."""
-    from deepvcp_tpu_torch.ops.kernels import band_max, fps
+    from deepvcp_tpu_torch.ops.kernels import band_max, fps, knn_select
     from deepvcp_tpu_torch.ops.kernels import onehot_gather as og
 
     return {"k1": band_max.banded_masked_max, "k2": band_max.banded_masked_max_grad,
             "k3": fps.farthest_point_sample, "k4": og.onehot_gather,
-            "k5": og.onehot_scatter_add}
+            "k5": og.onehot_scatter_add, "k6": knn_select.knn_select}
 
 
 def counted_all(torch, fn):
@@ -3169,7 +3335,7 @@ def two_ranks_on_card(torch, ref: dict, lr: float, graph, solved: dict, refs: di
           f"(two processes share one card: their step times say nothing of two cards)")
     return {k: sum(got["counts"][k] + got["partitioned"]["counts"][k]
                    + sum(s["counts"][k] for s in got["splits"].values()) for got in ranks)
-            for k in ("k1", "k2")}
+            for k in ("k1", "k2", "k6")}
 
 
 def tooling_on_card(torch, dev, reg, pair) -> dict:
@@ -3272,7 +3438,7 @@ def multi_device_phase(torch, dev, reg, pairs, odo) -> dict:
         dist.destroy_process_group()
     two = two_ranks_on_card(torch, ref, lr, graph, solved, engine_refs(torch, dev))
     print(f"phase 22: {time.perf_counter() - t0:.1f} s")
-    return {k: step[k] + tools[k] + two[k] for k in ("k1", "k2")}
+    return {k: step[k] + tools[k] + two[k] for k in ("k1", "k2", "k6")}
 
 
 def k3_vs_native(torch, dev) -> None:
@@ -4040,8 +4206,8 @@ def steps_agree(torch, world: int, ranks: list, refs: dict, card: str) -> dict:
     single-card step at its global B (dp_step_agrees: DP_BOUNDS, 6 K1 + 6
     K2), the point split's gate passed where the point group has P > 1,
     every rank equal; prints the scaling (the single card's time over the
-    slowest rank's, and over P times it). Returns the ranks' K1 / K2."""
-    total = {"k1": 0, "k2": 0}
+    slowest rank's, and over P times it). Returns the ranks' K1 / K2 / K6."""
+    total = {"k1": 0, "k2": 0, "k6": 0}
     for data, point, B in MULTI_STEPS[world]:
         got = [r["steps"][(data, point, B)] for r in ranks]
         ref, what = refs[B], f"{data} x {point} mesh over {world} cards (NCCL), B={B}"
@@ -4110,7 +4276,7 @@ def multicard_phase(torch, dev, reg, pairs, graph, card: str) -> dict:
     t0 = time.perf_counter()
     one_card_checks()
     cards = torch.cuda.device_count()
-    total = {"k1": 0, "k2": 0}
+    total = {"k1": 0, "k2": 0, "k6": 0}
     if cards < 2:
         print(f"phase 25: 1 card visible: the one-card checks only; "
               f"{time.perf_counter() - t0:.1f} s")
@@ -4150,7 +4316,8 @@ def multicard_phase(torch, dev, reg, pairs, graph, card: str) -> dict:
         ring_agrees(torch, [r["ring"] for r in ranks], ring, card)
         if big:
             ring_forward_agrees(torch, reg, pairs, ranks, card)
-            total["k1"] += sum(r["forward"]["counts"]["k1"] for r in ranks)
+            for k in ("k1", "k6"):
+                total[k] += sum(r["forward"]["counts"][k] for r in ranks)
             for r, got in enumerate(ranks):
                 solves_agree(torch, got["solves"], solved,
                              f"rank {r}'s sharded solves over {world} cards (NCCL)")
@@ -4253,6 +4420,7 @@ def main() -> None:
     from deepvcp_tpu_torch.data import rotation_geodesic_deg, translation_error
     from deepvcp_tpu_torch.ops.kernels import _build
     from deepvcp_tpu_torch.ops.kernels.band_max import banded_masked_max
+    from deepvcp_tpu_torch.ops.kernels.knn_select import knn_select
 
     card = card_line()
     print(f"card: {card}")
@@ -4276,9 +4444,10 @@ def main() -> None:
     pairs = held_pairs(torch, dev)
     torch.cuda.synchronize()
     banded_masked_max.launches = 0
+    knn_select.launches = 0
     outs = [reg(src, tgt) for src, tgt, _, _ in pairs]
     torch.cuda.synchronize()
-    launches = banded_masked_max.launches
+    launches, k6_launches = banded_masked_max.launches, knn_select.launches
     rre, rte = pose_errors(torch, outs, pairs, reg.refine_iters, "kitti25-rot")
     eye = torch.eye(3, device=dev)[None]
     rre0 = [rotation_geodesic_deg(eye, R_gt).item() for _, _, R_gt, _ in pairs]
@@ -4302,11 +4471,20 @@ def main() -> None:
           f"({launches / N_PAIRS:g} per call)")
     if launches != LAUNCHES_PER_CALL * N_PAIRS:
         fail(f"expected {LAUNCHES_PER_CALL} K1 launches per call, got {launches / N_PAIRS:g}")
+    print(f"K6 launches in the main-path run: {k6_launches} ({k6_launches / N_PAIRS:g} per "
+          f"call: encode's source KNN and {reg.refine_iters} flat stages)")
+    if k6_launches != (1 + reg.refine_iters) * N_PAIRS:
+        fail(f"expected {1 + reg.refine_iters} K6 launches per call, got "
+             f"{k6_launches / N_PAIRS:g}")
 
     # 7. timing (not gated)
     exact = {"rre": mean_rre, "rte": mean_rte, "latency": registrar_timing(
         torch, reg, src, tgt, "kitti25-rot", reps=20, plain_reps=10)}
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+
+    # 26. K6 against its plain version on the benchmark's pairs, and its
+    # launches on the registrar's path
+    k6 = knn_select_phase(torch, dev, reg)["flat B=8"]
 
     # 8-10. the training path
     train = train_phase(torch, dev, pairs)
@@ -4350,10 +4528,12 @@ def main() -> None:
     # ms / plain_ms / bound_ms: K1 and K2 sums at the 3 SA shapes (one FE
     # pass, or one FE backward), K3 sums at the 2 shapes of one init call,
     # K4 and K5 at the two-level path's shapes (library_ms: torch.gather,
-    # torch.scatter_add); launches: the main-path runs' (serving, training,
-    # global, two-level serving and training, odometry, the engines,
-    # multi-device, the examples, the trained checkpoint and convergence,
-    # the bench, the ranks of several cards)
+    # torch.scatter_add), K6 at the flat stage's [8, 13 824] x 10 000
+    # (library_ms: square_distance + torch.topk); launches: the main-path
+    # runs' (serving, training, global, two-level serving and training,
+    # odometry, the engines, multi-device, the examples, the trained
+    # checkpoint and convergence, the bench, the ranks of several cards;
+    # phase 26's own calls left out)
     finish(torch, started, card, band_entries(
         band,
         launches + train["k1"] + glob["k1"] + two["k1"] + two_train["k1"] + odo["k1"]
@@ -4381,7 +4561,18 @@ def main() -> None:
                                         "library_ms")},
     } for name, k, line, launches_ in (
         ("onehot_gather", "K4", 74, two["k4"] + two_train["k4"] + eng["k4"]),
-        ("onehot_scatter_add", "K5", 156, two_train["k5"] + eng["k5"]))])
+        ("onehot_scatter_add", "K5", 156, two_train["k5"] + eng["k5"]))] + [{
+        "name": "knn_select",
+        "route": "cuda",
+        "source": "deepvcp_tpu_torch/csrc/knn_select.cu",
+        "replaces": None,   # XLA's approx_min_k (deepvcp_tpu/ops/knn.py:117), no Pallas kernel
+        "launches": k6_launches + train["k6"] + glob["k6"] + two["k6"] + two_train["k6"]
+        + odo["k6"] + eng.get("k6", 0) + multi["k6"] + ora.get("k6", 0) + bnch.get("k6", 0)
+        + mc["k6"],
+        **{key: k6[key] for key in ("max_abs_err", "ms", "plain_ms", "library_ms")},
+        "bound_ms": k6["bound"][0],
+        "bound_by": k6["bound"][1],
+    }])
 
 
 if __name__ == "__main__":

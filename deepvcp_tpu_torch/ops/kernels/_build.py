@@ -117,6 +117,8 @@ def library() -> ctypes.CDLL:
             lib.onehot_gather_f32.restype = i
             lib.onehot_scatter_add_f32.argtypes = [p, p, p, i, i, i, i, p]
             lib.onehot_scatter_add_f32.restype = i
+            lib.knn_select_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+            lib.knn_select_f32.restype = i
             lib.band_max_error_string.argtypes = [i]
             lib.band_max_error_string.restype = ctypes.c_char_p
             _lib = lib

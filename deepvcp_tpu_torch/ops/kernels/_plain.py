@@ -21,7 +21,8 @@ def active() -> bool:
 def reference_path():
     """Within this block every kernel wrapper (K1 banded_masked_max, K2
     banded_masked_max_grad, K3 farthest_point_sample, K4 onehot_gather, K5
-    onehot_scatter_add) runs its plain PyTorch version on CUDA tensors too."""
+    onehot_scatter_add, K6 knn_select) runs its plain PyTorch version on CUDA
+    tensors too."""
     global _active
     prev = _active
     _active = True

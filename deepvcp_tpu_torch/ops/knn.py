@@ -1,9 +1,12 @@
 """Brute-force K-nearest neighbours (port of deepvcp_tpu/ops/knn.py).
 
-On the TPU, `approx_knn` selects with `jax.lax.approx_min_k`; on the card
-both functions select EXACTLY (a chunked distance tile and
-`torch.topk(largest=False)`), which is also what the JAX package does on the
-CPU. `approx_knn` keeps its reduced-precision selection semantics.
+On the TPU, `approx_knn` selects with `jax.lax.approx_min_k`; here both
+functions select EXACTLY, which is also what the JAX package does on the
+CPU: `knn` on a chunked distance tile with `torch.topk(largest=False)`,
+`approx_knn` on the card in f32 with k <= 32 through kernel K6
+(ops/kernels/knn_select.py: no tile, torch.topk's result), otherwise as
+`knn`. `approx_knn` keeps its reduced-precision selection
+semantics.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from typing import Optional, Tuple
 import torch
 
 from deepvcp_tpu_torch.ops.distance import map_query_chunks, square_distance
+from deepvcp_tpu_torch.ops.kernels import knn_select as k6
 
 
 def knn(ref: torch.Tensor, query: torch.Tensor, k: int,
@@ -38,8 +42,15 @@ def approx_knn(ref: torch.Tensor, query: torch.Tensor, k: int,
     the product accumulated in f32 (a bf16 x bf16 product is exact in f32,
     so upcasting before the matmul is "bf16 in, f32 accumulate"), and d^2
     cast down for the selection. Returned distances are then in that
-    reduced precision."""
+    reduced precision. On the card, in f32 with k <= 32, the selection is
+    kernel K6's (knn_select: torch.topk's list of the tile), one launch for
+    all queries (it keeps no tile, so `chunk` does not apply)."""
     sel = getattr(torch, select_dtype) if select_dtype else None
+    if (sel is None and k <= k6.MAX_K and k6.uses_kernel(query)
+            and ref.dtype == query.dtype == torch.float32
+            and ref.dim() == query.dim() == 3 and ref.shape[0] == query.shape[0]):
+        d2, idx = k6.knn_select(ref.contiguous(), query.contiguous(), k)
+        return torch.sqrt(d2), idx
     if sel is not None:
         center = ref.mean(dim=-2, keepdim=True)
         ref = ref - center
