@@ -17,6 +17,7 @@ import torch
 
 from deepvcp_tpu_torch.ops.distance import map_query_chunks, square_distance
 from deepvcp_tpu_torch.ops.kernels import knn_select as k6
+from deepvcp_tpu_torch.utils.profiling import annotate
 
 
 def knn(ref: torch.Tensor, query: torch.Tensor, k: int,
@@ -44,7 +45,9 @@ def approx_knn(ref: torch.Tensor, query: torch.Tensor, k: int,
     cast down for the selection. Returned distances are then in that
     reduced precision. On the card, in f32 with k <= 32, the selection is
     kernel K6's (knn_select: torch.topk's list of the tile), one launch for
-    all queries (it keeps no tile, so `chunk` does not apply)."""
+    all queries (it keeps no tile, so `chunk` does not apply). Otherwise
+    each chunk's tile and top-k run inside a `deepvcp.select_tile`
+    profiler range."""
     sel = getattr(torch, select_dtype) if select_dtype else None
     if (sel is None and k <= k6.MAX_K and k6.uses_kernel(query)
             and ref.dtype == query.dtype == torch.float32
@@ -58,13 +61,14 @@ def approx_knn(ref: torch.Tensor, query: torch.Tensor, k: int,
     r2 = torch.sum(ref * ref, dim=-1)
 
     def run(q):
-        if sel is not None:
-            s2 = torch.sum(q * q, dim=-1)
-            cross = q.to(sel).float() @ ref.to(sel).float().transpose(-1, -2)
-            sqr = (s2[..., :, None] + r2[..., None, :] - 2.0 * cross).to(sel)
-        else:
-            sqr = square_distance(q, ref)
-        d2, idx = torch.topk(sqr, k, dim=-1, largest=False)
+        with annotate("deepvcp.select_tile"):
+            if sel is not None:
+                s2 = torch.sum(q * q, dim=-1)
+                cross = q.to(sel).float() @ ref.to(sel).float().transpose(-1, -2)
+                sqr = (s2[..., :, None] + r2[..., None, :] - 2.0 * cross).to(sel)
+            else:
+                sqr = square_distance(q, ref)
+            d2, idx = torch.topk(sqr, k, dim=-1, largest=False)
         return torch.sqrt(torch.clamp_min(d2, 0.0).float()), idx
 
     if chunk is None:

@@ -76,7 +76,9 @@ def test_call_records_each_span_inside_its_register(cfg, state, pairs, guard):
         "deepvcp.register": 1, "deepvcp.extent": 1, "deepvcp.encode": 1,
         "deepvcp.features": 2, "deepvcp.correspond": REFINE,
         "deepvcp.candidate_neighbors": REFINE, "deepvcp.match": REFINE,
-        "deepvcp.solve": REFINE, "deepvcp.score": REFINE + 1}
+        "deepvcp.solve": REFINE, "deepvcp.score": REFINE + 1,
+        # the bf16 tile of encode's source k-NN and of each refinement's candidates
+        "deepvcp.select_tile": REFINE + 1}
     register = next(s for s in spans if s[2] == "deepvcp.register")
     assert all(_inside(s, register) for s in spans)
     for inner, outer in (("features", "encode"), ("candidate_neighbors", "correspond"),
@@ -84,6 +86,9 @@ def test_call_records_each_span_inside_its_register(cfg, state, pairs, guard):
         outers = [s for s in spans if s[2] == f"deepvcp.{outer}"]
         assert all(any(_inside(s, o) for o in outers)
                    for s in spans if s[2] == f"deepvcp.{inner}")
+    outers = [s for s in spans if s[2] in ("deepvcp.encode", "deepvcp.candidate_neighbors")]
+    assert all(any(_inside(s, o) for o in outers)
+               for s in spans if s[2] == "deepvcp.select_tile")
 
 
 def test_stream_drains_outside_every_register(cfg, state, pairs):
