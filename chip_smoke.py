@@ -217,7 +217,8 @@ NCCL. It checks on the way:
  24. bench       the port's headline bench, deepvcp_tpu_torch.bench.run, at
                  N = 10 000 and B = 1, 2, 4, 8 (default config, random init
                  from a seed, SyntheticDataset pairs of extent 10): 6 K1
-                 launches a call and no other kernel; finite outputs of the
+                 and 1 + refine_iters K6 bf16 launches a call and no other
+                 kernel; finite outputs of the
                  batch's shapes; each pair of a B-pair call against its own
                  B = 1 call (the same keypoints; candidate selection rows
                  that differ must be near-ties of the k-th distance, counted
@@ -273,6 +274,19 @@ NCCL. It checks on the way:
                  the plain version and square_distance + torch.topk (per
                  call and held) beside the kernel's bound; then 1 + 3
                  launches a kitti25-rot registrar call at B = 8 and B = 1
+ 27. K6 bf16     (run after phase 26) K6's bf16 arm (knn_select_bf16) on
+                 lidar-fine's bf16 selection tile: the benchmark's
+                 stream-b8-1m pairs (seed K6_SEED), the flat stage's
+                 candidates at [8, 21 952] and [1, 21 952] queries and
+                 encode's 64 keypoints at [8, 64] and [1, 64], and a
+                 lattice cloud of many equal distances, x 10 000 points,
+                 k = 32, against torch.topk of the bf16 tile chunked as
+                 approx_knn chunks it: every bf16 d2 bit and every index
+                 row, in order, equal, or the phase fails; the rows with a
+                 tie at the k-th key and inside the list counted; one launch
+                 a call; the kernel and the plain tile timed in turns beside
+                 the kernel's bound; then 1 + 3 launches of the bf16 arm
+                 (and none of the f32 arm) a lidar-fine registrar call
  11. no jax      neither jax nor the JAX package deepvcp_tpu was imported
                  (checked last)
 
@@ -409,6 +423,10 @@ NCCL_REFUSED = "an NCCL group takes one card a rank"   # initialize_multihost's 
 # phase 26, kernel K6: the benchmark's stream-b8 pairs of this seed
 # (benchmark/generate.py), read from the checkout around this script
 K6_SEED = 1234567891
+# phase 27, K6's bf16 arm: the benchmark's stream-b8-1m pairs of the same
+# seed, and a lattice of this step (m) over the 1 m clouds' box
+K6_BF16_TRAFFIC = "stream-b8-1m"
+LATTICE_STEP = 0.05
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -662,7 +680,7 @@ def train_phase(torch, dev, pairs) -> dict:
     import numpy as np
 
     from deepvcp_tpu_torch.ops.kernels import band_max
-    from deepvcp_tpu_torch.ops.kernels.knn_select import knn_select
+    from deepvcp_tpu_torch.ops.kernels.knn_select import knn_select, knn_select_bf16
     from deepvcp_tpu_torch.train import build_train_step
     from deepvcp_tpu_torch.train.optim import learning_rate_schedule
 
@@ -675,14 +693,14 @@ def train_phase(torch, dev, pairs) -> dict:
     t0 = time.perf_counter()
     band_max.banded_masked_max.launches = 0
     band_max.banded_masked_max_grad.launches = 0
-    knn_select.launches = 0
+    knn_select.launches = knn_select_bf16.launches = 0
     trainer.train_epoch(iter(batches[:1]), epoch=0)
     torch.cuda.synchronize()
     moved0 = [n for n, p in trainer.model.named_parameters() if not torch.equal(p, params0[n])]
     trainer.train_epoch(iter(batches[1:]), epoch=0)
     torch.cuda.synchronize()
     k1, k2 = band_max.banded_masked_max.launches, band_max.banded_masked_max_grad.launches
-    k6 = knn_select.launches
+    k6, k6b = knn_select.launches, knn_select_bf16.launches
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**20
     steps = [r for r in records if r["kind"] == "train"]
@@ -720,7 +738,7 @@ def train_phase(torch, dev, pairs) -> dict:
     # 10. timing (not gated)
     time_train_step(torch, trainer, step_fn, batches, dev, "train step", reps=10, plain_reps=3,
                     profile=True)
-    return {"k1": k1, "k2": k2, "k6": k6}
+    return {"k1": k1, "k2": k2, "k6": k6, "k6b": k6b}
 
 
 def held_accuracy(torch, dev, model, pairs) -> tuple:
@@ -1326,7 +1344,7 @@ def global_phase(torch, dev) -> dict:
     from deepvcp_tpu_torch.initializer import so3_global_init
     from deepvcp_tpu_torch.ops import farthest_point_sample
     from deepvcp_tpu_torch.ops.kernels import band_max, fps, reference_path
-    from deepvcp_tpu_torch.ops.kernels.knn_select import knn_select
+    from deepvcp_tpu_torch.ops.kernels.knn_select import knn_select, knn_select_bf16
 
     casc = pretrained.cascade("modelnet-cascade", device="cuda")   # the current card, dev
     batches = global_batches(torch, dev)
@@ -1336,7 +1354,7 @@ def global_phase(torch, dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     fps.farthest_point_sample.launches = 0
     band_max.banded_masked_max.launches = 0
-    knn_select.launches = 0
+    knn_select.launches = knn_select_bf16.launches = 0
     runs = {name: [] for name in batches}
     for name, bs in batches.items():
         for src, tgt, _, _ in bs:
@@ -1344,7 +1362,7 @@ def global_phase(torch, dev) -> dict:
             runs[name].append((init, casc(src, tgt, init.R, init.t)))
     torch.cuda.synchronize()
     k3, k1 = fps.farthest_point_sample.launches, band_max.banded_masked_max.launches
-    k6 = knn_select.launches
+    k6, k6b = knn_select.launches, knn_select_bf16.launches
     peak = torch.cuda.max_memory_allocated() / 2**20
     n_calls = sum(len(v) for v in runs.values())
     last = casc.stages[-1]
@@ -1449,7 +1467,7 @@ def global_phase(torch, dev) -> dict:
                   + "; ".join(f"{k} {v:.3f}" for k, v in top))
         else:
             print(f"device busy per {what} call: not measured (the profiler saw no device time)")
-    return {"k1": k1, "k3": k3, "k6": k6}
+    return {"k1": k1, "k3": k3, "k6": k6, "k6b": k6b}
 
 
 def pose_errors(torch, outs, pairs, refine_iters: int, what: str) -> tuple:
@@ -1545,16 +1563,17 @@ def flushed_median_ms(torch, fn, reps: int, flush, hold: bool = False) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in times)
 
 
-def k6_inputs(torch, dev, reg) -> tuple:
-    """Phase 26's inputs: the benchmark's first 8 pairs of the stream-b8
-    traffic (benchmark/generate.py, seed K6_SEED) on dev, and {name: (ref,
-    query)} for the flat candidate KNN (the 13 824 candidates a pair of the
-    identity warm start against the target cloud) and encode's source KNN
+def k6_inputs(torch, dev, reg, traffic_name: str = "stream-b8") -> tuple:
+    """Phase 26's and 27's inputs: the benchmark's first 8 pairs of the
+    traffic `traffic_name` (benchmark/generate.py, seed K6_SEED) on dev, and
+    {name: (ref, query)} for the flat candidate KNN (the candidates of the
+    identity warm start against the target cloud: 13 824 a pair for
+    kitti25-rot, 21 952 for lidar-fine) and encode's source KNN
     (the 64 keypoints against the source cloud), at B = 8 and at B = 1
     (pair 0), encoded by `reg`."""
     from benchmark.generate import make_pool
 
-    with open(os.path.join(ROOT, "benchmark", "traffic", "stream-b8.json")) as fh:
+    with open(os.path.join(ROOT, "benchmark", "traffic", f"{traffic_name}.json")) as fh:
         traffic = json.load(fh)
     pool = make_pool(K6_SEED, traffic, N_POINTS)
     B = int(traffic["batch"])
@@ -1682,6 +1701,125 @@ def knn_select_phase(torch, dev, reg) -> dict:
               f"{reg.refine_iters} flat stages)")
         if n != 1 + reg.refine_iters:
             fail(f"K6: {n} launches in a B = {b} call, not {1 + reg.refine_iters}")
+    return results
+
+
+def bf16_keys(torch, d2):
+    """torch.topk's radix key of each bf16 value (int32, 0..65535): the
+    bits inverted where negative, the sign bit set where not (-0 below +0)."""
+    bits = d2.view(torch.int16).to(torch.int32) & 0xFFFF
+    return torch.where(bits >= 0x8000, bits ^ 0xFFFF, bits | 0x8000)
+
+
+def k6_bf16_compare(torch, ref, query, k: int, got_d2, got_idx, chunk: int) -> dict:
+    """K6's bf16 arm against torch.topk of the bf16 tile
+    (knn_select_bf16_reference), `chunk` queries at a time: elements whose
+    d2 bits differ, rows whose index lists differ, in order, and rows with a
+    tie at the k-th key (the k-th and (k+1)-th keys equal) or inside the list
+    (two of the first k + 1 keys equal)."""
+    from deepvcp_tpu_torch.ops.kernels.knn_select import knn_select_bf16_reference
+
+    out = dict.fromkeys(("d2_bits", "rows_vs_plain", "kth_ties", "list_ties", "rows",
+                         "negative", "max_abs_err"), 0)
+    for s in range(0, query.shape[1], chunk):
+        q = query[:, s:s + chunk].contiguous()
+        d2, idx = got_d2[:, s:s + chunk], got_idx[:, s:s + chunk]
+        want = knn_select_bf16_reference(ref, q, k)
+        out["d2_bits"] += int((want[0].view(torch.int16) != d2.view(torch.int16)).sum())
+        out["max_abs_err"] = max(out["max_abs_err"],
+                                 float((d2.float() - want[0].float()).abs().max()))
+        out["rows_vs_plain"] += int((want[1] != idx).any(-1).sum())
+        # the ties from k + 1 entries, in key terms
+        key = bf16_keys(torch, knn_select_bf16_reference(ref, q, k + 1)[0])
+        out["kth_ties"] += int((key[..., k - 1] == key[..., k]).sum())
+        out["list_ties"] += int((key[..., 1:] == key[..., :-1]).any(-1).sum())
+        out["negative"] += int((d2 < 0).any(-1).sum())
+        out["rows"] += q.shape[0] * q.shape[1]
+        del want, key
+    return out
+
+
+def knn_select_bf16_phase(torch, dev) -> dict:
+    """Phase 27: K6's bf16 arm (knn_select_bf16) on lidar-fine's bf16
+    selection tile, on the benchmark's stream-b8-1m pairs (k6_inputs: the
+    flat stage at [8, 21 952] and [1, 21 952] queries, encode's source KNN
+    at [8, 64] and [1, 64], x 10 000 points, k = 32) and on a lattice cloud
+    (8 clouds of 10 000 points and 4 608 queries on a LATTICE_STEP grid of
+    the 1 m box: equal distances everywhere), against torch.topk of the bf16
+    tile (knn_select_bf16_reference, chunked as approx_knn chunks it): every
+    bf16 d2 bit and every index row, in order, equal, or the phase fails;
+    the rows with a tie at the k-th key and inside the list counted (the
+    ties exercised); one launch a call. The kernel and the plain tile arm
+    (approx_knn under reference_path: the route before the kernel) timed
+    in turns, per call and held, beside the kernel's bound (tile_ops'
+    operations a pair; the inputs read and the [B, M, k] result written
+    once). Then a
+    lidar-fine registrar call on the 8 pairs: 1 + 3 launches of the bf16
+    arm (encode's source KNN and one a refinement), none of the f32 arm.
+    Returns {case: numbers}."""
+    from benchmark.work import bound_ms, tile_ops
+    from deepvcp_tpu_torch import pretrained
+    from deepvcp_tpu_torch.ops.kernels import knn_select as k6
+    from deepvcp_tpu_torch.ops.kernels import reference_path
+    from deepvcp_tpu_torch.ops.knn import approx_knn
+
+    reg = pretrained.registrar("lidar-fine", device=dev, num_points=N_POINTS)
+    cfg = reg.model.cfg
+    if not cfg.use_approx_knn or cfg.knn_select_dtype_effective != "bfloat16":
+        fail("lidar-fine's candidate KNN is not approx_knn on the bf16 tile")
+    k, chunk = cfg.num_neighbors, cfg.knn_query_chunk
+    (src, tgt), cases = k6_inputs(torch, dev, reg, K6_BF16_TRAFFIC)
+    g = torch.Generator(dev).manual_seed(K6_SEED)
+    cases["lattice B=8"] = tuple(
+        torch.round((torch.rand(8, n, 3, device=dev, generator=g) - 0.5) / LATTICE_STEP)
+        * LATTICE_STEP for n in (N_POINTS, 4608))
+    results = {}
+    for name, (ref, query) in cases.items():
+        B, M, _ = query.shape
+        N = ref.shape[1]
+        before = k6.knn_select_bf16.launches
+        d2, idx = k6.knn_select_bf16(ref, query, k)
+        torch.cuda.synchronize()
+        if k6.knn_select_bf16.launches != before + 1:
+            fail(f"K6 bf16 {name}: {k6.knn_select_bf16.launches - before} launches, not 1")
+        cmp = k6_bf16_compare(torch, ref, query, k, d2, idx, chunk)
+        if cmp["d2_bits"] or cmp["rows_vs_plain"]:
+            fail(f"K6 bf16 {name}: {cmp['d2_bits']} d2 bits unlike the bf16 tile's, "
+                 f"{cmp['rows_vs_plain']} rows unlike torch.topk's of it")
+
+        def kernel():
+            return k6.knn_select_bf16(ref, query, k)
+
+        def plain():
+            with reference_path():
+                return approx_knn(ref, query, k, chunk=chunk, select_dtype="bfloat16")
+
+        turns = turns_ms(torch, {"kernel": kernel, "plain": plain}, reps=5)
+        held = turns_ms(torch, {"kernel": kernel, "plain": plain}, reps=5, hold=True)
+        times = {"ms": statistics.median(turns["kernel"]),
+                 "held_ms": statistics.median(held["kernel"]),
+                 "plain_ms": statistics.median(turns["plain"]),
+                 "plain_held_ms": statistics.median(held["plain"])}
+        bound = bound_ms(4 * (B * N * 4 + B * M * 4) + 10 * B * M * k, tile_ops(B * M, N))
+        print(f"K6 bf16 {name}: [{B}, {M}] x {N}, k = {k} | d2 bits unlike the bf16 tile's "
+              f"{cmp['d2_bits']} of {cmp['rows'] * k}; rows unlike torch.topk's "
+              f"{cmp['rows_vs_plain']}; rows with a tie at the k-th key {cmp['kth_ties']}, in "
+              f"the list {cmp['list_ties']}, with a negative d2 {cmp['negative']}, of "
+              f"{cmp['rows']} rows | in turns: kernel {times['ms']:.4f} ms (held "
+              f"{times['held_ms']:.4f}), plain tile {times['plain_ms']:.3f} (held "
+              f"{times['plain_held_ms']:.3f}) | bound {bound[0]:.5f} ms ({bound[1]}), "
+              f"{100 * bound[0] / times['held_ms']:.2f}% of it")
+        results[name] = {**cmp, **times, "bound": bound}
+
+    with torch.no_grad():
+        _, counts = counted_all(torch, lambda: reg(src, tgt))
+    n, n32 = counts["k6b"], counts["k6"]
+    print(f"K6 bf16 launches in a lidar-fine call at B = {src.shape[0]}: {n} (encode's source "
+          f"KNN and {reg.refine_iters} flat stages); f32 K6 launches: {n32}")
+    if n != 1 + reg.refine_iters or n32:
+        fail(f"K6 bf16: {n} launches of the bf16 arm and {n32} of the f32 arm in a lidar-fine "
+             f"call, not {1 + reg.refine_iters} and 0")
+    results["registrar_launches"] = n
     return results
 
 
@@ -1863,7 +2001,7 @@ def two_level_phase(torch, dev, pairs) -> dict:
     from deepvcp_tpu_torch import pretrained
     from deepvcp_tpu_torch.ops.kernels import band_max
     from deepvcp_tpu_torch.ops.kernels import onehot_gather as og
-    from deepvcp_tpu_torch.ops.kernels.knn_select import knn_select
+    from deepvcp_tpu_torch.ops.kernels.knn_select import knn_select, knn_select_bf16
     from deepvcp_tpu_torch.registration import Registrar
 
     flat = pretrained.registrar("kitti25", device=dev)
@@ -1886,11 +2024,11 @@ def two_level_phase(torch, dev, pairs) -> dict:
     torch.cuda.synchronize()
     og.onehot_gather.launches = 0
     band_max.banded_masked_max.launches = 0
-    knn_select.launches = 0
+    knn_select.launches = knn_select_bf16.launches = 0
     outs = [reg(src, tgt) for src, tgt, _, _ in pairs]
     torch.cuda.synchronize()
     k4_runs, k1_runs = og.onehot_gather.launches, band_max.banded_masked_max.launches
-    k6_runs = knn_select.launches
+    k6_runs, k6b_runs = knn_select.launches, knn_select_bf16.launches
     rre, rte = pose_errors(torch, outs, pairs, reg.refine_iters, "two-level kitti25")
     for i in range(len(pairs)):
         print(f"two-level pair {i:2d}: RRE {rre[i]:.4f} deg, RTE {rte[i]:.5f} m")
@@ -1929,7 +2067,7 @@ def two_level_phase(torch, dev, pairs) -> dict:
     splits = [stage_split(torch, flat, src, tgt) for _ in range(4)][1:]
     print("flat kitti25 stage split (device ms, median of 3 replays): " + ", ".join(
         f"{k} {statistics.median(s[k] for s in splits):.3f}" for k in splits[0]))
-    return {"k1": k1_runs, "k4": k4_runs, "k6": k6_runs, "K4": k4, "K5": k5}
+    return {"k1": k1_runs, "k4": k4_runs, "k6": k6_runs, "k6b": k6b_runs, "K4": k4, "K5": k5}
 
 
 def two_level_training(torch, dev) -> dict:
@@ -2271,7 +2409,8 @@ def odometry_phase(torch, dev, reg, pairs, card: str) -> dict:
     print(f"  routed registrar, B={ROUTE_B}: vote + weight selection {sel_ms:.4f} ms per call "
           f"({sel_held:.4f} behind a device hold); routed call {r_ms:.3f} ms against its "
           f"expert's {e_ms:.3f} ms (medians of synced calls, 4 turns of 5)")
-    return {"k1": total["k1"], "k6": total["k6"], "graph": (graph_cpu, R_ch, t_ch)}
+    return {"k1": total["k1"], "k6": total["k6"], "k6b": total["k6b"],
+            "graph": (graph_cpu, R_ch, t_ch)}
 
 
 def kernel_counters() -> dict:
@@ -2281,7 +2420,8 @@ def kernel_counters() -> dict:
 
     return {"k1": band_max.banded_masked_max, "k2": band_max.banded_masked_max_grad,
             "k3": fps.farthest_point_sample, "k4": og.onehot_gather,
-            "k5": og.onehot_scatter_add, "k6": knn_select.knn_select}
+            "k5": og.onehot_scatter_add, "k6": knn_select.knn_select,
+            "k6b": knn_select.knn_select_bf16}
 
 
 def counted_all(torch, fn):
@@ -3335,7 +3475,7 @@ def two_ranks_on_card(torch, ref: dict, lr: float, graph, solved: dict, refs: di
           f"(two processes share one card: their step times say nothing of two cards)")
     return {k: sum(got["counts"][k] + got["partitioned"]["counts"][k]
                    + sum(s["counts"][k] for s in got["splits"].values()) for got in ranks)
-            for k in ("k1", "k2", "k6")}
+            for k in ("k1", "k2", "k6", "k6b")}
 
 
 def tooling_on_card(torch, dev, reg, pair) -> dict:
@@ -3438,7 +3578,7 @@ def multi_device_phase(torch, dev, reg, pairs, odo) -> dict:
         dist.destroy_process_group()
     two = two_ranks_on_card(torch, ref, lr, graph, solved, engine_refs(torch, dev))
     print(f"phase 22: {time.perf_counter() - t0:.1f} s")
-    return {k: step[k] + tools[k] + two[k] for k in ("k1", "k2", "k6")}
+    return {k: step[k] + tools[k] + two[k] for k in ("k1", "k2", "k6", "k6b")}
 
 
 def k3_vs_native(torch, dev) -> None:
@@ -3839,7 +3979,7 @@ def bench_cli(dev) -> None:
 def bench_phase(torch, dev, card: str) -> dict:
     """Phase 24: the port's headline bench (deepvcp_tpu_torch.bench.run) at
     N = 10 000 and B = 1, 2, 4, 8 under the default config with a random
-    init: K1 launches a call, per-call latency and its spread, stream
+    init: K1 and K6 bf16 launches a call, per-call latency and its spread, stream
     pairs/s, profiler busy time and idle share, peak device memory (above
     what earlier phases hold); each
     pair of a call alone vs in the batch (batch_rows_agree), B = 4 through
@@ -3859,11 +3999,13 @@ def bench_phase(torch, dev, card: str) -> dict:
         peak = torch.cuda.max_memory_allocated() - base
         add_counts(total, counts)
         calls = res["calls"]
-        if counts["k1"] != LAUNCHES_PER_CALL * calls or any(
-                v for k, v in counts.items() if k != "k1"):
-            fail(f"{what}: launches {counts} over {calls} calls, want {LAUNCHES_PER_CALL} K1 a "
-                 f"call and no other kernel")
         reg, src, tgt, out = res["registrar"], res["src"], res["tgt"], res["out"]
+        # the default config selects on the bf16 tile: K6's bf16 arm, in
+        # encode's source KNN and each candidate stage
+        want = {"k1": LAUNCHES_PER_CALL, "k6b": 1 + reg.refine_iters}
+        if any(v != want.get(k, 0) * calls for k, v in counts.items()):
+            fail(f"{what}: launches {counts} over {calls} calls, want {want} a call and no "
+                 f"other kernel")
         shapes = {"R": (B, 3, 3), "t": (B, 3), "keypoints": (B, 64, 3), "vcps": (B, 64, 3),
                   "saliency": (B, N_POINTS), "scores": (B, reg.refine_iters + 1)}
         for field, shape in shapes.items():
@@ -3875,7 +4017,8 @@ def bench_phase(torch, dev, card: str) -> dict:
         med = statistics.median(lat)
         busy, _ = device_time_per_call(torch, lambda: reg(src, tgt), calls=5)
         idle = f"{1 - busy / med:.3f}" if busy > 0 else "not measured"
-        print(f"{what}, N={N_POINTS}: K1 {counts['k1'] / calls:g} a call over {calls} calls; "
+        print(f"{what}, N={N_POINTS}: K1 {counts['k1'] / calls:g}, K6 bf16 "
+              f"{counts['k6b'] / calls:g} a call over {calls} calls; "
               f"per-call latency median {med:.3f} ms (min {min(lat):.3f}, max {max(lat):.3f}, "
               f"{len(lat)} calls), stream {res['stream_ms']:.3f} ms a call = {res['value']} "
               f"pairs/s ({res['stream_ms'] / med:.3f}x per call); first call "
@@ -4207,7 +4350,7 @@ def steps_agree(torch, world: int, ranks: list, refs: dict, card: str) -> dict:
     K2), the point split's gate passed where the point group has P > 1,
     every rank equal; prints the scaling (the single card's time over the
     slowest rank's, and over P times it). Returns the ranks' K1 / K2 / K6."""
-    total = {"k1": 0, "k2": 0, "k6": 0}
+    total = {"k1": 0, "k2": 0, "k6": 0, "k6b": 0}
     for data, point, B in MULTI_STEPS[world]:
         got = [r["steps"][(data, point, B)] for r in ranks]
         ref, what = refs[B], f"{data} x {point} mesh over {world} cards (NCCL), B={B}"
@@ -4276,7 +4419,7 @@ def multicard_phase(torch, dev, reg, pairs, graph, card: str) -> dict:
     t0 = time.perf_counter()
     one_card_checks()
     cards = torch.cuda.device_count()
-    total = {"k1": 0, "k2": 0, "k6": 0}
+    total = {"k1": 0, "k2": 0, "k6": 0, "k6b": 0}
     if cards < 2:
         print(f"phase 25: 1 card visible: the one-card checks only; "
               f"{time.perf_counter() - t0:.1f} s")
@@ -4316,7 +4459,7 @@ def multicard_phase(torch, dev, reg, pairs, graph, card: str) -> dict:
         ring_agrees(torch, [r["ring"] for r in ranks], ring, card)
         if big:
             ring_forward_agrees(torch, reg, pairs, ranks, card)
-            for k in ("k1", "k6"):
+            for k in ("k1", "k6", "k6b"):
                 total[k] += sum(r["forward"]["counts"][k] for r in ranks)
             for r, got in enumerate(ranks):
                 solves_agree(torch, got["solves"], solved,
@@ -4420,7 +4563,7 @@ def main() -> None:
     from deepvcp_tpu_torch.data import rotation_geodesic_deg, translation_error
     from deepvcp_tpu_torch.ops.kernels import _build
     from deepvcp_tpu_torch.ops.kernels.band_max import banded_masked_max
-    from deepvcp_tpu_torch.ops.kernels.knn_select import knn_select
+    from deepvcp_tpu_torch.ops.kernels.knn_select import knn_select, knn_select_bf16
 
     card = card_line()
     print(f"card: {card}")
@@ -4444,10 +4587,11 @@ def main() -> None:
     pairs = held_pairs(torch, dev)
     torch.cuda.synchronize()
     banded_masked_max.launches = 0
-    knn_select.launches = 0
+    knn_select.launches = knn_select_bf16.launches = 0
     outs = [reg(src, tgt) for src, tgt, _, _ in pairs]
     torch.cuda.synchronize()
     launches, k6_launches = banded_masked_max.launches, knn_select.launches
+    k6b_launches = knn_select_bf16.launches
     rre, rte = pose_errors(torch, outs, pairs, reg.refine_iters, "kitti25-rot")
     eye = torch.eye(3, device=dev)[None]
     rre0 = [rotation_geodesic_deg(eye, R_gt).item() for _, _, R_gt, _ in pairs]
@@ -4485,6 +4629,10 @@ def main() -> None:
     # 26. K6 against its plain version on the benchmark's pairs, and its
     # launches on the registrar's path
     k6 = knn_select_phase(torch, dev, reg)["flat B=8"]
+
+    # 27. K6's bf16 arm against torch.topk of the bf16 tile on lidar-fine's
+    # shapes and a lattice, and its launches on lidar-fine's registrar
+    k6_bf16 = knn_select_bf16_phase(torch, dev)
 
     # 8-10. the training path
     train = train_phase(torch, dev, pairs)
@@ -4529,11 +4677,14 @@ def main() -> None:
     # pass, or one FE backward), K3 sums at the 2 shapes of one init call,
     # K4 and K5 at the two-level path's shapes (library_ms: torch.gather,
     # torch.scatter_add), K6 at the flat stage's [8, 13 824] x 10 000
-    # (library_ms: square_distance + torch.topk); launches: the main-path
+    # (library_ms: square_distance + torch.topk), its bf16 arm at
+    # lidar-fine's [8, 21 952] x 10 000 (max_abs_err: the largest |d2| gap
+    # to the bf16 tile's over phase 27's cases); launches: the main-path
     # runs' (serving, training, global, two-level serving and training,
     # odometry, the engines, multi-device, the examples, the trained
     # checkpoint and convergence, the bench, the ranks of several cards;
-    # phase 26's own calls left out)
+    # phase 27's lidar-fine registrar call; the wrappers' own calls in
+    # phases 26 and 27 left out), each counted from 0 just before its run
     finish(torch, started, card, band_entries(
         band,
         launches + train["k1"] + glob["k1"] + two["k1"] + two_train["k1"] + odo["k1"]
@@ -4572,6 +4723,21 @@ def main() -> None:
         **{key: k6[key] for key in ("max_abs_err", "ms", "plain_ms", "library_ms")},
         "bound_ms": k6["bound"][0],
         "bound_by": k6["bound"][1],
+    }, {
+        "name": "knn_select_bf16",
+        "route": "cuda",
+        "source": "deepvcp_tpu_torch/csrc/knn_select.cu",
+        "replaces": None,   # as knn_select
+        # every call in this process but phase 27's own calls of the wrapper
+        "launches": k6b_launches + k6_bf16["registrar_launches"] + train["k6b"] + glob["k6b"]
+        + two["k6b"] + two_train.get("k6b", 0) + odo["k6b"] + eng.get("k6b", 0) + multi["k6b"]
+        + ora.get("k6b", 0) + bnch.get("k6b", 0) + mc["k6b"],
+        "max_abs_err": max(r["max_abs_err"] for r in k6_bf16.values() if isinstance(r, dict)),
+        "ms": k6_bf16["flat B=8"]["ms"],
+        "plain_ms": k6_bf16["flat B=8"]["plain_ms"],
+        "library_ms": None,
+        "bound_ms": k6_bf16["flat B=8"]["bound"][0],
+        "bound_by": k6_bf16["flat B=8"]["bound"][1],
     }])
 
 

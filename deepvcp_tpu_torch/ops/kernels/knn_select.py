@@ -1,4 +1,4 @@
-"""Kernel K6: the k <= 32 nearest target points of each query.
+"""Kernel K6: the k <= 32 nearest target points of each query, in two arms.
 
     d2[b, m, n] = clamp_min((|q[b, m]|^2 + |p[b, n]|^2) - 2 q[b, m].p[b, n], 0)
     out[b, m]   = torch.topk(d2[b, m], k, largest=False)
@@ -22,8 +22,19 @@ match bit for bit, order included: the registrar's later stages sum over
 each list in its order, and in kitti25-rot's three guarded refinements an
 ulp there grew to 0.04 deg of pose (PERF.md, K6). It replaces no TPU
 kernel: the JAX package selects with XLA's `jax.lax.approx_min_k`.
-ops/knn.py::approx_knn routes its f32 selection on the card here for
-k <= MAX_K.
+
+`knn_select_bf16` is the same kernel on ops/knn.py::approx_knn's bf16
+selection tile: coordinates centred on the ref mean, the product of their
+bf16 roundings summed in f32, the norms of the unrounded centred
+coordinates, d2 rounded to bf16 and not clamped before the selection.
+`centred`, `tile_terms` and `tile_topk` are that tile, the one definition
+that approx_knn's tile arm and the plain version
+`knn_select_bf16_reference` run; the wrapper computes the centring, the
+norms and the roundings with the first two, and the kernel orders by torch.topk's
+radix key of the bf16 bits (-0 below +0), with the index packed beside it
+(N <= MAX_N_BF16), and returns the bf16 d2 and the indices of torch.topk's
+list of that tile, order included. ops/knn.py::approx_knn routes its f32
+and its bf16 selections on the card here for k <= MAX_K.
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ from deepvcp_tpu_torch.ops.kernels import _build, _plain
 
 MAX_K = 32             # csrc/knn_select.cu: a query's list is one entry a lane of a warp
 MAX_BATCH = 65535      # the grid's second axis
+MAX_N_BF16 = 1 << 16   # the bf16 arm packs a point's index into 16 bits
 
 
 def uses_kernel(t: torch.Tensor) -> bool:
@@ -52,6 +64,45 @@ def knn_select_reference(ref: torch.Tensor, query: torch.Tensor,
     ref [B, N, 3], query [B, M, 3] -> (d2, idx) [B, M, k], ascending d2."""
     top = torch.topk(square_distance(query, ref), k, dim=-1, largest=False)
     return top.values, top.indices
+
+
+def centred(ref: torch.Tensor, query: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reduced-precision selection tile's clouds: ref and query centred
+    on ref's mean."""
+    center = ref.mean(dim=-2, keepdim=True)
+    return ref - center, query - center
+
+
+def tile_terms(x: torch.Tensor, sel: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One centred cloud's terms of the reduced-precision selection tile:
+    its coordinates rounded to `sel` and back in f32, and its squared norms
+    from the unrounded coordinates."""
+    return x.to(sel).float(), torch.sum(x * x, dim=-1)
+
+
+def tile_topk(ref_terms, query_terms, k: int,
+              sel: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reduced-precision selection tile of tile_terms' (coordinates,
+    norms) of ref and query and torch.topk of it: the product of the
+    rounded coordinates summed in f32 (a bf16 x bf16 product is exact in
+    f32), d2 = (s2 + r2) - 2 * cross cast to `sel`, not clamped. ->
+    (d2 in `sel`, idx int64) [..., M, k]."""
+    (r, r2), (q, s2) = ref_terms, query_terms
+    cross = q @ r.transpose(-1, -2)
+    sqr = (s2[..., :, None] + r2[..., None, :] - 2.0 * cross).to(sel)
+    top = torch.topk(sqr, k, dim=-1, largest=False)
+    return top.values, top.indices
+
+
+@torch.no_grad()
+def knn_select_bf16_reference(ref: torch.Tensor, query: torch.Tensor,
+                              k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch bf16 K6: approx_knn's bf16 tile arm on all of query at
+    once. ref [B, N, 3], query [B, M, 3] -> (d2 bfloat16, idx int64)
+    [B, M, k], torch.topk's list of the bf16 tile."""
+    ref, query = centred(ref, query)
+    return tile_topk(tile_terms(ref, torch.bfloat16), tile_terms(query, torch.bfloat16), k,
+                     torch.bfloat16)
 
 
 def _check(ref: torch.Tensor, query: torch.Tensor, k: int) -> None:
@@ -71,6 +122,28 @@ def _check(ref: torch.Tensor, query: torch.Tensor, k: int) -> None:
         raise ValueError("knn_select needs contiguous inputs")
 
 
+def _launch(wrapper, entry: str, ref: torch.Tensor, query: torch.Tensor, s2: torch.Tensor,
+            r2: torch.Tensor, k: int, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the library's `entry` on CUDA tensors, counted on
+    `wrapper.launches`, then torch.topk's last step: sort the set by d2 (the
+    kernel laid it out as torch.topk lays out its set before this sort)."""
+    if not query.is_cuda:
+        raise ValueError(f"no kernel for device {query.device}")
+    B, M, _ = query.shape
+    N = ref.shape[1]
+    if B > MAX_BATCH:
+        raise ValueError(f"B={B} exceeds the kernel's {MAX_BATCH}")
+    d2 = torch.empty((B, M, k), dtype=dtype, device=query.device)
+    idx = torch.empty((B, M, k), dtype=torch.int64, device=query.device)
+    if M == 0:
+        return d2, idx
+    _build.launch(getattr(_build.library(), entry), query, query.data_ptr(), s2.data_ptr(),
+                  ref.data_ptr(), r2.data_ptr(), d2.data_ptr(), idx.data_ptr(), B, M, N, k)
+    wrapper.launches += 1
+    d2, order = torch.sort(d2, dim=-1)
+    return d2, torch.gather(idx, -1, order)
+
+
 def knn_select(ref: torch.Tensor, query: torch.Tensor,
                k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The k <= 32 nearest points of ref [B, N, 3] to each query [B, M, 3],
@@ -81,27 +154,33 @@ def knn_select(ref: torch.Tensor, query: torch.Tensor,
     _check(ref, query, k)
     if not uses_kernel(query):
         return knn_select_reference(ref, query, k)
-    if not query.is_cuda:
-        raise ValueError(f"no kernel for device {query.device}")
-    B, M, _ = query.shape
-    N = ref.shape[1]
-    if B > MAX_BATCH:
-        raise ValueError(f"B={B} exceeds the kernel's {MAX_BATCH}")
-    d2 = query.new_empty((B, M, k))
-    idx = torch.empty((B, M, k), dtype=torch.int64, device=query.device)
-    if M == 0:
-        return d2, idx
     with torch.no_grad():
         # square_distance's norms, op for op
         s2 = torch.sum(query * query, dim=-1)
         r2 = torch.sum(ref * ref, dim=-1)
-    _build.launch(_build.library().knn_select_f32, query, query.data_ptr(), s2.data_ptr(),
-                  ref.data_ptr(), r2.data_ptr(), d2.data_ptr(), idx.data_ptr(), B, M, N, k)
-    knn_select.launches += 1
-    # torch.topk's last step: sort the set by d2 (the kernel laid it out as
-    # torch.topk lays out its set before this sort)
-    d2, order = torch.sort(d2, dim=-1)
-    return d2, torch.gather(idx, -1, order)
+    return _launch(knn_select, "knn_select_f32", ref, query, s2, r2, k, torch.float32)
 
 
 knn_select.launches = 0
+
+
+def knn_select_bf16(ref: torch.Tensor, query: torch.Tensor,
+                    k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k <= 32 nearest points of ref [B, N, 3] (N <= MAX_N_BF16) to each
+    query [B, M, 3], both contiguous float32, on approx_knn's bf16 selection
+    tile: (d2 [B, M, k] bfloat16, idx [B, M, k] int64), torch.topk's list of
+    that tile (d2 not clamped). A CPU tensor runs the plain reference; a
+    CUDA tensor launches the Hopper kernel or raises. Records no autograd
+    graph. `knn_select_bf16.launches` counts kernel launches."""
+    _check(ref, query, k)
+    if ref.shape[1] > MAX_N_BF16:
+        raise ValueError(f"N={ref.shape[1]} exceeds the bf16 arm's {MAX_N_BF16}")
+    if not uses_kernel(query):
+        return knn_select_bf16_reference(ref, query, k)
+    with torch.no_grad():
+        ref, query = centred(ref, query)
+        (ref, r2), (query, s2) = tile_terms(ref, torch.bfloat16), tile_terms(query, torch.bfloat16)
+    return _launch(knn_select_bf16, "knn_select_bf16", ref, query, s2, r2, k, torch.bfloat16)
+
+
+knn_select_bf16.launches = 0

@@ -1,8 +1,9 @@
 """Kernel K6, the k <= 32 nearest points with the tile kept on chip
-(deepvcp_tpu_torch/ops/kernels/knn_select.py): the plain PyTorch version
-against square_distance and torch.topk, its tie rule, the wrapper's checks,
-and approx_knn's routing; on a CUDA card, the Hopper kernel
-against the plain version.
+(deepvcp_tpu_torch/ops/kernels/knn_select.py): the plain PyTorch versions
+against square_distance and torch.topk and against approx_knn's bf16 tile
+arm, the tie rule, the wrappers' checks, and approx_knn's routing; on a
+CUDA card, the Hopper kernel's f32 and bf16 arms against their plain
+versions.
 
 No JAX here, so that the card-only tests run where jax is not installed:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_knn_select.py
@@ -130,11 +131,14 @@ def test_approx_knn_routes(monkeypatch):
 def _fall_through_case(name):
     ref, query = _clouds(6, 2, 40, 300)
     kw = dict(k=8, chunk=16)
+    if name.startswith("bfloat16"):
+        kw["select_dtype"] = "bfloat16"
+        name = name[len("bfloat16"):].lstrip(", ")
     if name == "k33":
         kw["k"] = 33
     elif name == "k40":
         kw["k"] = 40
-    elif name in ("bfloat16", "float16"):
+    elif name == "float16":
         kw["select_dtype"] = name
     elif name == "float64":
         ref, query = ref.double(), query.double()
@@ -144,29 +148,147 @@ def _fall_through_case(name):
         ref = ref[:1]
     elif name == "two ref clouds, one query":
         query = query[:1]
+    elif name == "N = 65 537":
+        ref = torch.cat([ref] * 219, 1)[:, :65537].contiguous()
     return ref, query, kw
 
 
+def _recorder(fn, seen):
+    def recorded(r, q, k):
+        seen.append(q.shape[1])
+        return fn(r, q, k)
+    return recorded
+
+
 @pytest.mark.parametrize("name", ["k33", "k40", "bfloat16", "float16", "float64", "2-D clouds",
-                                  "one ref, two query clouds", "two ref clouds, one query"])
+                                  "one ref, two query clouds", "two ref clouds, one query",
+                                  "bfloat16, k33", "bfloat16, float64", "bfloat16, 2-D clouds",
+                                  "bfloat16, one ref, two query clouds",
+                                  "bfloat16, two ref clouds, one query", "bfloat16, N = 65 537"])
 def test_approx_knn_falls_through_where_the_kernel_does_not_apply(monkeypatch, name):
-    """k > 32, a reduced-precision selection tile, f64, 2-D clouds and
-    clouds broadcast over B keep the unchanged code even where the kernel
-    runs: knn_select is never called, nothing is launched, and the result
-    is the CPU route's."""
+    """k > 32, an f16 selection tile, f64, 2-D clouds, clouds broadcast over
+    B and, on the bf16 tile, more than 65 536 points keep the unchanged
+    code even where the kernel runs: neither wrapper is called, nothing is
+    launched, and the result is the CPU route's. The bf16 tile with k <= 32
+    on [B, N, 3] f32 clouds ("bfloat16") no longer falls through: it makes
+    one knn_select_bf16 call with every query, and never calls the f32
+    knn_select."""
     ref, query, kw = _fall_through_case(name)
     want = ops.approx_knn(ref, query, **kw)
-    counted = k6.knn_select
-    launches = counted.launches
+    counted = (k6.knn_select, k6.knn_select_bf16)
+    launches = [fn.launches for fn in counted]
 
     def refuse(*args):
         raise AssertionError("knn_select called")
 
+    seen = []
+    routed = name == "bfloat16"
     monkeypatch.setattr(k6, "uses_kernel", lambda t: True)
     monkeypatch.setattr(k6, "knn_select", refuse)
+    monkeypatch.setattr(k6, "knn_select_bf16", _recorder(k6.knn_select_bf16_reference, seen)
+                        if routed else refuse)
     got = ops.approx_knn(ref, query, **kw)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert counted.launches == launches
+    assert seen == ([query.shape[1]] if routed else [])
+    assert [fn.launches for fn in counted] == launches
+
+
+def _bf16_case(name, B=2, M=70, N=400):
+    """Clouds for the bf16 tile: uniform in a 1 m box, every point twice,
+    or queries a hair from ref points (near points whose bf16 d2 is
+    negative)."""
+    ref, query = _clouds(11, B, M, N, scale=1.0)
+    if name == "duplicated":
+        ref = torch.cat([ref[:, : N // 2]] * 2, 1).contiguous()
+    elif name == "negative d2":
+        noise = torch.from_numpy(np.random.default_rng(12).normal(0, 1e-3, (B, M, 3)))
+        query = (ref[:, :M] + noise.float()).contiguous()
+    return ref, query
+
+
+@pytest.mark.parametrize("chunk", [None, 32])
+@pytest.mark.parametrize("name", ["uniform", "duplicated", "negative d2"])
+def test_bf16_reference_is_the_tile_arm(name, chunk):
+    """knn_select_bf16_reference, all queries at once, equals approx_knn's
+    bf16 tile arm (chunked or not) bit for bit: the indices, and the
+    distances after the arm's clamp and sqrt. Both run the one tile
+    definition (centred, tile_terms, tile_topk), so this holds the chunking
+    and the wrapper's CPU route to it."""
+    ref, query = _bf16_case(name)
+    for k in (1, 8, 32):
+        dist, idx = ops.approx_knn(ref, query, k, chunk=chunk, select_dtype="bfloat16")
+        d2, idx2 = k6.knn_select_bf16_reference(ref, query, k)
+        assert d2.dtype == torch.bfloat16 and idx2.dtype == torch.int64
+        assert d2.shape == idx2.shape == (2, 70, k)
+        assert torch.equal(idx2, idx)
+        assert torch.equal(torch.sqrt(torch.clamp_min(d2, 0.0).float()), dist)
+        got = k6.knn_select_bf16(ref, query, k)
+        assert torch.equal(got[0], d2) and torch.equal(got[1], idx2)
+    if name == "negative d2":
+        assert (d2 < 0).any(), "no negative bf16 d2"
+    if name == "duplicated":
+        assert (d2[..., 1:] == d2[..., :-1]).any(), "no ties in a list"
+
+
+def test_approx_knn_routes_bf16(monkeypatch):
+    """Where the kernel runs, the bf16 tile with k <= 32 makes one
+    knn_select_bf16 call with every query, whatever the chunk, inside one
+    deepvcp.select_tile range, never calls the f32 knn_select, and returns
+    the tile arm's distances and indices."""
+    import contextlib
+    import importlib
+
+    knn_mod = importlib.import_module("deepvcp_tpu_torch.ops.knn")
+
+    ref, query = _bf16_case("negative d2", M=90)
+    want = ops.approx_knn(ref, query, 32, chunk=32, select_dtype="bfloat16")
+    events = []
+
+    @contextlib.contextmanager
+    def annotate(name):
+        events.append(("open", name))
+        yield
+        events.append(("close", name))
+
+    def recorded(r, q, k):
+        events.append(("bf16", q.shape[1]))
+        return k6.knn_select_bf16_reference(r, q, k)
+
+    def refuse(*args):
+        raise AssertionError("knn_select called")
+
+    monkeypatch.setattr(knn_mod, "annotate", annotate)
+    monkeypatch.setattr(k6, "uses_kernel", lambda t: True)
+    monkeypatch.setattr(k6, "knn_select", refuse)
+    monkeypatch.setattr(k6, "knn_select_bf16", recorded)
+    got = ops.approx_knn(ref, query, 32, chunk=32, select_dtype="bfloat16")
+    assert events == [("open", "deepvcp.select_tile"), ("bf16", 90),
+                      ("close", "deepvcp.select_tile")]
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+def test_bf16_wrapper_checks_inputs():
+    ref, query = _clouds(1, 2, 10, 40)
+    with pytest.raises(ValueError, match=r"k must lie"):
+        k6.knn_select_bf16(ref, query, 33)
+    with pytest.raises(ValueError, match=r"k must lie"):
+        k6.knn_select_bf16(ref, query, 0)
+    with pytest.raises(TypeError, match="float32"):
+        k6.knn_select_bf16(ref.double(), query.double(), 8)
+    with pytest.raises(TypeError, match="float32"):
+        k6.knn_select_bf16(ref.to(torch.bfloat16), query.to(torch.bfloat16), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        k6.knn_select_bf16(ref, torch.cat([query, query], 1)[:, ::2], 8)
+    with pytest.raises(ValueError, match=r"\[B, N, 3\]"):
+        k6.knn_select_bf16(ref[0], query, 8)
+    with pytest.raises(ValueError, match=r"\[B, N, 3\]"):
+        k6.knn_select_bf16(ref[..., :2].contiguous(), query[..., :2].contiguous(), 8)
+    with pytest.raises(ValueError, match="disagree on B"):
+        k6.knn_select_bf16(ref[:1], query, 8)
+    with pytest.raises(ValueError, match="exceeds the bf16 arm's 65536"):
+        k6.knn_select_bf16(torch.zeros(1, 65537, 3), query[:1], 8)
+    with pytest.raises(ValueError, match="no kernel"):
+        k6.knn_select_bf16(ref.to("meta"), query.to("meta"), 8)
 
 
 def test_approx_knn_k_above_32_unchanged():
@@ -185,6 +307,11 @@ def test_cpu_tensors_never_count_launches():
     with reference_path():
         k6.knn_select(ref, query, 4)
     assert k6.knn_select.launches == before
+    before = k6.knn_select_bf16.launches
+    k6.knn_select_bf16(ref, query, 4)
+    with reference_path():
+        k6.knn_select_bf16(ref, query, 4)
+    assert k6.knn_select_bf16.launches == before
 
 
 @pytest.fixture
@@ -237,3 +364,58 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
         k6.knn_select(ref, torch.cat([query, query], 1)[:, ::2], 4)
     with pytest.raises(ValueError, match="k must lie"):
         k6.knn_select(ref, query, 33)
+
+
+def _bf16_topk_order(d2, idx, ref, query, k):
+    """The set of each row: the k smallest (torch.topk's radix key of the
+    bf16 d2, index), checked against a numpy lexsort of the whole tile."""
+    tile = k6.knn_select_bf16_reference(ref, query, ref.shape[1])[0]
+    bits = tile.view(torch.int16).cpu().numpy().astype(np.int32) & 0xFFFF
+    key = np.where(bits & 0x8000, bits ^ 0xFFFF, bits | 0x8000)
+    order = k6.knn_select_bf16_reference(ref, query, ref.shape[1])[1].cpu().numpy()
+    keys = np.take_along_axis(key, np.argsort(order, -1), -1)  # key by point index
+    lex = _lexsorted(keys, k)
+    np.testing.assert_array_equal(np.sort(idx.cpu().numpy(), -1), np.sort(lex, -1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 8])
+def test_bf16_kernel_matches_topk_of_the_bf16_tile_on_card(cuda, B):
+    """The bf16 arm against torch.topk of the bf16 tile on the card
+    (knn_select_bf16_reference): identical bf16 d2 bits and indices, in the
+    same order, at M = 64 / 3 520 / 4 608 queries x N = 10 000 points of a
+    1 m cloud and k = 1, 8, 32; also with queries a hair from ref points
+    (negative d2) and on a lattice (ties everywhere), where the set is the
+    k smallest (key, index). One launch a call, none under reference_path."""
+    for i, M in enumerate((64, 3520, 4608)):
+        ref, query = (t.to(cuda) for t in _clouds(100 + i, B, M, 10000, scale=1.0))
+        near = (ref[:, :M] + 1e-3 * torch.randn(B, M, 3, device=cuda,
+                                                generator=torch.Generator(cuda).manual_seed(i)))
+        lattice = torch.round(ref * 20) / 20
+        for what, r, q in (("uniform", ref, query), ("near", ref, near.contiguous()),
+                           ("lattice", lattice, torch.round(query * 20) / 20)):
+            for k in (1, 8, 32):
+                before = k6.knn_select_bf16.launches
+                d2, idx = k6.knn_select_bf16(r, q, k)
+                torch.cuda.synchronize()
+                assert k6.knn_select_bf16.launches == before + 1
+                want = k6.knn_select_bf16_reference(r, q, k)
+                assert torch.equal(d2.view(torch.int16), want[0].view(torch.int16)), (B, M, what, k)
+                assert torch.equal(idx, want[1]), (B, M, what, k)
+                with reference_path():
+                    got = k6.knn_select_bf16(r, q, k)
+                assert torch.equal(got[1], want[1])
+                assert k6.knn_select_bf16.launches == before + 1
+            if what == "lattice" and M == 64:
+                _bf16_topk_order(d2, idx, r, q, 32)
+
+
+@pytest.mark.gpu
+def test_bf16_kernel_refuses_what_it_cannot_take(cuda):
+    ref, query = (t.to(cuda) for t in _clouds(7, 1, 10, 100))
+    with pytest.raises(ValueError, match="contiguous"):
+        k6.knn_select_bf16(ref, torch.cat([query, query], 1)[:, ::2], 4)
+    with pytest.raises(ValueError, match="k must lie"):
+        k6.knn_select_bf16(ref, query, 33)
+    with pytest.raises(ValueError, match="exceeds the bf16 arm's"):
+        k6.knn_select_bf16(torch.zeros(1, 65537, 3, device=cuda), query, 4)
