@@ -263,14 +263,14 @@ NCCL. It checks on the way:
                  timeout fails the run
  26. K6          (run after phase 7) the k <= 32 nearest-point kernel
                  (ops/kernels/knn_select.py) on the benchmark's stream-b8
-                 pairs (benchmark/generate.py, seed K6_SEED) against
-                 square_distance's tile and its plain version: the flat
-                 stage's candidates at [8, 13 824] and [1, 13 824] queries
-                 and encode's 64 keypoints at [8, 64] and [1, 64], x 10 000
-                 points, k = 32: d2 at the chosen indices equal to the
-                 tile's and every row, in order, to the plain version's
-                 (torch.topk of the tile), at each shape (exact ties
-                 counted); one launch a call; median times of the kernel,
+                 pairs (benchmark/generate.py, seed K6_SEED) against its
+                 plain version (knn_select_reference: torch.topk of
+                 square_distance's tile): the flat stage's candidates at
+                 [8, 13 824] and [1, 13 824] queries and encode's 64
+                 keypoints at [8, 64] and [1, 64], x 10 000 points, k =
+                 32: every d2 and every row, in order, equal to the plain
+                 version's, at each shape (exact ties counted); one launch
+                 a call; median times of the kernel,
                  the plain version and square_distance + torch.topk (per
                  call and held) beside the kernel's bound; then 1 + 3
                  launches a kitti25-rot registrar call at B = 8 and B = 1
@@ -1588,33 +1588,43 @@ def k6_inputs(torch, dev, reg, traffic_name: str = "stream-b8") -> tuple:
                         for b in (B, 1) for name, (ref, query) in cases.items()}
 
 
-def k6_compare(torch, ref, query, k: int, got_d2, got_idx, chunk: int) -> dict:
-    """Kernel K6's result against square_distance's tile, `chunk` queries at
-    a time: elements whose d2 differs from the tile's at the same index
-    (the d2 bits), rows whose index lists differ, in order, from the plain
-    version's (torch.topk of the tile), and rows with an exact tie at the
-    k-th distance (the k-th and (k+1)-th tile values equal) or inside the
-    list (two of the first k + 1 equal)."""
-    from deepvcp_tpu_torch.ops.distance import square_distance
-
+def k6_compare(torch, wrapper, plain, key, ref, query, k: int, chunk: int, what: str) -> dict:
+    """One call of a K6 arm's `wrapper` on (ref, query) against its plain
+    version `plain` (torch.topk of the arm's tile: knn_select_reference,
+    knn_select_bf16_reference), `chunk` queries at a time: elements whose
+    d2 differs by `key` (the order torch.topk ranks by: the f32 values,
+    bf16_keys of the bf16 bits), rows whose index lists differ, in order,
+    rows with a tie at the k-th key (the k-th and (k+1)-th keys equal) or
+    inside the list (two of the first k + 1 keys equal), rows holding a
+    negative d2, and the largest |d2 error|. Fails unless the call made one
+    launch and every d2 and row is the plain version's."""
+    before = wrapper.launches
+    got_d2, got_idx = wrapper(ref, query, k)
+    torch.cuda.synchronize()
+    if wrapper.launches != before + 1:
+        fail(f"{what}: {wrapper.launches - before} launches, not 1")
     out = dict.fromkeys(("d2_bits", "rows_vs_plain", "kth_ties", "list_ties", "rows",
-                         "max_abs_err"), 0)
+                         "negative", "max_abs_err"), 0)
     for s in range(0, query.shape[1], chunk):
         q = query[:, s:s + chunk].contiguous()
         d2, idx = got_d2[:, s:s + chunk], got_idx[:, s:s + chunk]
-        tile = square_distance(q, ref)
-        at = torch.gather(tile, -1, idx)
-        out["d2_bits"] += int((at != d2).sum())
-        out["max_abs_err"] = max(out["max_abs_err"], float((at - d2).abs().max()))
-        out["rows_vs_plain"] += int(
-            (torch.topk(tile, k, dim=-1, largest=False).indices != idx).any(-1).sum())
+        want = plain(ref, q, k)
+        out["d2_bits"] += int((key(want[0]) != key(d2)).sum())
+        out["max_abs_err"] = max(out["max_abs_err"],
+                                 float((d2.float() - want[0].float()).abs().max()))
+        out["rows_vs_plain"] += int((want[1] != idx).any(-1).sum())
         # the ties from k + 1 entries (torch.topk orders ties by its sort of
         # the set, another sort past 32 entries: the rows above at k)
-        v = torch.topk(tile, k + 1, dim=-1, largest=False).values
+        v = key(plain(ref, q, k + 1)[0])
         out["kth_ties"] += int((v[..., k - 1] == v[..., k]).sum())
         out["list_ties"] += int((v[..., 1:] == v[..., :-1]).any(-1).sum())
+        out["negative"] += int((d2 < 0).any(-1).sum())
         out["rows"] += q.shape[0] * q.shape[1]
-        del tile, v
+        del want, v
+    if out["d2_bits"] or out["rows_vs_plain"]:
+        fail(f"{what}: {out['d2_bits']} d2 unlike the plain version's, {out['rows_vs_plain']} "
+             f"rows unlike its (torch.topk's of the tile), max |d2 error| "
+             f"{out['max_abs_err']:.3e}")
     return out
 
 
@@ -1622,29 +1632,30 @@ def knn_select_phase(torch, dev, reg) -> dict:
     """Phase 26: kernel K6 (ops/kernels/knn_select.py) on the benchmark's
     pairs (k6_inputs: the flat stage at [8, 13 824] and [1, 13 824]
     queries, encode's source KNN at [8, 64] and [1, 64], x 10 000 points,
-    k = 32) against square_distance's tile and its plain version: every d2
-    bit and every index row, in order, equal to the plain version's
-    (torch.topk of the tile), or the phase fails; the exact ties counted; one
-    launch a call. Median times of the kernel, of the plain version (under
+    k = 32) against its plain version (knn_select_reference: torch.topk of
+    square_distance's tile, k6_compare): every d2 and every index row, in
+    order, equal, or the phase fails; the exact ties counted; one launch a
+    call. Median times of the kernel, of the plain version (under
     reference_path, chunked as approx_knn chunks it) and of the library
-    yardstick (square_distance + torch.topk over the same chunks: the
-    port's f32 selection before K6), per call and behind a device hold,
-    beside the kernel's bound (tile_ops' 10 operations a pair; the inputs
-    read and the [B, M, k] result written once) and, for the flat stage,
+    yardstick (knn_select_reference, square_distance + torch.topk, over
+    the same chunks: the port's f32 selection before K6), per call and
+    behind a device hold, beside the kernel's bound (tile_ops' 10
+    operations a pair; the inputs read and the [B, M, k] result written
+    once) and, for the flat stage,
     benchmark/work.py::candidates_bound_ms (the whole stage, its gather
     included). Then kitti25-rot's registrar on the 8 pairs and on pair 0:
     one launch for encode's source KNN and one a refinement's flat stage.
     Returns {case: numbers}."""
     from benchmark.work import bound_ms, candidates_bound_ms, tile_ops
-    from deepvcp_tpu_torch.ops.distance import map_query_chunks, square_distance
+    from deepvcp_tpu_torch.ops.distance import map_query_chunks
     from deepvcp_tpu_torch.ops.kernels import knn_select as k6
     from deepvcp_tpu_torch.ops.kernels import reference_path
     from deepvcp_tpu_torch.ops.knn import approx_knn
 
-    cfg = reg.model.cfg
-    if not cfg.use_approx_knn or cfg.knn_select_dtype_effective is not None:
-        fail("kitti25-rot's candidate KNN is not the flat f32 approx_knn")
-    k, chunk = cfg.num_neighbors, cfg.knn_query_chunk
+    sel = reg.model.select_args(chunked=True)
+    if sel["select_dtype"] is not None:
+        fail("kitti25-rot's candidate KNN does not select in f32")
+    k, chunk = reg.model.cfg.num_neighbors, sel["chunk"]
     with open(os.path.join(ROOT, "benchmark", "configs", "kitti25-rot.json")) as fh:
         model = json.load(fh)["model"]
     (src, tgt), cases = k6_inputs(torch, dev, reg)
@@ -1652,16 +1663,8 @@ def knn_select_phase(torch, dev, reg) -> dict:
     for name, (ref, query) in cases.items():
         B, M, _ = query.shape
         N = ref.shape[1]
-        before = k6.knn_select.launches
-        d2, idx = k6.knn_select(ref, query, k)
-        torch.cuda.synchronize()
-        if k6.knn_select.launches != before + 1:
-            fail(f"K6 {name}: {k6.knn_select.launches - before} launches, not 1")
-        cmp = k6_compare(torch, ref, query, k, d2, idx, chunk)
-        if cmp["d2_bits"] or cmp["rows_vs_plain"]:
-            fail(f"K6 {name}: {cmp['d2_bits']} d2 unlike the tile's, {cmp['rows_vs_plain']} rows "
-                 f"unlike the plain version's (torch.topk's), max |d2 error| "
-                 f"{cmp['max_abs_err']:.3e}")
+        cmp = k6_compare(torch, k6.knn_select, k6.knn_select_reference, lambda v: v, ref, query,
+                         k, chunk, f"K6 {name}")
 
         def kernel():
             return k6.knn_select(ref, query, k)
@@ -1671,9 +1674,7 @@ def knn_select_phase(torch, dev, reg) -> dict:
                 return approx_knn(ref, query, k, chunk=chunk)
 
         def library():
-            return map_query_chunks(
-                lambda q: torch.topk(square_distance(q, ref), k, dim=-1, largest=False),
-                query, chunk)
+            return map_query_chunks(lambda q: k6.knn_select_reference(ref, q, k), query, chunk)
 
         times = {"ms": cuda_median_ms(torch, kernel, reps=20),
                  "held_ms": cuda_median_ms(torch, kernel, reps=20, hold=True),
@@ -1711,34 +1712,6 @@ def bf16_keys(torch, d2):
     return torch.where(bits >= 0x8000, bits ^ 0xFFFF, bits | 0x8000)
 
 
-def k6_bf16_compare(torch, ref, query, k: int, got_d2, got_idx, chunk: int) -> dict:
-    """K6's bf16 arm against torch.topk of the bf16 tile
-    (knn_select_bf16_reference), `chunk` queries at a time: elements whose
-    d2 bits differ, rows whose index lists differ, in order, and rows with a
-    tie at the k-th key (the k-th and (k+1)-th keys equal) or inside the list
-    (two of the first k + 1 keys equal)."""
-    from deepvcp_tpu_torch.ops.kernels.knn_select import knn_select_bf16_reference
-
-    out = dict.fromkeys(("d2_bits", "rows_vs_plain", "kth_ties", "list_ties", "rows",
-                         "negative", "max_abs_err"), 0)
-    for s in range(0, query.shape[1], chunk):
-        q = query[:, s:s + chunk].contiguous()
-        d2, idx = got_d2[:, s:s + chunk], got_idx[:, s:s + chunk]
-        want = knn_select_bf16_reference(ref, q, k)
-        out["d2_bits"] += int((want[0].view(torch.int16) != d2.view(torch.int16)).sum())
-        out["max_abs_err"] = max(out["max_abs_err"],
-                                 float((d2.float() - want[0].float()).abs().max()))
-        out["rows_vs_plain"] += int((want[1] != idx).any(-1).sum())
-        # the ties from k + 1 entries, in key terms
-        key = bf16_keys(torch, knn_select_bf16_reference(ref, q, k + 1)[0])
-        out["kth_ties"] += int((key[..., k - 1] == key[..., k]).sum())
-        out["list_ties"] += int((key[..., 1:] == key[..., :-1]).any(-1).sum())
-        out["negative"] += int((d2 < 0).any(-1).sum())
-        out["rows"] += q.shape[0] * q.shape[1]
-        del want, key
-    return out
-
-
 def knn_select_bf16_phase(torch, dev) -> dict:
     """Phase 27: K6's bf16 arm (knn_select_bf16) on lidar-fine's bf16
     selection tile, on the benchmark's stream-b8-1m pairs (k6_inputs: the
@@ -1764,10 +1737,10 @@ def knn_select_bf16_phase(torch, dev) -> dict:
     from deepvcp_tpu_torch.ops.knn import approx_knn
 
     reg = pretrained.registrar("lidar-fine", device=dev, num_points=N_POINTS)
-    cfg = reg.model.cfg
-    if not cfg.use_approx_knn or cfg.knn_select_dtype_effective != "bfloat16":
-        fail("lidar-fine's candidate KNN is not approx_knn on the bf16 tile")
-    k, chunk = cfg.num_neighbors, cfg.knn_query_chunk
+    sel = reg.model.select_args(chunked=True)
+    if sel["select_dtype"] != "bfloat16":
+        fail("lidar-fine's candidate KNN does not select on the bf16 tile")
+    k, chunk = reg.model.cfg.num_neighbors, sel["chunk"]
     (src, tgt), cases = k6_inputs(torch, dev, reg, K6_BF16_TRAFFIC)
     g = torch.Generator(dev).manual_seed(K6_SEED)
     cases["lattice B=8"] = tuple(
@@ -1777,15 +1750,8 @@ def knn_select_bf16_phase(torch, dev) -> dict:
     for name, (ref, query) in cases.items():
         B, M, _ = query.shape
         N = ref.shape[1]
-        before = k6.knn_select_bf16.launches
-        d2, idx = k6.knn_select_bf16(ref, query, k)
-        torch.cuda.synchronize()
-        if k6.knn_select_bf16.launches != before + 1:
-            fail(f"K6 bf16 {name}: {k6.knn_select_bf16.launches - before} launches, not 1")
-        cmp = k6_bf16_compare(torch, ref, query, k, d2, idx, chunk)
-        if cmp["d2_bits"] or cmp["rows_vs_plain"]:
-            fail(f"K6 bf16 {name}: {cmp['d2_bits']} d2 bits unlike the bf16 tile's, "
-                 f"{cmp['rows_vs_plain']} rows unlike torch.topk's of it")
+        cmp = k6_compare(torch, k6.knn_select_bf16, k6.knn_select_bf16_reference,
+                         lambda v: bf16_keys(torch, v), ref, query, k, chunk, f"K6 bf16 {name}")
 
         def kernel():
             return k6.knn_select_bf16(ref, query, k)
@@ -2013,9 +1979,10 @@ def two_level_phase(torch, dev, pairs) -> dict:
                          refine_iters=flat.refine_iters)
 
     reg = variant(**TWO_LEVEL)
-    print(f"two-level kitti25: T={reg.cfg.tgt_knn_table}, level-1 selection "
-          f"{reg.cfg.knn_select_dtype_effective or 'float32'}, level-2 "
-          f"{reg.cfg.knn_select_dtype}, refine_iters={reg.refine_iters}")
+    two = reg.model.two_level_args()
+    print(f"two-level kitti25: T={two['table_size']}, level-1 selection "
+          f"{two['center_select_dtype'] or 'float32'}, level-2 "
+          f"{two['select_dtype'] or 'float32'}, refine_iters={reg.refine_iters}")
 
     # 16. K4 and K5
     k4, k5 = onehot_phase(torch, dev, reg, pairs[0])
@@ -2527,27 +2494,27 @@ def neighbours_agree(torch, fn, xyz_dev, radius: float, what: str) -> None:
         fail(f"{what}: neighbour sets differ away from the radius")
 
 
-def selection_d2(cfg, ref, query, b: int, m: int, center=None):
+def selection_d2(model, ref, query, b: int, m: int, center=None):
     """Query row (b, m)'s squared distances to ref[b] [N], ranked as the
-    model's selection ranks them: approx_knn's bf16 tile (centred on
-    `center`, by default ref[b]'s mean, bf16 inputs, f32 product, cast to
-    bf16) or knn's f32 matmul form."""
+    model's selection ranks them (its select_args' dtype): the
+    reduced-precision tile (ops/kernels/knn_select.py::tile_d2) of the
+    clouds centred on `center`, by default ref[b]'s mean, or
+    square_distance's f32 tile."""
     import torch
 
     from deepvcp_tpu_torch.ops.distance import square_distance
+    from deepvcp_tpu_torch.ops.kernels import knn_select as k6
 
-    sel = cfg.knn_select_dtype_effective if cfg.use_approx_knn else None
-    if sel is None:
-        return square_distance(query[b, m][None], ref[b])[0]
-    sel = getattr(torch, sel)
-    if center is None:
-        center = ref[b].mean(dim=0, keepdim=True)
-    qc, rc = query[b, m][None] - center, ref[b] - center
-    cross = qc.to(sel).float() @ rc.to(sel).float().T
-    return ((qc * qc).sum(-1)[:, None] + (rc * rc).sum(-1)[None] - 2.0 * cross).to(sel)[0]
+    select_dtype = model.select_args()["select_dtype"]
+    r, q = ref[b], query[b, m][None]
+    if select_dtype is None:
+        return square_distance(q, r)[0]
+    sel = getattr(torch, select_dtype)
+    r, q = k6.centred(r, q) if center is None else (r - center, q - center)
+    return k6.tile_d2(k6.tile_terms(r, sel), k6.tile_terms(q, sel), sel)[0]
 
 
-def selection_near_tie(cfg, ref, query, b: int, m: int, k: int, swapped: list,
+def selection_near_tie(model, ref, query, b: int, m: int, k: int, swapped: list,
                        center=None) -> bool:
     """Whether the points `swapped` between two selections of the k
     nearest of ref to query row (b, m) all lie at a near-tie of the k-th
@@ -2560,7 +2527,7 @@ def selection_near_tie(cfg, ref, query, b: int, m: int, k: int, swapped: list,
 
     import torch
 
-    d2 = selection_d2(cfg, ref, query, b, m, center)
+    d2 = selection_d2(model, ref, query, b, m, center)
     kth = torch.sort(d2.float()).values[k - 1].item()
     if d2.dtype == torch.float32:
         q, r = query[b, m], ref[b]
@@ -2628,7 +2595,7 @@ def pinned_knn(torch, model, picked, rows=None):
         for b, m in differ.nonzero().tolist():
             swapped = sorted(set(idx[b, m].tolist()) ^ set(idx_p[b, m].tolist()))
             n["rows"] += 1
-            n["ties"] += selection_near_tie(model.cfg, ref, query, b, m, idx.shape[-1], swapped)
+            n["ties"] += selection_near_tie(model, ref, query, b, m, idx.shape[-1], swapped)
         return dist, idx_p
 
     return pin, n
@@ -3637,9 +3604,9 @@ def flat_knn_vs_native(torch, dev, reg, pair) -> None:
     from deepvcp_tpu_torch import native
     from deepvcp_tpu_torch.ops.knn import approx_knn
 
-    cfg = reg.model.cfg
-    if not cfg.use_approx_knn or cfg.knn_select_dtype_effective is not None:
-        fail("kitti25-rot's candidate KNN is not the flat f32 approx_knn")
+    cfg, sel = reg.model.cfg, reg.model.select_args(chunked=True)
+    if sel["select_dtype"] is not None:
+        fail("kitti25-rot's candidate KNN does not select in f32")
     if torch.backends.cuda.matmul.allow_tf32:
         fail("TF32 matmuls are on: the card's distances would not be f32")
     src, tgt = pair[0], pair[1]
@@ -3650,7 +3617,7 @@ def flat_knn_vs_native(torch, dev, reg, pair) -> None:
     ref, query, k = enc.tgt_xyz, cand.reshape(1, -1, 3), cfg.num_neighbors
 
     def run():
-        return approx_knn(ref, query, k, chunk=cfg.knn_query_chunk, select_dtype=None)
+        return approx_knn(ref, query, k, **sel)
 
     idx = run()[1][0].cpu().numpy()
     card_ms = cuda_median_ms(torch, run, reps=10)
@@ -3860,7 +3827,7 @@ def batch_rows_agree(torch, reg, src, tgt, what: str) -> None:
     within BENCH_ATOL."""
     from deepvcp_tpu_torch.models.deepvcp import DeepVCP
 
-    model, cfg = reg.model, reg.model.cfg
+    model = reg.model
     picked = []
 
     def record(ref, query, chunked, parts=1):
@@ -3894,12 +3861,13 @@ def batch_rows_agree(torch, reg, src, tgt, what: str) -> None:
             for _, m in differ.nonzero().tolist():
                 rows += 1
                 swapped = sorted(set(idx[0, m].tolist()) ^ set(want[0, m].tolist()))
-                if selection_near_tie(cfg, ref, query, 0, m, k, swapped):
+                if selection_near_tie(model, ref, query, 0, m, k, swapped):
                     ties += 1
                     continue
-                redo = torch.topk(selection_d2(cfg, ref, query, 0, m, centre), k, largest=False)
+                redo = torch.topk(selection_d2(model, ref, query, 0, m, centre), k, largest=False)
                 left = sorted(set(redo.indices.tolist()) ^ set(want[0, m].tolist()))
-                recentred += not left or selection_near_tie(cfg, ref, query, 0, m, k, left, centre)
+                recentred += not left or selection_near_tie(model, ref, query, 0, m, k, left,
+                                                            centre)
             return dist, want
 
         model._knn = pin

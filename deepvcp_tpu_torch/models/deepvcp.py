@@ -47,7 +47,7 @@ from deepvcp_tpu_torch.config import DeepVCPConfig
 from deepvcp_tpu_torch.models.layers import (
     CPG, FeatEmbedding, FeatureExtraction, WeightingLayer, compute_dtype)
 from deepvcp_tpu_torch.ops import (
-    apply_rigid, approx_knn, farthest_point_sample, group_neighbors, index_points, knn, voxelize)
+    apply_rigid, approx_knn, farthest_point_sample, group_neighbors, index_points, voxelize)
 from deepvcp_tpu_torch.ops.two_level import two_level_rows
 from deepvcp_tpu_torch.utils.profiling import annotate
 
@@ -118,17 +118,23 @@ class DeepVCP(nn.Module):
                                  dtype=dt)
         self.cpg = CPG(cfg.cpg_channels, cfg.grid_size, cfg.dfe_mlp[-1], dtype=dt)
 
-    def _knn(self, ref: torch.Tensor, query: torch.Tensor, chunked: bool, parts: int = 1):
-        """`chunked`: the configured query chunk, divided by `parts` (a
-        point group's size, so that each rank of a partition holds 1 /
-        parts of the distance tile; the neighbours are the same)."""
+    def select_args(self, chunked: bool = False, parts: int = 1) -> Dict:
+        """approx_knn's selection dtype and query chunk for the source and
+        flat candidate k-NN under this config: the extent-gated
+        knn_select_dtype_effective and knn_query_chunk on the approx_knn
+        contract, else f32 and query_chunk. `chunked`: the chunk, divided
+        by `parts` (a point group's size, so that each rank of a partition
+        holds 1 / parts of the distance tile; the neighbours are the same),
+        else none."""
         cfg = self.cfg
         if cfg.use_approx_knn:
-            return approx_knn(ref, query, cfg.num_neighbors,
-                              chunk=-(-cfg.knn_query_chunk // parts) if chunked else None,
-                              select_dtype=cfg.knn_select_dtype_effective)
-        return knn(ref, query, cfg.num_neighbors,
-                   chunk=-(-cfg.query_chunk // parts) if chunked else None)
+            select_dtype, chunk = cfg.knn_select_dtype_effective, cfg.knn_query_chunk
+        else:
+            select_dtype, chunk = None, cfg.query_chunk
+        return dict(select_dtype=select_dtype, chunk=-(-chunk // parts) if chunked else None)
+
+    def _knn(self, ref: torch.Tensor, query: torch.Tensor, chunked: bool, parts: int = 1):
+        return approx_knn(ref, query, self.cfg.num_neighbors, **self.select_args(chunked, parts))
 
     def _use_ring(self, n_ref: int, n_query: int, k: int) -> bool:
         """The ring's gate: a point group of P > 1 ranks that divides both

@@ -10,8 +10,9 @@ query has seen every reference point; a rank holds one [M/P, N/P] distance
 tile and one block at a time.
 
 The JAX package runs this in `shard_map` with `lax.top_k`, outside any
-Pallas kernel; the port's local work is plain PyTorch on each rank's
-device.
+Pallas kernel; the port selects each block's top-k with ops/knn.py::select
+(on the card, kernel K6's f32 arm for k <= 32) and merges in plain
+PyTorch on each rank's device.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from deepvcp_tpu_torch.ops.distance import square_distance
+from deepvcp_tpu_torch.ops.knn import select
 from deepvcp_tpu_torch.parallel.mesh import (
     POINT_AXIS, all_gather_cat, axis_group, axis_index, axis_peers, axis_size, shard_rows)
 
@@ -66,7 +67,7 @@ def ring_knn(mesh, ref: torch.Tensor, query: torch.Tensor, k: int,
     for step in range(P):
         # the block held at this step came `step` hops round the ring
         owner = (me - step) % P
-        d2, local = torch.topk(square_distance(q, block), k, dim=-1, largest=False)
+        d2, local = select(block, q, k)
         gidx = owner * shard_n + local
         if best_d is None:
             best_d, best_i = d2, gidx

@@ -23,23 +23,28 @@ each list in its order, and in kitti25-rot's three guarded refinements an
 ulp there grew to 0.04 deg of pose (PERF.md, K6). It replaces no TPU
 kernel: the JAX package selects with XLA's `jax.lax.approx_min_k`.
 
-`knn_select_bf16` is the same kernel on ops/knn.py::approx_knn's bf16
-selection tile: coordinates centred on the ref mean, the product of their
+`knn_select_bf16` is the same kernel on the reduced-precision selection
+tile in bf16: coordinates centred on the ref mean, the product of their
 bf16 roundings summed in f32, the norms of the unrounded centred
-coordinates, d2 rounded to bf16 and not clamped before the selection.
-`centred`, `tile_terms` and `tile_topk` are that tile, the one definition
-that approx_knn's tile arm and the plain version
-`knn_select_bf16_reference` run; the wrapper computes the centring, the
-norms and the roundings with the first two, and the kernel orders by torch.topk's
-radix key of the bf16 bits (-0 below +0), with the index packed beside it
-(N <= MAX_N_BF16), and returns the bf16 d2 and the indices of torch.topk's
-list of that tile, order included. ops/knn.py::approx_knn routes its f32
-and its bf16 selections on the card here for k <= MAX_K.
+coordinates, d2 rounded to bf16 and not clamped before the selection. The
+kernel orders by torch.topk's radix key of the bf16 bits (-0 below +0),
+with the index packed beside it (N <= MAX_N_BF16), and returns the bf16 d2
+and the indices of torch.topk's list of that tile, order included.
+
+Each arm's tile has one plain definition here, which every selection of
+the port runs where no kernel does: `knn_select_reference` (the f32 tile)
+and `centred`, `tile_terms`, `tile_d2` and `tile_topk` (the
+reduced-precision tile, which `knn_select_bf16_reference` runs; with no
+dtype, its unrounded and unclamped f32 form, which two-level's table
+selection runs in keypoint-local coordinates). The wrappers compute the
+norms, the centring and the roundings with them. `applies` says when an
+arm takes a call; ops/knn.py::select, the port's one k-nearest selection,
+routes there.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -57,11 +62,25 @@ def uses_kernel(t: torch.Tensor) -> bool:
     return t.device.type != "cpu" and not _plain.active()
 
 
-@torch.no_grad()
+def applies(ref: torch.Tensor, query: torch.Tensor, k: int,
+            sel: Optional[torch.dtype] = None) -> bool:
+    """Whether a K6 arm takes the k nearest points of ref to each query on
+    the tile of `sel` (None: knn_select, torch.bfloat16: knn_select_bf16):
+    the kernel runs on their device and its wrapper accepts them, but for
+    contiguity, the caller's to give."""
+    return (uses_kernel(query) and ref.device == query.device
+            and ref.dim() == query.dim() == 3 and ref.shape[-1] == query.shape[-1] == 3
+            and 1 <= ref.shape[0] == query.shape[0] <= MAX_BATCH
+            and ref.dtype == query.dtype == torch.float32
+            and 1 <= k <= min(MAX_K, ref.shape[1])
+            and (sel is None or (sel is torch.bfloat16 and ref.shape[1] <= MAX_N_BF16)))
+
+
 def knn_select_reference(ref: torch.Tensor, query: torch.Tensor,
                          k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch K6: torch.topk of square_distance's [B, M, N] tile.
-    ref [B, N, 3], query [B, M, 3] -> (d2, idx) [B, M, k], ascending d2."""
+    """Plain PyTorch K6, the f32 selection tile's one definition: torch.topk
+    of square_distance's [..., M, N] tile (clamped at 0). ref [..., N, 3],
+    query [..., M, 3] -> (d2, idx int64) [..., M, k], ascending d2."""
     top = torch.topk(square_distance(query, ref), k, dim=-1, largest=False)
     return top.values, top.indices
 
@@ -73,33 +92,37 @@ def centred(ref: torch.Tensor, query: torch.Tensor) -> Tuple[torch.Tensor, torch
     return ref - center, query - center
 
 
-def tile_terms(x: torch.Tensor, sel: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One centred cloud's terms of the reduced-precision selection tile:
-    its coordinates rounded to `sel` and back in f32, and its squared norms
-    from the unrounded coordinates."""
-    return x.to(sel).float(), torch.sum(x * x, dim=-1)
+def tile_terms(x: torch.Tensor,
+               sel: Optional[torch.dtype]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One cloud's terms of the reduced-precision selection tile: its
+    coordinates rounded to `sel` and back in f32 (None: as they are), and
+    its squared norms from the unrounded coordinates."""
+    return (x if sel is None else x.to(sel).float()), torch.sum(x * x, dim=-1)
+
+
+def tile_d2(ref_terms, query_terms, sel: Optional[torch.dtype]) -> torch.Tensor:
+    """The reduced-precision selection tile of tile_terms' (coordinates,
+    norms) of ref and query: the product of the rounded coordinates summed
+    in f32 (a bf16 x bf16 product is exact in f32), d2 = (s2 + r2) - 2 *
+    cross cast to `sel` (None: kept in f32), not clamped. -> [..., M, N]."""
+    (r, r2), (q, s2) = ref_terms, query_terms
+    d2 = s2[..., :, None] + r2[..., None, :] - 2.0 * (q @ r.transpose(-1, -2))
+    return d2 if sel is None else d2.to(sel)
 
 
 def tile_topk(ref_terms, query_terms, k: int,
-              sel: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The reduced-precision selection tile of tile_terms' (coordinates,
-    norms) of ref and query and torch.topk of it: the product of the
-    rounded coordinates summed in f32 (a bf16 x bf16 product is exact in
-    f32), d2 = (s2 + r2) - 2 * cross cast to `sel`, not clamped. ->
-    (d2 in `sel`, idx int64) [..., M, k]."""
-    (r, r2), (q, s2) = ref_terms, query_terms
-    cross = q @ r.transpose(-1, -2)
-    sqr = (s2[..., :, None] + r2[..., None, :] - 2.0 * cross).to(sel)
-    top = torch.topk(sqr, k, dim=-1, largest=False)
+              sel: Optional[torch.dtype]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """torch.topk of tile_d2: (d2 in `sel`, idx int64) [..., M, k],
+    ascending d2."""
+    top = torch.topk(tile_d2(ref_terms, query_terms, sel), k, dim=-1, largest=False)
     return top.values, top.indices
 
 
-@torch.no_grad()
 def knn_select_bf16_reference(ref: torch.Tensor, query: torch.Tensor,
                               k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch bf16 K6: approx_knn's bf16 tile arm on all of query at
-    once. ref [B, N, 3], query [B, M, 3] -> (d2 bfloat16, idx int64)
-    [B, M, k], torch.topk's list of the bf16 tile."""
+    """Plain PyTorch bf16 K6: the bf16 selection tile of ref and query
+    centred on ref's mean, and torch.topk of it. ref [B, N, 3], query
+    [B, M, 3] -> (d2 bfloat16, idx int64) [B, M, k]."""
     ref, query = centred(ref, query)
     return tile_topk(tile_terms(ref, torch.bfloat16), tile_terms(query, torch.bfloat16), k,
                      torch.bfloat16)
@@ -127,12 +150,12 @@ def _launch(wrapper, entry: str, ref: torch.Tensor, query: torch.Tensor, s2: tor
     """One launch of the library's `entry` on CUDA tensors, counted on
     `wrapper.launches`, then torch.topk's last step: sort the set by d2 (the
     kernel laid it out as torch.topk lays out its set before this sort)."""
-    if not query.is_cuda:
-        raise ValueError(f"no kernel for device {query.device}")
     B, M, _ = query.shape
     N = ref.shape[1]
     if B > MAX_BATCH:
         raise ValueError(f"B={B} exceeds the kernel's {MAX_BATCH}")
+    if not query.is_cuda:
+        raise ValueError(f"no kernel for device {query.device}")
     d2 = torch.empty((B, M, k), dtype=dtype, device=query.device)
     idx = torch.empty((B, M, k), dtype=torch.int64, device=query.device)
     if M == 0:
@@ -152,12 +175,11 @@ def knn_select(ref: torch.Tensor, query: torch.Tensor,
     tensor launches the Hopper kernel or raises. Records no autograd graph.
     `knn_select.launches` counts kernel launches."""
     _check(ref, query, k)
-    if not uses_kernel(query):
-        return knn_select_reference(ref, query, k)
     with torch.no_grad():
+        if not uses_kernel(query):
+            return knn_select_reference(ref, query, k)
         # square_distance's norms, op for op
-        s2 = torch.sum(query * query, dim=-1)
-        r2 = torch.sum(ref * ref, dim=-1)
+        (ref, r2), (query, s2) = tile_terms(ref, None), tile_terms(query, None)
     return _launch(knn_select, "knn_select_f32", ref, query, s2, r2, k, torch.float32)
 
 
@@ -167,17 +189,17 @@ knn_select.launches = 0
 def knn_select_bf16(ref: torch.Tensor, query: torch.Tensor,
                     k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The k <= 32 nearest points of ref [B, N, 3] (N <= MAX_N_BF16) to each
-    query [B, M, 3], both contiguous float32, on approx_knn's bf16 selection
-    tile: (d2 [B, M, k] bfloat16, idx [B, M, k] int64), torch.topk's list of
-    that tile (d2 not clamped). A CPU tensor runs the plain reference; a
+    query [B, M, 3], both contiguous float32, on the bf16 selection tile:
+    (d2 [B, M, k] bfloat16, idx [B, M, k] int64), torch.topk's list of that
+    tile (d2 not clamped). A CPU tensor runs the plain reference; a
     CUDA tensor launches the Hopper kernel or raises. Records no autograd
     graph. `knn_select_bf16.launches` counts kernel launches."""
     _check(ref, query, k)
     if ref.shape[1] > MAX_N_BF16:
         raise ValueError(f"N={ref.shape[1]} exceeds the bf16 arm's {MAX_N_BF16}")
-    if not uses_kernel(query):
-        return knn_select_bf16_reference(ref, query, k)
     with torch.no_grad():
+        if not uses_kernel(query):
+            return knn_select_bf16_reference(ref, query, k)
         ref, query = centred(ref, query)
         (ref, r2), (query, s2) = tile_terms(ref, torch.bfloat16), tile_terms(query, torch.bfloat16)
     return _launch(knn_select_bf16, "knn_select_bf16", ref, query, s2, r2, k, torch.bfloat16)

@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 
 from deepvcp_tpu_torch.ops.grouping import index_points
+from deepvcp_tpu_torch.ops.kernels import knn_select as k6
 from deepvcp_tpu_torch.ops.kernels.onehot_gather import onehot_gather_vjp
 from deepvcp_tpu_torch.ops.knn import approx_knn
 
@@ -46,22 +47,16 @@ def table_neighbors(table_xyz: torch.Tensor, centers: torch.Tensor, cand: torch.
                     k: int, select_dtype: Optional[str] = None) -> torch.Tensor:
     """Level 2: each candidate's k nearest table rows, [B, K, C, k] int64
     into T, ascending distance. table_xyz [B, K, T, 3], centers [B, K, 3],
-    cand [B, K, C, 3]. d^2 = |c|^2 + |t|^2 - 2 c.t in coordinates local to
-    the center (not centred on a cloud mean, unlike approx_knn); with
+    cand [B, K, C, 3]. The reduced-precision selection tile
+    (ops/kernels/knn_select.py: tile_terms, tile_topk) in coordinates local
+    to the center (not centred on a cloud mean, unlike approx_knn): with
     `select_dtype` the product's inputs are rounded to it, the product
     accumulated in f32 (exact for bf16 inputs) and d^2 cast to it for the
-    selection, as in JAX."""
-    local_t = table_xyz - centers[:, :, None, :]
-    local_c = cand - centers[:, :, None, :]
-    s2 = torch.sum(local_c * local_c, dim=-1)[..., :, None]
-    r2 = torch.sum(local_t * local_t, dim=-1)[..., None, :]
-    if select_dtype:
-        sel = getattr(torch, select_dtype)
-        cross = local_c.to(sel).float() @ local_t.to(sel).float().transpose(-1, -2)
-        d2 = (s2 + r2 - 2.0 * cross).to(sel)
-    else:
-        d2 = s2 + r2 - 2.0 * (local_c @ local_t.transpose(-1, -2))
-    return torch.topk(d2, k, dim=-1, largest=False).indices
+    selection, as in JAX; without, its f32 form."""
+    sel = getattr(torch, select_dtype) if select_dtype else None
+    table_terms = k6.tile_terms(table_xyz - centers[:, :, None, :], sel)
+    cand_terms = k6.tile_terms(cand - centers[:, :, None, :], sel)
+    return k6.tile_topk(table_terms, cand_terms, k, sel)[1]
 
 
 def gather_table_rows(table: torch.Tensor, l_idx: torch.Tensor,

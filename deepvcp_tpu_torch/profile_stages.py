@@ -181,8 +181,7 @@ def profile_stages(model, batch: int, device: torch.device, reps: int = 10,
         "fe(tgt)": (lambda: model.fe(tgt, None), (tgt,), _fe_ops(cfg, B, N)),
         "weighting": (lambda: model.wl(feats), (feats,), _mlp_ops(B * N, cfg.wl_mlp, F)),
         "candidate knn": (
-            lambda: approx_knn(tgt, cand_flat, ns, chunk=cfg.knn_query_chunk,
-                               select_dtype=cfg.knn_select_dtype_effective),
+            lambda: approx_knn(tgt, cand_flat, ns, **model.select_args(chunked=True)),
             (tgt, cand_flat), _tile_ops(B * K * C, N)),
         "row gather": (lambda: index_points(table, rows_idx), (rows_idx,), 0),
         "two-level rows": (

@@ -1,13 +1,16 @@
 """Kernel K6, the k <= 32 nearest points with the tile kept on chip
 (deepvcp_tpu_torch/ops/kernels/knn_select.py): the plain PyTorch versions
 against square_distance and torch.topk and against approx_knn's bf16 tile
-arm, the tie rule, the wrappers' checks, and approx_knn's routing; on a
-CUDA card, the Hopper kernel's f32 and bf16 arms against their plain
-versions.
+arm, the tie rule, the wrappers' checks, k6.applies against them, and the
+routing of ops/knn.py::select and its faces knn and approx_knn; on a CUDA
+card, the Hopper kernel's f32 and bf16 arms against their plain versions,
+and on knn's and the ring's shapes.
 
 No JAX here, so that the card-only tests run where jax is not installed:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_knn_select.py
 """
+
+import importlib
 
 import numpy as np
 import pytest
@@ -18,6 +21,8 @@ from deepvcp_tpu_torch.ops.distance import square_distance
 from deepvcp_tpu_torch.ops.kernels import knn_select as k6
 from deepvcp_tpu_torch.ops.kernels import reference_path
 
+knn_mod = importlib.import_module("deepvcp_tpu_torch.ops.knn")
+
 torch.set_num_threads(2)
 
 
@@ -26,6 +31,13 @@ def _clouds(seed, B, M, N, scale=5.0):
     ref = (rng.uniform(-1, 1, (B, N, 3)) * scale).astype(np.float32)
     query = (rng.uniform(-1, 1, (B, M, 3)) * scale).astype(np.float32)
     return torch.from_numpy(ref), torch.from_numpy(query)
+
+
+def _recorder(fn, seen):
+    def recorded(r, q, k):
+        seen.append(q.shape[1])
+        return fn(r, q, k)
+    return recorded
 
 
 def _lexsorted(d2, k):
@@ -104,28 +116,29 @@ def test_wrapper_checks_inputs():
         k6.knn_select(ref.to("meta"), query.to("meta"), 8)
 
 
-def test_approx_knn_routes(monkeypatch):
-    """On the CPU every case keeps the unchanged code (chunked
-    square_distance + torch.topk) and never reaches knn_select; where the
-    kernel runs, f32 with k <= 32 makes one knn_select call with every
-    query, whatever the chunk, and returns its list with sqrt(d2)."""
+@pytest.mark.parametrize("fn", ["knn", "approx_knn"])
+def test_approx_knn_routes(monkeypatch, fn):
+    """knn and approx_knn in f32 are select's: on the CPU every case takes
+    the plain tile (chunked square_distance + torch.topk) and never reaches
+    knn_select; where the kernel runs, k <= 32 makes one knn_select call
+    with every query, whatever the chunk, and returns its list with
+    sqrt(d2); select returns the list itself."""
     ref, query = _clouds(2, 2, 90, 300)
     seen = []
-    plain = k6.knn_select_reference
-
-    def recorded(r, q, k):
-        seen.append(q.shape[1])
-        return plain(r, q, k)
-
-    monkeypatch.setattr(k6, "knn_select", recorded)
+    monkeypatch.setattr(k6, "knn_select", _recorder(k6.knn_select_reference, seen))
     want = torch.topk(square_distance(query, ref), 8, dim=-1, largest=False)
-    d, idx = ops.approx_knn(ref, query, 8, chunk=32)
-    assert seen == []
+    face = getattr(ops, fn)
+    d, idx = face(ref, query, 8, chunk=32)
+    assert seen == [] and not k6.applies(ref, query, 8)
     assert torch.equal(idx, want.indices) and torch.equal(d, torch.sqrt(want.values))
     monkeypatch.setattr(k6, "uses_kernel", lambda t: True)
-    d, idx = ops.approx_knn(ref, query, 8, chunk=32)
+    assert k6.applies(ref, query, 8)
+    d, idx = face(ref, query, 8, chunk=32)
     assert seen == [90]
     assert torch.equal(idx, want.indices) and torch.equal(d, torch.sqrt(want.values))
+    d2, idx = knn_mod.select(ref, query, 8, chunk=32)
+    assert seen == [90, 90]
+    assert torch.equal(idx, want.indices) and torch.equal(d2, want.values)
 
 
 def _fall_through_case(name):
@@ -153,28 +166,26 @@ def _fall_through_case(name):
     return ref, query, kw
 
 
-def _recorder(fn, seen):
-    def recorded(r, q, k):
-        seen.append(q.shape[1])
-        return fn(r, q, k)
-    return recorded
+FALL_THROUGH = ["k33", "k40", "float64", "2-D clouds", "one ref, two query clouds",
+                "two ref clouds, one query"]
+BF16_FALL_THROUGH = ["bfloat16", "float16", "bfloat16, k33", "bfloat16, float64",
+                     "bfloat16, 2-D clouds", "bfloat16, one ref, two query clouds",
+                     "bfloat16, two ref clouds, one query", "bfloat16, N = 65 537"]
 
 
-@pytest.mark.parametrize("name", ["k33", "k40", "bfloat16", "float16", "float64", "2-D clouds",
-                                  "one ref, two query clouds", "two ref clouds, one query",
-                                  "bfloat16, k33", "bfloat16, float64", "bfloat16, 2-D clouds",
-                                  "bfloat16, one ref, two query clouds",
-                                  "bfloat16, two ref clouds, one query", "bfloat16, N = 65 537"])
-def test_approx_knn_falls_through_where_the_kernel_does_not_apply(monkeypatch, name):
+@pytest.mark.parametrize("fn,name", [("approx_knn", n) for n in FALL_THROUGH + BF16_FALL_THROUGH]
+                         + [("knn", n) for n in FALL_THROUGH])
+def test_approx_knn_falls_through_where_the_kernel_does_not_apply(monkeypatch, fn, name):
     """k > 32, an f16 selection tile, f64, 2-D clouds, clouds broadcast over
-    B and, on the bf16 tile, more than 65 536 points keep the unchanged
-    code even where the kernel runs: neither wrapper is called, nothing is
-    launched, and the result is the CPU route's. The bf16 tile with k <= 32
-    on [B, N, 3] f32 clouds ("bfloat16") no longer falls through: it makes
-    one knn_select_bf16 call with every query, and never calls the f32
+    B and, on the bf16 tile, more than 65 536 points keep the plain tile
+    even where the kernel runs: k6.applies is false, neither wrapper is
+    called, nothing is launched, and the result is the CPU route's. The
+    bf16 tile with k <= 32 on [B, N, 3] f32 clouds ("bfloat16") makes one
+    knn_select_bf16 call with every query, and never calls the f32
     knn_select."""
     ref, query, kw = _fall_through_case(name)
-    want = ops.approx_knn(ref, query, **kw)
+    face = getattr(ops, fn)
+    want = face(ref, query, **kw)
     counted = (k6.knn_select, k6.knn_select_bf16)
     launches = [fn.launches for fn in counted]
 
@@ -187,10 +198,56 @@ def test_approx_knn_falls_through_where_the_kernel_does_not_apply(monkeypatch, n
     monkeypatch.setattr(k6, "knn_select", refuse)
     monkeypatch.setattr(k6, "knn_select_bf16", _recorder(k6.knn_select_bf16_reference, seen)
                         if routed else refuse)
-    got = ops.approx_knn(ref, query, **kw)
+    sel = getattr(torch, kw["select_dtype"]) if "select_dtype" in kw else None
+    assert k6.applies(ref, query, kw["k"], sel) == routed
+    got = face(ref, query, **kw)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert seen == ([query.shape[1]] if routed else [])
     assert [fn.launches for fn in counted] == launches
+
+
+def _applies_case(name):
+    ref, query = _clouds(13, 2, 10, 40)
+    k = {"k0": 0, "k33": 33, "k above N": 41}.get(name, 8)
+    if name == "float64":
+        ref, query = ref.double(), query.double()
+    elif name == "bfloat16 clouds":
+        ref, query = ref.to(torch.bfloat16), query.to(torch.bfloat16)
+    elif name == "2-D clouds":
+        ref, query = ref[0], query[0]
+    elif name == "4 channels":
+        ref, query = torch.cat([ref, ref[..., :1]], -1), torch.cat([query, query[..., :1]], -1)
+    elif name == "B disagrees":
+        ref = ref[:1]
+    elif name == "N = 0":
+        ref = ref[:, :0]
+    elif name == "two devices":
+        ref = ref.to("meta")
+    elif name == "B = 65 536":
+        ref, query = torch.zeros(65536, 1, 3), torch.zeros(65536, 1, 3)
+        k = 1
+    elif name == "N = 65 537":
+        ref = torch.zeros(2, 65537, 3)
+    return ref, query, k
+
+
+@pytest.mark.parametrize("sel", [None, torch.bfloat16])
+@pytest.mark.parametrize("name", ["fits", "k0", "k33", "k above N", "float64", "bfloat16 clouds",
+                                  "2-D clouds", "4 channels", "B disagrees", "N = 0",
+                                  "two devices", "B = 65 536", "N = 65 537"])
+def test_applies_is_what_the_wrappers_accept(monkeypatch, sel, name):
+    """Where the kernel runs, k6.applies holds exactly where the arm's
+    wrapper takes the (contiguous) clouds to its launch: here, on CPU
+    tensors, that launch refuses the device, and every other case is
+    refused earlier by the wrapper's checks."""
+    ref, query, k = _applies_case(name)
+    wrapper = k6.knn_select if sel is None else k6.knn_select_bf16
+    monkeypatch.setattr(k6, "uses_kernel", lambda t: True)
+    with pytest.raises((ValueError, TypeError)) as refused:
+        wrapper(ref.contiguous(), query.contiguous(), k)
+    accepted = str(refused.value).startswith("no kernel for device")
+    assert k6.applies(ref, query, k, sel) == accepted
+    assert accepted == (name == "fits" or (name == "N = 65 537" and sel is None))
 
 
 def _bf16_case(name, B=2, M=70, N=400):
@@ -236,9 +293,6 @@ def test_approx_knn_routes_bf16(monkeypatch):
     deepvcp.select_tile range, never calls the f32 knn_select, and returns
     the tile arm's distances and indices."""
     import contextlib
-    import importlib
-
-    knn_mod = importlib.import_module("deepvcp_tpu_torch.ops.knn")
 
     ref, query = _bf16_case("negative d2", M=90)
     want = ops.approx_knn(ref, query, 32, chunk=32, select_dtype="bfloat16")
@@ -355,6 +409,32 @@ def test_kernel_matches_reference_on_card(cuda):
                 got = k6.knn_select(r, query, k)
             assert torch.equal(got[1], want[1])
             assert k6.knn_select.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_knn_and_ring_blocks_take_the_kernel_on_card(cuda):
+    """knn (the dense engine's selections) and select (ring_knn's block
+    step) on the card take K6's f32 arm, one launch a call whatever the
+    chunk, and return the plain tile's lists (select under reference_path,
+    chunked alike) bit for bit: at the dense engine's shapes (N = 2 048:
+    64 keypoints, 13 824 candidates, B = 1 and 2) and at a ring block's
+    (13 824 / P candidates x 10 000 / P points, P = 1, 2, 4)."""
+    cases = [(1, 64, 2048), (1, 13824, 2048), (2, 13824, 2048), (1, 13824, 10000),
+             (1, 6912, 5000), (1, 3456, 2500)]
+    k = 32
+    for i, (B, M, N) in enumerate(cases):
+        ref, query = (t.to(cuda) for t in _clouds(200 + i, B, M, N, scale=25.0))
+        for chunk in (None, 2048):
+            before = k6.knn_select.launches
+            d2, idx = knn_mod.select(ref, query, k, chunk=chunk)
+            dist, idx_knn = ops.knn(ref, query, k, chunk=chunk)
+            torch.cuda.synchronize()
+            assert k6.knn_select.launches == before + 2
+            with reference_path():
+                want = knn_mod.select(ref, query, k, chunk=chunk)
+            assert torch.equal(idx, want[1]) and torch.equal(d2, want[0]), (B, M, N, chunk)
+            assert torch.equal(idx_knn, want[1]), (B, M, N, chunk)
+            assert torch.equal(dist, torch.sqrt(want[0])), (B, M, N, chunk)
 
 
 @pytest.mark.gpu

@@ -86,6 +86,7 @@ def ranks(variables):
     cases = {
         "P2": ("ring_knn", dict(shape=(2, 2), ref=REF, query=QUERY, k=8)),
         "P4": ("ring_knn", dict(shape=(1, 4), ref=REF, query=QUERY, k=8)),
+        "P4 kernel": ("ring_knn", dict(shape=(1, 4), ref=REF, query=QUERY, k=8, kernel=True)),
         "self": ("ring_knn", dict(shape=(1, 4), ref=SELF, query=SELF, k=4)),
         "replicated": ("ring_knn", dict(shape=(2, 2), ref=BREF, query=BQUERY, k=8)),
         "batch_axis": ("ring_knn", dict(shape=(2, 2), ref=BREF, query=BQUERY, k=8,
@@ -128,6 +129,16 @@ def test_ring_knn_matches_jax(ranks, case, shape):
     for got in ranks[case]:
         _assert_same_knn(got, want, REF, QUERY)
         np.testing.assert_array_equal(got[1], ranks[case][0][1])
+
+
+def test_ring_blocks_take_the_kernel_where_it_runs(ranks):
+    """Each ring step selects its block's top-k through ops/knn.py::select:
+    where K6 runs, one knn_select call a step with the rank's 16 queries
+    (P = 4), and the result of the plain tile, bit for bit."""
+    for (d, i, seen), (d_tile, i_tile) in zip(ranks["P4 kernel"], ranks["P4"]):
+        assert seen == [16] * 4
+        np.testing.assert_array_equal(i, i_tile)
+        np.testing.assert_array_equal(d, d_tile)
 
 
 def test_ring_knn_self_query_finds_self(ranks):

@@ -20,7 +20,7 @@ import torch
 from deepvcp_tpu_torch.ops import knn
 from deepvcp_tpu_torch.ops.kernels import onehot_gather as og
 from deepvcp_tpu_torch.ops.kernels import reference_path
-from deepvcp_tpu_torch.ops.two_level import gather_table_rows, two_level_rows
+from deepvcp_tpu_torch.ops.two_level import gather_table_rows, table_neighbors, two_level_rows
 
 torch.set_num_threads(2)
 
@@ -222,6 +222,29 @@ def test_two_level_rows_bf16_selection_near_jax():
     assert differ < 0.3 * cand.shape[1] * cand.shape[2]
     rows = scene[1][0]
     np.testing.assert_array_equal(got[0], rows[got[0, ..., -1].astype(int)])
+
+
+@pytest.mark.parametrize("select_dtype", [None, "bfloat16"])
+def test_table_neighbors_is_the_written_out_tile(select_dtype):
+    """Level 2 runs the reduced-precision selection tile's one definition
+    (knn_select.tile_terms, tile_topk) in keypoint-local coordinates: bit
+    for bit the formula written out here, its f32 form without a dtype."""
+    tgt, _, centers, cand = map(torch.from_numpy, _scene(6, N=1024, K=6))
+    table = tgt[:, None, :256] + 0.25 * torch.arange(6.0)[None, :, None, None]
+    local_t = table - centers[:, :, None, :]
+    local_c = cand - centers[:, :, None, :]
+    s2 = torch.sum(local_c * local_c, dim=-1)[..., :, None]
+    r2 = torch.sum(local_t * local_t, dim=-1)[..., None, :]
+    if select_dtype:
+        sel = getattr(torch, select_dtype)
+        cross = local_c.to(sel).float() @ local_t.to(sel).float().transpose(-1, -2)
+        d2 = (s2 + r2 - 2.0 * cross).to(sel)
+    else:
+        d2 = s2 + r2 - 2.0 * (local_c @ local_t.transpose(-1, -2))
+    want = torch.topk(d2, 8, dim=-1, largest=False).indices
+    got = table_neighbors(table, centers, cand, 8, select_dtype)
+    assert got.shape == (1, 6, 27, 8)
+    assert torch.equal(got, want)
 
 
 def test_recall_at_bench_scale():

@@ -116,12 +116,34 @@ def gather_grads(shape, x, w):
     return float(loss), grads[:x.numel()].reshape(x.shape).numpy(), grads[x.numel():].numpy()
 
 
-def ring_knn(shape, ref, query, k, batch_axis=None):
+def ring_knn(shape, ref, query, k, batch_axis=None, kernel=False):
+    """ring_knn's (distances, indices); with `kernel`, run as where K6 runs
+    (k6.uses_kernel true, k6.knn_select its plain version, each call's
+    number of queries recorded), and that record as well."""
     from deepvcp_tpu_torch.ops.distributed import ring_knn as ring
+    from deepvcp_tpu_torch.ops.kernels import knn_select as k6
 
     mesh = make_mesh(*shape, device="cpu")
-    d, i = ring(mesh, torch.from_numpy(ref), torch.from_numpy(query), k, batch_axis=batch_axis)
-    return d.numpy(), i.numpy()
+
+    def run():
+        d, i = ring(mesh, torch.from_numpy(ref), torch.from_numpy(query), k,
+                    batch_axis=batch_axis)
+        return d.numpy(), i.numpy()
+
+    if not kernel:
+        return run()
+    seen = []
+
+    def recorded(r, q, kk):
+        seen.append(q.shape[1])
+        return k6.knn_select_reference(r, q, kk)
+
+    saved = k6.uses_kernel, k6.knn_select
+    k6.uses_kernel, k6.knn_select = (lambda t: True), recorded
+    try:
+        return (*run(), seen)
+    finally:
+        k6.uses_kernel, k6.knn_select = saved
 
 
 def ring_forward(shape, cfg: DeepVCPConfig, state, batch):
