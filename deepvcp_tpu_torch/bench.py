@@ -112,7 +112,7 @@ def run(num_points: int = 10000, batch: int = 1, iters: int = 10, warmup: int = 
           f"{[f'{x:.3f}' for x in times]}", file=sys.stderr)
 
     # the serving rate: calls issued back to back, one copy to the host at
-    # the end (each call still syncs on its own SVD: ops/kabsch.py)
+    # the end (each call still syncs on its grid copies: ops/voxelize.py)
     stream = max(iters * 2, 10)
     out = run_sync()
     best = None

@@ -1,11 +1,18 @@
 """Weighted Kabsch solve with the reflection fix (port of
-deepvcp_tpu/ops/kabsch.py). Points are row vectors: y ~= x @ R.T + t."""
+deepvcp_tpu/ops/kabsch.py). Points are row vectors: y ~= x @ R.T + t.
+
+The 3 x 3 SVD goes through ops/svd.py::svd: on the card without a gradient
+to record, cuSOLVER's batched Jacobi SVD with torch.linalg.svd's bits and
+no host sync (torch's own call reads every matrix's convergence back to
+the host twice); elsewhere torch.linalg.svd itself."""
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+
+from deepvcp_tpu_torch.ops.svd import svd
 
 
 def kabsch(x: torch.Tensor, y: torch.Tensor,
@@ -20,7 +27,7 @@ def kabsch(x: torch.Tensor, y: torch.Tensor,
     dx = x - cx[..., None, :]
     dy = y - cy[..., None, :]
     H = torch.einsum("...na,...n,...nb->...ab", dx, w, dy)
-    u, _, vt = torch.linalg.svd(H)
+    u, _, vt = svd(H)
     v = vt.transpose(-1, -2)
     ut = u.transpose(-1, -2)
     # reflection fix: R = V diag(1, 1, det(V U^T)) U^T

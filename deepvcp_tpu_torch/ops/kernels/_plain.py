@@ -22,7 +22,8 @@ def reference_path():
     """Within this block every kernel wrapper (K1 banded_masked_max, K2
     banded_masked_max_grad, K3 farthest_point_sample, K4 onehot_gather, K5
     onehot_scatter_add, K6 knn_select and knn_select_bf16) runs its plain
-    PyTorch version on CUDA tensors too."""
+    PyTorch version on CUDA tensors too, and ops/svd.py::svd runs
+    torch.linalg.svd."""
     global _active
     prev = _active
     _active = True

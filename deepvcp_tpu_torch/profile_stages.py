@@ -18,7 +18,7 @@ the hold tells whether the hold was still running when the last call had
 been issued; if it was not, the calls may have waited for the host, and
 the stage is timed again behind a hold 4 times as long, up to
 HOLD_TRIES holds. A stage whose longest hold ran out too (one that waits
-for the device within a call, as the SVD's host sync does) keeps that
+for the device within a call, as voxelize's copy to the card does) keeps that
 reading with the bound "host" and no roofline shares: its time is not the
 device's alone. On the CPU, the median wall time of a
 call.

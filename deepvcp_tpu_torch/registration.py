@@ -222,7 +222,8 @@ class Registrar:
         """Pipelined registration over an iterable of (src, tgt[, R_init,
         t_init]) tuples on the registrar's device: outputs in input order,
         with at most `depth` calls in flight. Each call's own host syncs
-        (the Kabsch solve's SVD) bound what the pipeline can overlap."""
+        (the candidate grid's copy to the card in every refinement,
+        ops/voxelize.py) bound what the pipeline can overlap."""
         return _stream(self, pairs, depth)
 
 
