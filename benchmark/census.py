@@ -55,11 +55,10 @@ def sync_debug_lines(config: dict, traffic: dict, seed: int, device) -> list:
     reports in DEBUG_CALLS calls of the cell's load, by file:line, per call."""
     import torch
 
-    from benchmark import drive, generate, system
-    from benchmark.reference.deepvcp import load_npz
+    from benchmark import drive, generate, manifest, system
 
-    reg = system.registrar(config, load_npz(str(ROOT / config["weights"])), device)
-    pool = generate.make_pool(seed, traffic, int(config["model"]["num_points"]))
+    reg = system.build(config, system.params(config), device)
+    pool = generate.make_pool(seed, traffic, manifest.num_points(config))
     B = int(traffic["batch"])
     batches = [(torch.from_numpy(pool.src[s:s + B]).to(device),
                 torch.from_numpy(pool.tgt[s:s + B]).to(device))

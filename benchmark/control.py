@@ -7,9 +7,10 @@ For each seed: the pool of that seed, a short window of the cell's own load
 through the port (the timed path's entry, batch and depth, 4 x check_calls
 calls, a sample of check_calls of them drawn from the seed, as a run draws
 it), and the numbers of benchmark/check.py for the sample against the plain
-reference. For each control seed also the control's numbers: the reference
-computed in TF32 (the nearest precision below the configuration's float32
-with TF32 off), put in the program's place and held to the same reference.
+reference that the configuration names (benchmark/system.py builds both).
+For each control seed also the control's numbers: the reference computed in
+TF32 (the nearest precision below the configuration's float32 with TF32
+off), put in the program's place and held to the same reference.
 Prints one JSON line a seed and side, then the largest program reading and
 the smallest control reading of each number. The benchmark's own runs do not
 run this.
@@ -31,18 +32,17 @@ def readings(config: dict, traffic: dict, seeds, control_seeds, device) -> list:
     """[{"seed", "side": "program" | "control", numbers...}] for the cell."""
     import torch
 
-    from benchmark import check, drive, generate, system
-    from benchmark.reference.deepvcp import Reference, load_npz
+    from benchmark import check, drive, generate, manifest, system
 
-    params = load_npz(str(ROOT / config["weights"]))
-    reg = system.registrar(config, params, device)
-    reference = Reference(config, params, device)
-    control = Reference(config, params, device, allow_tf32=True)
+    params = system.params(config)
+    reg = system.build(config, params, device)
+    reference = system.reference(config, params, device)
+    control = system.reference(config, params, device, allow_tf32=True)
     B, P = int(traffic["batch"]), int(traffic["pool"])
     k = int(traffic["check_calls"])
     rows = []
     for seed in seeds:
-        pool = generate.make_pool(seed, traffic, int(config["model"]["num_points"]))
+        pool = generate.make_pool(seed, traffic, manifest.num_points(config))
         src = torch.from_numpy(pool.src).to(device)
         tgt = torch.from_numpy(pool.tgt).to(device)
         batches = [(src[s:s + B], tgt[s:s + B]) for s in range(0, P, B)]

@@ -1,6 +1,8 @@
 """BENCHMARK.json and the files it names, found by name:
 
-- a configuration: the file of its `configs` entry (benchmark/configs/<name>.json);
+- a configuration: the file of its `configs` entry (benchmark/configs/<name>.json),
+  with its stages (`stages`: one, or the file's `stages` list) and its plain
+  reference (`reference`: a Python file that the harness loads by its path);
 - a traffic mix: benchmark/traffic/<traffic>.json;
 - a metric, end-to-end or per-layer: its reader benchmark/metrics/<name>.py,
   a module with `read(run) -> float | None` (None: nothing to read here,
@@ -16,7 +18,7 @@ import importlib.util
 import json
 import re
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Type
 
 ROOT = Path(__file__).resolve().parents[1]
 HERE = Path(__file__).resolve().parent
@@ -28,6 +30,12 @@ WORKLOAD_KEYS = {"name", "config", "traffic", "chips", "why"}
 E2E_KEYS = {"name", "unit", "better", "bound", "source"}
 LAYER_KEYS = {"name", "unit", "better", "source", "layer", "moves"}
 SOURCES = {"device_trace", "program_span", "program_counter", "host_clock"}
+# what one stage of a configuration names: a registry checkpoint, the file of
+# its exported weights, the port's DeepVCPConfig fields and the Registrar's
+# settings
+STAGE_KEYS = ("name", "checkpoint", "weights", "model", "registrar")
+# what the stages of one composition share: the input contract
+CONTRACT = ("num_points", "use_normal")
 
 
 def load(root: Path = ROOT) -> dict:
@@ -55,18 +63,48 @@ def config(manifest: dict, name: str, root: Path = ROOT) -> dict:
     raise KeyError(f"no configuration {name!r} in BENCHMARK.json")
 
 
+def stages(config: dict) -> List[dict]:
+    """The stages of a configuration, in execution order: the file's
+    `stages` list, or the file itself where it names one `model`,
+    `registrar` and `weights` at its top level. Each stage has STAGE_KEYS;
+    the other top-level keys (name, source, about, precision, reference,
+    reduced, assumed, limits) are the whole composition's."""
+    return config["stages"] if "stages" in config else [config]
+
+
+def num_points(config: dict) -> int:
+    """The points a cloud has under the configuration (its stages agree)."""
+    return int(stages(config)[0]["model"]["num_points"])
+
+
+def _load(path: Path, name: str):
+    """The Python file at `path`, loaded as a module of its own under `name`."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def reference(config: dict, root: Path = ROOT) -> Type:
+    """The `Reference` class of the file that the configuration's
+    `reference` names (a path from the checkout's root): built as
+    Reference(config, params, device, allow_tf32=False), with
+    `.register(src, tgt)`."""
+    path = root / config["reference"]
+    if not path.is_file():
+        raise FileNotFoundError(f"configuration {config.get('name')!r}: its reference "
+                                f"{config['reference']!r} is no file under {root}")
+    return _load(path, "benchmark_reference_" + re.sub(r"\W", "_", path.stem)).Reference
+
+
 def traffic(name: str, here: Path = HERE) -> dict:
     return _json(here / "traffic" / f"{name}.json")
 
 
 def reader(name: str, here: Path = HERE) -> Callable:
     """The `read` function of benchmark/metrics/<name>.py."""
-    path = here / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        "benchmark_metric_" + re.sub(r"\W", "_", name), path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return _load(here / "metrics" / f"{name}.py",
+                 "benchmark_metric_" + re.sub(r"\W", "_", name)).read
 
 
 def reported(manifest: dict, cell: str) -> Dict[str, List[dict]]:
@@ -78,6 +116,40 @@ def reported(manifest: dict, cell: str) -> Dict[str, List[dict]]:
     layer = [m for m in manifest["per_layer"]
              if (cell in m["workloads"] if "workloads" in m else m["moves"] in names)]
     return {"end_to_end": e2e, "per_layer": layer}
+
+
+def config_problems(config: dict, root: Path = ROOT, here: Optional[Path] = None) -> List[str]:
+    """What in one configuration file's stages and reference breaks the
+    harness's schema: each stage names STAGE_KEYS, the stages agree on
+    CONTRACT, and the reference is a file of the benchmark's own (`here`)."""
+    here = here or root / "benchmark"
+    name = config.get("name")
+    if "stages" in config:
+        given = config["stages"]
+        if not isinstance(given, list) or not given:
+            return [f"configuration {name!r}: stages must be a list of one or more"]
+        shared = sorted({"weights", "model", "registrar"} & set(config))
+        out = [f"configuration {name!r}: {shared} both at the top and in its stages"] \
+            if shared else []
+    else:
+        given, out = [config], []
+    for i, stage in enumerate(given):
+        missing = [k for k in STAGE_KEYS if not isinstance(stage, dict) or k not in stage]
+        if missing:
+            out.append(f"configuration {name!r}: stage {i} lacks {missing}")
+        elif not NAME.match(str(stage["name"])):
+            out.append(f"configuration {name!r}: stage name {stage['name']!r}")
+    if not out:
+        contracts = {tuple(s["model"].get(k) for k in CONTRACT) for s in given}
+        if len(contracts) > 1:
+            out.append(f"configuration {name!r}: stages disagree on {CONTRACT}: "
+                       f"{sorted(contracts, key=str)}")
+    ref = config.get("reference")
+    if not isinstance(ref, str) or not (root / ref).is_file():
+        out.append(f"configuration {name!r}: reference {ref!r} is no file")
+    elif not (root / ref).resolve().is_relative_to(here.resolve()):
+        out.append(f"configuration {name!r}: reference {ref!r} lies outside {here}")
+    return out
 
 
 def problems(manifest: dict, root: Path = ROOT, here: Optional[Path] = None) -> List[str]:
@@ -102,8 +174,11 @@ def problems(manifest: dict, root: Path = ROOT, here: Optional[Path] = None) -> 
         named(c, "configuration", CONFIG_KEYS)
         if not (root / c["file"]).exists():
             out.append(f"configuration file {c['file']} is missing")
-        elif _json(root / c["file"]).get("reduced") != c["reduced"]:
-            out.append(f"configuration {c['name']!r}: reduced differs from its file's")
+        else:
+            cfg = _json(root / c["file"])
+            if cfg.get("reduced") != c["reduced"]:
+                out.append(f"configuration {c['name']!r}: reduced differs from its file's")
+            out += config_problems(cfg, root, here)
         for key in c["reduced"]:
             if not NAME.match(key):
                 out.append(f"reduced key {key!r}")

@@ -310,19 +310,22 @@ class Reference:
         return torch.sqrt(torch.mean(torch.clamp_min(best, 0.0), dim=-1))
 
     @torch.no_grad()
-    def register(self, src: torch.Tensor, tgt: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """src, tgt [B, N, 3] from the identity pose -> {"R", "t", "keypoints",
-        "vcps", "saliency", "scores"} of the guarded refinement."""
+    def register(self, src: torch.Tensor, tgt: torch.Tensor, R_init: Optional[torch.Tensor] = None,
+                 t_init: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """src, tgt [B, N, 3] from the pose (R_init [B, 3, 3], t_init [B, 3]),
+        the identity where None -> {"R", "t", "keypoints", "vcps",
+        "saliency", "scores"} of the guarded refinement."""
         with tf32(self.allow_tf32):
-            return self._register(src, tgt)
+            return self._register(src, tgt, R_init, t_init)
 
-    def _register(self, src, tgt):
+    def _register(self, src, tgt, R_init, t_init):
         r = self.r
         B = src.shape[0]
         enc = self.encode(src, tgt)
         kp = enc["keypoints"]
-        R = torch.eye(3, dtype=src.dtype, device=src.device).expand(B, 3, 3)
-        t = torch.zeros(B, 3, dtype=src.dtype, device=src.device)
+        R = torch.eye(3, dtype=src.dtype, device=src.device).expand(B, 3, 3) \
+            if R_init is None else R_init
+        t = torch.zeros(B, 3, dtype=src.dtype, device=src.device) if t_init is None else t_init
         best = self.score(kp, tgt, R, t)
         scores = [best]
         weights = enc["keypoint_saliency"] if r["use_saliency_weights"] else None

@@ -2,15 +2,17 @@
 
     python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-A run builds the cell's system (the port's Registrar on the configuration's
-weights), makes the pool of pairs from the seed, moves it to the card, warms
+A run builds the cell's system (benchmark/system.py: the port's Registrar on
+the configuration's weights, or its CascadeRegistrar over the configuration's
+stages), makes the pool of pairs from the seed, moves it to the card, warms
 up the cell's shapes (set-up, timed as setup_s from the process start to
 the first timed call), then measures for --seconds. With --trace 1 it also
 counts the pool's work in its set-up, and after the measured window runs a
 traced one (benchmark/trace.py). Then it frees the system, runs the plain
-reference on a sample of the calls drawn from the seed (benchmark/check.py)
-and prints, as its last lines on standard error, each compared number
-beside its limit, and as the last line of standard output one JSON object:
+reference that the configuration names on a sample of the calls drawn from
+the seed (benchmark/check.py) and prints, as its last lines on standard
+error, each compared number beside its limit, and as the last line of
+standard output one JSON object:
 correct, attempted, failed, metrics (the cell's end-to-end metrics with
 --trace 0, its per-layer metrics with --trace 1), device (and busy_s,
 window_s and a breakdown with --trace 1) and, last, the checks.
@@ -70,17 +72,16 @@ def execute(config: dict, traffic: dict, seed: int, seconds: float, trace: bool,
     from benchmark import check, drive, generate, manifest, system, work
     from benchmark import trace as tracing
     from benchmark.record import Run
-    from benchmark.reference.deepvcp import Reference, load_npz
 
     torch.backends.cuda.matmul.allow_tf32 = bool(config["precision"]["allow_tf32"])
     torch.backends.cudnn.allow_tf32 = bool(config["precision"]["allow_tf32"])
-    params = load_npz(str(ROOT / config["weights"]))
-    N = int(config["model"]["num_points"])
+    params = system.params(config)
+    N = manifest.num_points(config)
     pool = generate.make_pool(seed, traffic, N)
     B, P = int(traffic["batch"]), int(traffic["pool"])
     if P % B:
         raise ValueError(f"the pool ({P}) must hold whole batches of {B}")
-    reg = system.registrar(config, params, device)
+    reg = system.build(config, params, device)
     src = torch.from_numpy(pool.src).to(device)
     tgt = torch.from_numpy(pool.tgt).to(device)
     batches = [(src[s:s + B], tgt[s:s + B]) for s in range(0, P, B)]
@@ -99,7 +100,7 @@ def execute(config: dict, traffic: dict, seed: int, seconds: float, trace: bool,
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
     traced = reduced = None
     if trace:
-        with tracing.spans(reg.model), tracing.profiler() as prof:
+        with tracing.spans(*system.models(reg)), tracing.profiler() as prof:
             with tracing.span("window"):
                 traced = drive.run(reg, batches, traffic, float("inf"), sample.offer,
                                    limit=int(traffic["trace_calls"]), first=window.issued)
@@ -125,7 +126,7 @@ def execute(config: dict, traffic: dict, seed: int, seconds: float, trace: bool,
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    reference = Reference(config, params, device)
+    reference = system.reference(config, params, device)
     numbers = check.compare(reference, items, batches)
     correct, checks = check.judge(numbers, config["limits"])
     if reduced is not None:

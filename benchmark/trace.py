@@ -2,12 +2,13 @@
 files around the calls into the port's layers, torch.profiler over the
 window, and the reduction of its trace to what the per-layer readers take.
 
-Spans: the registrar's model instance gets `encode`, `correspond` and
-`candidate_neighbors` shadowed by instance attributes that open a
-torch.profiler.record_function range ("bench.encode", ...) around the
-original method; the harness opens "bench.window" around the traced window,
-"bench.call" around each call and "bench.pose_copy" around its own copy of
-the pose to the host. Nothing is installed with `--trace 0`.
+Spans: the model instance of each of the system's stages gets `encode`,
+`correspond` and `candidate_neighbors` shadowed by instance attributes that
+open a torch.profiler.record_function range ("bench.encode", ...) around the
+original method, so that a range's time sums over the stages; the harness
+opens "bench.window" around the traced window, "bench.call" around each call
+and "bench.pose_copy" around its own copy of the pose to the host. Nothing
+is installed with `--trace 0`.
 
 Reduction, all from the one trace: the device's busy time is the union of
 the intervals of every device activity (kernels, copies, fills; the
@@ -41,22 +42,24 @@ def span(name: str):
 
 
 @contextlib.contextmanager
-def spans(model):
-    """Within the block, the model instance's SPANS methods run inside their
+def spans(*models):
+    """Within the block, each model instance's SPANS methods run inside their
     bench.* ranges; afterwards the class's methods are back."""
-    for name in SPANS:
-        original = getattr(model, name)
+    for model in models:
+        for name in SPANS:
+            original = getattr(model, name)
 
-        def wrapped(*args, _original=original, _name=name, **kwargs):
-            with span(_name):
-                return _original(*args, **kwargs)
+            def wrapped(*args, _original=original, _name=name, **kwargs):
+                with span(_name):
+                    return _original(*args, **kwargs)
 
-        setattr(model, name, wrapped)
+            setattr(model, name, wrapped)
     try:
         yield
     finally:
-        for name in SPANS:
-            delattr(model, name)
+        for model in models:
+            for name in SPANS:
+                delattr(model, name)
 
 
 def profiler():

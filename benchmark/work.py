@@ -25,6 +25,8 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
+from benchmark import manifest
+
 # NVIDIA H100 SXM data sheet, dense: float32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
@@ -150,13 +152,19 @@ def radii(config: dict) -> list:
 def pool_work(config: dict, src: torch.Tensor, tgt: torch.Tensor) -> Dict[str, np.ndarray]:
     """Per pair of the pool (src, tgt [P, N, 3] on the device): its
     registration's operations ("flops") and the least time of its K1
-    launches ("band_max_bound_ms", both clouds)."""
-    N = config["model"]["num_points"]
-    rs = radii(config)
-    src_pairs, tgt_pairs = in_radius_pairs(src, rs), in_radius_pairs(tgt, rs)
-    flops = np.array([pair_flops(config, s, t) for s, t in zip(src_pairs, tgt_pairs)],
-                     dtype=np.float64)
-    band = np.array([band_max_bound_ms(config["model"], N, s)
-                     + band_max_bound_ms(config["model"], N, t)
-                     for s, t in zip(src_pairs, tgt_pairs)])
+    launches ("band_max_bound_ms", both clouds), summed over the
+    configuration's stages (manifest.stages), each at its own grid,
+    refinements and radii: a cascade encodes both clouds in every stage."""
+    flops = band = 0
+    counted = {}
+    for stage in manifest.stages(config):
+        m, rs = stage["model"], tuple(radii(stage))
+        if rs not in counted:
+            counted[rs] = in_radius_pairs(src, rs), in_radius_pairs(tgt, rs)
+        src_pairs, tgt_pairs = counted[rs]
+        flops = flops + np.array([pair_flops(stage, s, t) for s, t in zip(src_pairs, tgt_pairs)],
+                                 dtype=np.float64)
+        band = band + np.array([band_max_bound_ms(m, m["num_points"], s)
+                                + band_max_bound_ms(m, m["num_points"], t)
+                                for s, t in zip(src_pairs, tgt_pairs)])
     return {"flops": flops, "band_max_bound_ms": band}
